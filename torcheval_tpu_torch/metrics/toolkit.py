@@ -1,0 +1,216 @@
+"""Distributed sync toolkit and collection helpers.
+
+Counterpart of ``torcheval_tpu/metrics/toolkit.py`` for this slice:
+``sync_and_compute(_collection)``, ``get_synced_metric(_collection)`` on the
+local-replica path (states gathered through ``synclib.sync_states`` and
+merged rank by rank into clones), ``update_collection`` (every plan built,
+and so validated, before any runs; then each runs eagerly in turn),
+``clone_metric(s)``, ``reset_metrics`` and ``to_device``.
+
+Left for later slices: sync provenance, resilience policies, the
+observability recorder, the sync plane and admission control.
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+from typing import Any, Dict, Iterable, List, Optional, TypeVar, Union
+
+import numpy as np
+import torch
+
+from torcheval_tpu_torch.distributed import (
+    LocalReplicaGroup,
+    ProcessGroup,
+    default_process_group,
+)
+from torcheval_tpu_torch.metrics import synclib
+from torcheval_tpu_torch.metrics.metric import Metric, TState
+
+_logger: logging.Logger = logging.getLogger(__name__)
+
+__all__ = [
+    "sync_and_compute",
+    "sync_and_compute_collection",
+    "get_synced_metric",
+    "get_synced_metric_collection",
+    "clone_metric",
+    "clone_metrics",
+    "reset_metrics",
+    "to_device",
+    "update_collection",
+]
+
+TMetric = TypeVar("TMetric", bound=Metric)
+MetricOrReplicas = Union[TMetric, List[TMetric]]
+
+
+def _select_replicas(replicas, group: ProcessGroup, what: str) -> list:
+    """The member replicas of a local-replica (sub)group: the full
+    per-replica list, or for a subgroup also the parent world's list."""
+    if not isinstance(replicas, (list, tuple)):
+        raise TypeError(
+            f"With a LocalReplicaGroup, pass the per-replica list of "
+            f"{what} (one per device/replica)."
+        )
+    member_ranks, parent_world = group._member_ranks, group.parent_world
+    if (
+        member_ranks is not None
+        and parent_world is not None
+        and len(replicas) == parent_world
+        and parent_world != group.world_size
+    ):
+        return [replicas[r] for r in member_ranks]
+    if len(replicas) != group.world_size:
+        raise ValueError(
+            f"Got {len(replicas)} replicas for a group of world_size "
+            f"{group.world_size}."
+        )
+    return list(replicas)
+
+
+def sync_and_compute(
+    metric: MetricOrReplicas, process_group: Optional[ProcessGroup] = None
+) -> Any:
+    """Sync state across ranks/replicas and compute on the merged state."""
+    return get_synced_metric(metric, process_group).compute()
+
+
+def sync_and_compute_collection(
+    metrics: Union[Dict[str, Metric], List[Dict[str, Metric]]],
+    process_group: Optional[ProcessGroup] = None,
+) -> Dict[str, Any]:
+    """Sync a ``{name: Metric}`` collection in one batched state exchange
+    and compute every merged metric."""
+    synced = get_synced_metric_collection(metrics, process_group)
+    return {name: m.compute() for name, m in synced.items()}
+
+
+def get_synced_metric(
+    metric: MetricOrReplicas, process_group: Optional[ProcessGroup] = None
+) -> Metric:
+    """Gather every rank's state and merge into a fresh metric."""
+    if isinstance(metric, (list, tuple)):
+        wrapped: Any = [{"_metric": m} for m in metric]
+    else:
+        wrapped = {"_metric": metric}
+    return get_synced_metric_collection(wrapped, process_group)["_metric"]
+
+
+def get_synced_metric_collection(
+    metrics: Union[Dict[str, Metric], List[Dict[str, Metric]]],
+    process_group: Optional[ProcessGroup] = None,
+) -> Dict[str, Metric]:
+    """Collection variant: every metric's states travel in one batched
+    exchange ordered by ``synclib.metrics_traversal_order``; the merge
+    folds ranks in ascending order (rank 0 + rank 1, then + rank 2, ...)."""
+    group = process_group if process_group is not None else default_process_group()
+    if not isinstance(group, LocalReplicaGroup):
+        if group.world_size != 1:
+            raise NotImplementedError(
+                "multi-process sync lands with the torch.distributed group"
+            )
+        _logger.warning(
+            "World size is 1, and metric states are not synced; "
+            "returning the input metric collection."
+        )
+        return metrics if isinstance(metrics, dict) else metrics[0]
+
+    replicas = _select_replicas(metrics, group, "metric collections")
+    payload = [{name: m.state_dict() for name, m in coll.items()} for coll in replicas]
+    template = replicas[0]
+    per_rank_states = synclib.sync_states(payload, group)
+
+    merged: Dict[str, Metric] = {}
+    for name, base in template.items():
+        rank_metrics: List[Metric] = []
+        for rank_states in per_rank_states:
+            clone = clone_metric(base)
+            clone.load_state_dict(_restore_state_types(rank_states[name]), strict=False)
+            rank_metrics.append(clone)
+        target = rank_metrics[0].to(base.device)
+        target.merge_state(rank_metrics[1:])
+        merged[name] = target
+    return merged
+
+
+def _restore_state_types(state_dict: Dict[str, Any]) -> Dict[str, TState]:
+    """numpy payloads from the wire -> tensors; scalars stay native."""
+
+    def tensor(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, copy=True))
+
+    restored: Dict[str, TState] = {}
+    for name, value in state_dict.items():
+        if isinstance(value, np.ndarray):
+            restored[name] = tensor(value)
+        elif isinstance(value, list):
+            restored[name] = [tensor(v) for v in value]
+        elif isinstance(value, dict):
+            restored[name] = {k: tensor(v) for k, v in value.items()}
+        else:
+            restored[name] = value
+    return restored
+
+
+def clone_metric(metric: TMetric) -> TMetric:
+    """Deep copy."""
+    return copy.deepcopy(metric)
+
+
+def clone_metrics(metrics: List[TMetric]) -> List[TMetric]:
+    return [clone_metric(m) for m in metrics]
+
+
+def reset_metrics(metrics: Iterable[TMetric]) -> Iterable[TMetric]:
+    """Reset a batch of metrics."""
+    for metric in metrics:
+        metric.reset()
+    return metrics
+
+
+def to_device(metrics: Iterable[TMetric], device: Any) -> Iterable[TMetric]:
+    """Move a batch of metrics."""
+    for metric in metrics:
+        metric.to(device)
+    return metrics
+
+
+def update_collection(
+    metrics: Union[Dict[str, Metric], Iterable[Metric]],
+    *args: Any,
+    **kwargs: Any,
+) -> Union[Dict[str, Metric], Iterable[Metric]]:
+    """Update every metric on the same batch.
+
+    Every metric's update plan is built first -- each plan validates its
+    inputs -- so a batch that any plan rejects raises before any metric
+    has changed. Metrics without a plan then update themselves, and the
+    plans run eagerly in turn. Returns the input collection, updated in
+    place.
+
+    >>> import torch
+    >>> from torcheval_tpu_torch.metrics import MulticlassAccuracy, MulticlassF1Score
+    >>> from torcheval_tpu_torch.metrics import toolkit
+    >>> metrics = {"acc": MulticlassAccuracy(device="cpu"),
+    ...            "f1": MulticlassF1Score(device="cpu")}
+    >>> _ = toolkit.update_collection(
+    ...     metrics, torch.tensor([[0.9, 0.1], [0.2, 0.8]]), torch.tensor([0, 1]))
+    >>> metrics["acc"].compute()
+    tensor(1.)
+    """
+    items = list(metrics.values() if isinstance(metrics, dict) else metrics)
+    planned = []
+    fallback: List[Metric] = []
+    for metric in items:
+        plan = metric._update_plan(*args, **kwargs)
+        if plan is None:
+            fallback.append(metric)
+        else:
+            planned.append((metric, plan))
+    for metric in fallback:
+        metric.update(*args, **kwargs)
+    for metric, plan in planned:
+        metric._apply_update_plan(plan)
+    return metrics

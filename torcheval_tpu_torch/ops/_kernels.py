@@ -1,0 +1,162 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own plain-C
+shared library, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). Builds happen on first use, into
+``build/torcheval_tpu_torch/`` beside the package, under a name keyed by a
+hash of the source and the flags: a changed source rebuilds, an unchanged
+one loads. ``build_all()`` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine may have no ``nvcc``.
+
+``LAUNCHES`` counts kernel launches by name. A wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torcheval_tpu_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# source stem -> ctypes signature of every exported function
+_SIGNATURES = {
+    "fused_auc_hist": {
+        "tev_fused_auc_hist": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_float,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ],
+        ),
+        "tev_fused_auc_hist_blocks_per_sm": (
+            ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+        ),
+        "tev_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+}
+
+LAUNCHES: Dict[str, int] = {"fused_auc_hist": 0}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for candidate in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if candidate and os.path.exists(candidate):
+            return candidate
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under CUDA_HOME, default "
+        "/usr/local/cuda): the CUDA kernels build on first use and need "
+        "the CUDA toolkit"
+    )
+
+
+def _library_path(name: str) -> Path:
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _start_build(name: str):
+    """Start ``nvcc`` for one source; returns (process, log file, temporary
+    path, final path), or None when the library is already built."""
+    lib = _library_path(name)
+    if lib.exists():
+        return None
+    nvcc = _nvcc()
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    log = lib.with_suffix(".log").open("w")
+    proc = subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+        stdout=log, stderr=subprocess.STDOUT,
+    )
+    return proc, log, tmp, lib
+
+
+def _finish_build(name: str, started) -> None:
+    proc, log, tmp, lib = started
+    rc = proc.wait()
+    log.close()
+    if rc != 0:
+        raise RuntimeError(
+            f"nvcc failed ({rc}) building {name}.cu:\n"
+            + lib.with_suffix(".log").read_text()
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
+
+
+def build_all() -> List[str]:
+    """Build every kernel source not yet built, one ``nvcc`` per source,
+    all started together; returns the names built."""
+    started = {}
+    for src in sorted(_CSRC.glob("*.cu")):
+        job = _start_build(src.stem)
+        if job is not None:
+            started[src.stem] = job
+    for name, job in started.items():
+        _finish_build(name, job)
+    return sorted(started)
+
+
+def build_log(name: str) -> str:
+    """The compiler output (``-Xptxas -v``: registers, shared memory,
+    spills) of the last build of ``name``, or '' when it was never built
+    here."""
+    log = _library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    job = _start_build(name)
+    if job is not None:
+        _finish_build(name, job)
+    lib = ctypes.CDLL(str(_library_path(name)))
+    for fn_name, (restype, argtypes) in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    _LOADED[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = lib.tev_cuda_error_string(code)
+        raise RuntimeError(
+            f"{what} failed: CUDA error {code} "
+            f"({msg.decode() if msg else 'unknown'})"
+        )

@@ -1,0 +1,151 @@
+"""Input coercion and state carried across packages.
+
+Every ``update()`` and functional entry point accepts torch tensors, numpy
+arrays, Python scalars and sequences, as the JAX package's
+``utils/convert.py`` does. numpy float64 inputs narrow to float32, matching
+the JAX package's default (x64 disabled) so both packages compute on the
+same values; torch tensors keep their dtype.
+
+``numpy_state_dict`` / ``load_numpy_state_dict`` carry a metric's state
+between this package and the JAX package through numpy: the JAX
+package's ``state_dict()`` read out as numpy loads here, and the reverse.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+TensorLike = Any  # torch.Tensor | np.ndarray | scalar | sequence
+DeviceLike = Union[torch.device, str, None]
+
+
+def canonicalize_device(device: DeviceLike) -> torch.device:
+    """Resolve ``device`` for a class metric's state.
+
+    ``None`` means CUDA: metric state lives on the card. Without a card
+    this raises instead of quietly running on the CPU -- pass
+    ``device="cpu"`` to ask for the CPU. A bare ``"cuda"`` resolves to
+    the current CUDA device index, so state and inputs compare equal.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "torcheval_tpu_torch metrics keep their state on CUDA by "
+                "default, but no CUDA device is available; pass "
+                'device="cpu" to run on the CPU.'
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def functional_device(device: DeviceLike, *inputs: Any) -> torch.device:
+    """Where a functional entry point runs: an explicit ``device``, else
+    the device of its first tensor input, else CUDA (numpy arrays and
+    Python scalars go to the card unless ``device="cpu"`` is passed)."""
+    if device is not None:
+        return canonicalize_device(device)
+    for x in inputs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return canonicalize_device(None)
+
+
+def to_torch(
+    x: TensorLike,
+    *,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
+    """Coerce ``x`` to a tensor on ``device`` (no copy when it is already
+    there with the right dtype)."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach()
+    else:
+        arr = np.asarray(x)
+        if arr.dtype == np.float64:
+            arr = arr.astype(np.float32)
+        elif arr.dtype == object:
+            raise TypeError(f"cannot convert {type(x).__name__} to a tensor")
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.to(device=device, dtype=dtype)
+
+
+def to_torch_float(
+    x: TensorLike, *, device: Optional[torch.device] = None
+) -> torch.Tensor:
+    """``to_torch``, then non-float dtypes promote to float32."""
+    t = to_torch(x, device=device)
+    if not t.is_floating_point():
+        t = t.to(torch.float32)
+    return t
+
+
+def resolve_weight(
+    weight: Any, input: torch.Tensor, *, int_clause: bool = False
+) -> tuple:
+    """Split a ``weight`` argument into the scalar / matching-tensor case:
+    ``(is_scalar, weight_tensor)``, the tensor float32 and on ``input``'s
+    device (mirrors the JAX package's ``resolve_weight``)."""
+    if isinstance(weight, (float, int)) and not isinstance(weight, bool):
+        return True, torch.full(
+            (), float(weight), dtype=torch.float32, device=input.device
+        )
+    weight_t = to_torch_float(weight, device=input.device)
+    if weight_t.shape == input.shape:
+        return False, weight_t
+    raise ValueError(
+        "Weight must be either a float value or "
+        + ("an int value or " if int_clause else "")
+        + f"a tensor that matches the input tensor size. Got {weight} instead."
+    )
+
+
+def _to_numpy(value: Any) -> Any:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    if isinstance(value, list):
+        return [_to_numpy(v) for v in value]
+    if isinstance(value, dict):
+        return {k: _to_numpy(v) for k, v in value.items()}
+    return value
+
+
+def numpy_state_dict(metric) -> Dict[str, Any]:
+    """``metric.state_dict()`` with every tensor read out as numpy --
+    the form the JAX package's ``load_state_dict`` takes."""
+    return {name: _to_numpy(v) for name, v in metric.state_dict().items()}
+
+
+def load_numpy_state_dict(metric, state: Dict[str, Any]) -> None:
+    """Load ``{name: np.ndarray | float | int}`` (for example the JAX
+    package's ``state_dict()`` read out as numpy) into ``metric``.
+
+    Array states must arrive with the dtype this metric registered -- the
+    two packages share state dtypes, so a mismatch means the payload
+    belongs to another metric -- and scalar states stay Python numbers.
+    """
+    converted: Dict[str, Any] = {}
+    for name, value in state.items():
+        current = getattr(metric, name, None)
+        if isinstance(current, torch.Tensor):
+            arr = np.array(value, copy=True)
+            t = torch.from_numpy(arr)
+            if t.dtype != current.dtype:
+                raise TypeError(
+                    f"state {name!r} of {type(metric).__name__} is "
+                    f"{current.dtype}, got a {arr.dtype} array"
+                )
+            converted[name] = t
+        elif isinstance(value, np.generic):
+            converted[name] = value.item()
+        elif isinstance(value, np.ndarray) and value.ndim == 0:
+            converted[name] = value.item()
+        else:
+            converted[name] = value
+    metric.load_state_dict(converted)
