@@ -22,14 +22,23 @@ phases, printing one JSON line for each:
    the fused-AUC kernel must have launched once per update.
 3. ``kernel_vs_plain``: the kernel wrapper against its plain PyTorch
    version on the same CUDA tensors, over sizes, task counts, score
-   distributions, weights, bounds, NaN and empty inputs and bin counts:
-   bitwise equal on unit weights, within rtol 1e-5 with mass conserved on
-   random weights.
+   distributions, weights, bounds, NaN and empty inputs and bin counts, and
+   what the kernel's float4 loads and cluster layout could break: scores
+   one element off a 16-byte boundary, labels and weights broadcast over
+   tasks, rows of 1 and 3 samples, 2 and 1,000 bins, every launch design
+   forced at shapes where the wrapper would pick another. Bitwise equal on
+   unit weights, within rtol 1e-5 with mass conserved on random weights.
 4. ``sync``: four ``LocalReplicaGroup`` replicas on the card, each fed a
    quarter of smaller classify and click streams; the synced results must
    equal single-stream metrics bitwise.
 5. ``timing``: the kernel against its plain version and ``torch.bincount``
-   at the main path's shapes, with the least time the memory traffic needs.
+   at the main path's shapes (T = 1 at 65,536 and 2^24 samples, and the
+   weighted 4-task batch), with its device time from the profiler, its
+   host time per call split three ways (``StreamingBinaryAUROC.update``,
+   the checked wrapper, the bare C launch), the least time the memory
+   traffic needs and the share of it reached; then a sweep of launch
+   designs over batch sizes, which sets where one cluster a task gives
+   way to several.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -43,6 +52,7 @@ The phase functions take ``device`` and sizes, so the CPU tests run phases
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -66,7 +76,9 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
 )
 from torcheval_tpu_torch.metrics import toolkit  # noqa: E402
 from torcheval_tpu_torch.ops import _kernels  # noqa: E402
+fa = importlib.import_module("torcheval_tpu_torch.ops.fused_auc")  # the module, not ops.fused_auc
 from torcheval_tpu_torch.ops.fused_auc import (  # noqa: E402
+    K1Geometry,
     _auc_from_hist,
     _auprc_from_hist,
     _histogram_cuda,
@@ -292,8 +304,28 @@ def phase_ctr_auc(device, n=CRITEO_EVAL, batch=CTR_BATCH, num_bins=NUM_BINS,
     }
 
 
-def _kernel_case(gen, n, tasks, skewed, weighted, bounds, num_bins, device, nan=False):
+def _k1_design(n, tasks, num_bins, geometry=None):
+    """The geometry the wrapper picks for this shape (or ``geometry``), as
+    the smoke reports it."""
+    if geometry is None:
+        geometry = fa._geometry(_kernels.load("fused_auc_hist"), torch.cuda.current_device(),
+                                n, tasks, num_bins)
+    mode = "single" if geometry.single else ("multi" if geometry.shared else "global")
+    return {"cluster": geometry.cluster, "clusters_per_task": geometry.clusters_per_task,
+            "smem_bytes": geometry.smem_bytes, "mode": mode}
+
+
+def _kernel_case(gen, n, tasks, skewed, weighted, bounds, num_bins, device, nan=False,
+                 offset=0, broadcast=False, geometry=None, soft=0.0):
     """One kernel-vs-plain comparison on the same CUDA tensors.
+
+    ``offset`` places the scores at that many elements past a 16-byte
+    boundary (a view into a larger buffer, so float4 loads must not be
+    taken for the head); ``broadcast`` makes labels and weights one row
+    expanded over the tasks (row stride 0); ``geometry`` forces a launch
+    design instead of the wrapper's choice; ``soft`` makes that share of
+    the labels fractional (the unit-weight kernel counts 0/1 labels and
+    adds any other label's float masses apart).
 
     Unit weights: the two must be bitwise equal. Random weights: float
     atomics add in a run-dependent order, so the kernel is held to the
@@ -313,11 +345,22 @@ def _kernel_case(gen, n, tasks, skewed, weighted, bounds, num_bins, device, nan=
         raw[:, 57::101] = hi + 1.0
     if nan:
         raw[:, ::97] = float("nan")
-    labels = (torch.rand((tasks, n), generator=gen, device=device) < base).to(torch.float32)
-    weights = torch.rand((tasks, n), generator=gen, device=device) if weighted else None
+    if offset:
+        buf = torch.empty(tasks * n + offset, device=device)
+        buf[offset:] = raw.reshape(-1)
+        raw = buf[offset:].view(tasks, n)
+    rows = 1 if broadcast else tasks
+    labels = (torch.rand((rows, n), generator=gen, device=device) < base[:rows]).to(torch.float32)
+    if soft:
+        fractional = torch.rand((rows, n), generator=gen, device=device) < soft
+        labels = torch.where(fractional, torch.rand((rows, n), generator=gen, device=device), labels)
+    weights = torch.rand((rows, n), generator=gen, device=device) if weighted else None
+    if broadcast:
+        labels = labels.expand(tasks, n)
+        weights = None if weights is None else weights.expand(tasks, n)
     out = torch.zeros((tasks, 2, num_bins), dtype=torch.float32, device=device)
     before = _kernels.LAUNCHES["fused_auc_hist"]
-    _histogram_cuda(out, raw.contiguous(), labels, weights, num_bins, bounds)
+    _histogram_cuda(out, raw, labels, weights, num_bins, bounds, geometry)
     plain = _histogram_plain_full(raw, labels, weights, num_bins, bounds)
     _sync(device)
     _check(
@@ -326,7 +369,7 @@ def _kernel_case(gen, n, tasks, skewed, weighted, bounds, num_bins, device, nan=
     )
     abs_err = float((out - plain).abs().max()) if out.numel() else 0.0
     rel = plain_rel = mass = 0.0
-    if weighted:
+    if weighted or soft:
         ref = _oracle_hist(_prepare_scores(raw, bounds), labels, weights, num_bins)
         scale = ref.abs().clamp(min=1e-30)
         rel = float(((out.double() - ref).abs() / scale).max())
@@ -339,7 +382,9 @@ def _kernel_case(gen, n, tasks, skewed, weighted, bounds, num_bins, device, nan=
         ok = torch.equal(out, plain)
     case = {
         "n": n, "tasks": tasks, "skewed": skewed, "weighted": weighted,
-        "bounds": bounds, "num_bins": num_bins, "nan": nan,
+        "bounds": bounds, "num_bins": num_bins, "nan": nan, "offset": offset,
+        "broadcast": broadcast, "soft": soft,
+        "design": _k1_design(n, tasks, num_bins, geometry) if n else None,
         "max_abs_err": abs_err, "max_rel_err_vs_float64": rel,
         "plain_max_rel_err_vs_float64": plain_rel, "mass_rel_err": mass,
     }
@@ -370,9 +415,49 @@ def phase_kernel_vs_plain(device, seed=2):
                                       NUM_BINS, device, nan=True))
     for tasks in (1, 4):
         cases.append(_kernel_case(gen, 0, tasks, False, False, (0.0, 1.0), NUM_BINS, device))
+    # what vector loads and the cluster layout can break: tiny rows and
+    # bin counts below or not a multiple of the cluster size
+    for i, (n, num_bins) in enumerate((n, b) for n in (1, 3, 4097) for b in (2, 1000)):
+        for tasks in (1, 4):
+            for weighted in (False, True):
+                cases.append(_kernel_case(gen, n, tasks, True, weighted, all_bounds[i % 3],
+                                          num_bins, device))
+    # scores one element past a 16-byte boundary
+    for n in (4097, 65_536, 1 << 24):
+        for tasks in (1, 4):
+            for weighted in (False, True):
+                cases.append(_kernel_case(gen, n, tasks, True, weighted, (0.0, 1.0),
+                                          NUM_BINS, device, offset=1))
+    # labels and weights broadcast over 4 tasks (row stride 0)
+    for n, offset in ((4097, 0), (65_536, 0), (65_537, 0), (65_537, 1), (1 << 22, 0)):
+        for weighted in (False, True):
+            cases.append(_kernel_case(gen, n, 4, True, weighted, (0.0, 1.0), NUM_BINS,
+                                      device, offset=offset, broadcast=True))
+    # 65,536 bins with several clusters a task; 2^20 bins: the global variant
+    for num_bins, n in ((65_536, 1 << 22), (1 << 20, 65_536)):
+        for tasks in (1, 4):
+            for weighted in (False, True):
+                cases.append(_kernel_case(gen, n, tasks, True, weighted, (0.0, 1.0),
+                                          num_bins, device))
+    # fractional labels under unit weights: all of them, or a sparse few
+    for n in (4097, 65_536, 1 << 22):
+        for tasks in (1, 4):
+            for soft in (1.0, 0.01):
+                cases.append(_kernel_case(gen, n, tasks, True, False, (0.0, 1.0), NUM_BINS,
+                                          device, soft=soft))
+    # every design at shapes where the wrapper would pick another
+    for n in (4097, 65_536, 1 << 22):
+        for geometry in (K1Geometry(1, 1, 65536), K1Geometry(1, 16, 65536),
+                         K1Geometry(2, 8, 65536), K1Geometry(4, 1, 65536),
+                         K1Geometry(16, 1, 65536), K1Geometry(8, 5, 8192, True),
+                         K1Geometry(16, 1, 4096, True), K1Geometry(16, 3, 4096, True)):
+            for weighted in (False, True):
+                cases.append(_kernel_case(gen, n, 4, True, weighted, (0.0, 1.0), NUM_BINS,
+                                          device, geometry=geometry))
     return {
         "phase": "kernel_vs_plain", "cases": len(cases),
-        "bitwise_cases": sum(1 for c in cases if not c["weighted"]),
+        "bitwise_cases": sum(1 for c in cases if not (c["weighted"] or c["soft"])),
+        "designs": sorted({json.dumps(c["design"], sort_keys=True) for c in cases if c["design"]}),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_err_vs_float64": max(c["max_rel_err_vs_float64"] for c in cases),
         "plain_max_rel_err_vs_float64": max(c["plain_max_rel_err_vs_float64"] for c in cases),
@@ -457,62 +542,170 @@ def _host_ms(fn, device, reps):
     return seconds * 1e3 / reps
 
 
-def _device_ms(fn, device, reps, kernel_name):
+def _device_ms(fn, device, reps, kernel_name="fused_auc_hist_kernel"):
     """Device time per launch of the kernels named ``kernel_name`` from a
-    torch.profiler (CUPTI) trace; None when the trace shows none."""
+    torch.profiler (CUPTI) trace. A trace that shows none is taken once
+    more (CUPTI has dropped a short window's kernels once in a sweep of
+    hundreds); a second empty trace fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    seen = []
+    for _ in range(2):
         torch.cuda.synchronize(device)
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel_name in evt.key:
-            total_us += getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)
-            count += evt.count
-    return total_us / 1e3 / count if count else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(device)
+        total_us, count = 0.0, 0
+        for evt in prof.key_averages():
+            if kernel_name in evt.key:
+                total_us += getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)
+                count += evt.count
+        if count > 0 and total_us > 0:
+            return total_us / 1e3 / count
+        seen = [(e.key[:60], e.count) for e in prof.key_averages()][:12]
+    raise AssertionError(f"profiler shows no device time for {kernel_name}; it saw {seen}")
 
 
-def phase_timing(device, seed=4):
+def _bare_launch(out, s, y, w, num_bins, bounds, device):
+    """The C launch alone, its arguments built once: what one launch costs
+    the host below the wrapper (ctypes call, cudaLaunchKernelEx). Not
+    counted in ``_kernels.LAUNCHES``: it is no wrapper launch."""
+    lib = _kernels.load("fused_auc_hist")
+    tasks, n = s.shape
+    g = fa._geometry(lib, torch.cuda.current_device(), n, tasks, num_bins)
+    lo, inv_span = fa._bounds_f32(bounds)
+    args = _kernels.K1_LAUNCH.pack(
+        s.data_ptr(), y.data_ptr(), 0 if w is None else w.data_ptr(), 0, 0,
+        out.data_ptr(), y.stride(0), 0 if w is None else w.stride(0), n, tasks, num_bins,
+        0, lo, inv_span, g.cluster, g.clusters_per_task, g.smem_bytes, g.split)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launch():
+        code = lib.tev_fused_auc_hist(args, stream)
+        if code:
+            _kernels.check(lib, code, "bare fused_auc_hist launch")
+    return launch
+
+
+def _timing_row(gen, n, tasks, skewed, weighted, device):
+    s = _scores(gen, (tasks, n), skewed, device)
+    y = (torch.rand((tasks, n), generator=gen, device=device) < s).to(torch.float32)
+    w = torch.rand((tasks, n), generator=gen, device=device) if weighted else None
+    hist = torch.zeros((tasks, 2, NUM_BINS), dtype=torch.float32, device=device)
+    bins = torch.clamp((s * NUM_BINS).to(torch.int64), max=NUM_BINS - 1)
+    bins = (bins + torch.arange(tasks, device=device)[:, None] * NUM_BINS).reshape(-1)
+    idx2 = torch.cat([bins, bins + tasks * NUM_BINS])
+    ww = torch.ones_like(s) if w is None else w
+    w2 = torch.cat([(ww * y).reshape(-1), (ww * (1.0 - y)).reshape(-1)])
+    reps = 200 if n <= CTR_BATCH else 20
+    bounds = (0.0, 1.0)
+
+    def launch():
+        _histogram_cuda(hist, s, y, w, NUM_BINS, bounds)
+
+    metric = StreamingBinaryAUROC(num_tasks=tasks, num_bins=NUM_BINS, device=device)
+    us, uy, uw = (s[0], y[0], None) if tasks == 1 else (s, y, w)
+
+    before = _kernels.LAUNCHES["fused_auc_hist"]
+    kernel_ms = _time_ms(launch, device, reps)
+    _check(_kernels.LAUNCHES["fused_auc_hist"] == before + reps + 3, "timing launch count")
+    host = {
+        "update": _host_ms(lambda: metric.update(us, uy, uw), device, reps),
+        "wrapper": _host_ms(launch, device, reps),
+        "c_launch": _host_ms(_bare_launch(hist, s, y, w, NUM_BINS, bounds, device), device, reps),
+    }
+    device_ms = _device_ms(launch, device, reps)
+    plain_ms = _time_ms(lambda: hist.add_(_histogram_plain_full(s, y, w, NUM_BINS, bounds)),
+                        device, reps)
+    library_ms = _time_ms(
+        lambda: torch.bincount(idx2, weights=w2, minlength=2 * tasks * NUM_BINS), device, reps)
+    # scores + labels (+ weights) read once, unit weights implicit; the
+    # histogram read and written once (accumulate form)
+    nbytes = (12 if weighted else 8) * tasks * n + 2 * 8 * tasks * NUM_BINS
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "n": n, "tasks": tasks, "num_bins": NUM_BINS,
+        "scores": "skewed" if skewed else "uniform", "weighted": weighted,
+        "design": _k1_design(n, tasks, NUM_BINS),
+        "kernel_ms": kernel_ms, "kernel_device_ms": device_ms,
+        "kernel_host_ms_per_call": host["wrapper"], "host_ms_per_call": host,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+        "bound_share_device": bound_ms / device_ms, "bound_share_events": bound_ms / kernel_ms,
+        "reps": reps,
+    }
+
+
+def _design_sweep(gen, device, full=False):
+    """Device time of launch designs over batch sizes (T = 1, unit
+    weights): at 8,192 bins, replicated clusters of 1 to 16 CTAs in counts
+    from one a task to a full card, and the split layout; at 65,536 bins,
+    the split layout against the global-memory variant. Sets the
+    geometry's switch points. Forced geometries go through the checked
+    wrapper like any other launch. ``full`` sweeps every batch size and
+    design; the default keeps the rows that bracket the wrapper's
+    choices at the main path's sizes."""
+    lib = _kernels.load("fused_auc_hist")
+    dev = torch.cuda.current_device()
+    active = fa._device_occupancy(lib, dev)
+    rows = []
+
+    def run(n, num_bins, skewed, designs):
+        s = _scores(gen, (1, n), skewed, device)
+        y = (torch.rand((1, n), generator=gen, device=device) < s).to(torch.float32)
+        hist = torch.zeros((1, 2, num_bins), dtype=torch.float32, device=device)
+        designs = {"default": fa._geometry(lib, dev, n, 1, num_bins), **designs}
+        for name, g in designs.items():
+            ms = _device_ms(lambda: _histogram_cuda(hist, s, y, None, num_bins, (0.0, 1.0), g),
+                            device, 30 if n <= (1 << 20) else 10)
+            rows.append({"n": n, "num_bins": num_bins, "scores": "skewed" if skewed else "uniform",
+                         "design": name, "cluster": g.cluster, "split": g.split,
+                         "clusters_per_task": g.clusters_per_task, "device_ms": ms})
+
+    sizes = (1 << 16, 1 << 18, 1 << 20, 1 << 24) if full else (1 << 16, 1 << 24)
+    for n in sizes:
+        designs = {}
+        for c in (1, 2, 4, 8, 16):
+            most = active(c, 8 * NUM_BINS)
+            for ctas in (8, 16, 32, 64, 128, c * most):
+                k = ctas // c
+                if 1 <= k <= most and (k == 1 or 4 * c * k * fa._THREADS <= n):
+                    if full or ctas in (32, c * most):
+                        designs[f"rep_c{c}x{k}"] = K1Geometry(c, k, 8 * NUM_BINS)
+        split_most = active(8, NUM_BINS)
+        designs["split_c8x1"] = K1Geometry(8, 1, NUM_BINS, True)
+        designs[f"split_c8x{split_most}"] = K1Geometry(8, split_most, NUM_BINS, True)
+        for skewed in (True, False) if n == 1 << 24 else (True,):
+            run(n, NUM_BINS, skewed, designs)
+    big = 65_536
+    for n in (1 << 16, 1 << 20, 1 << 24) if full else ():
+        designs = {}
+        for c in (8, 16):
+            smem = 8 * big // c
+            most = active(c, smem)
+            designs[f"split_c{c}x1"] = K1Geometry(c, 1, smem, True)
+            designs[f"split_c{c}x{most}"] = K1Geometry(c, most, smem, True)
+        most = active(1, 0)
+        for k in (4, 16, most):
+            designs[f"global_x{k}"] = K1Geometry(1, k, 0)
+        run(n, big, True, designs)
+    return rows
+
+
+def phase_timing(device, seed=4, full_sweep=False):
     gen = torch.Generator(device=device).manual_seed(seed)
     rows = []
-    for n in (CTR_BATCH, 1 << 24):
-        for skewed in (False, True):
-            s = _scores(gen, (1, n), skewed, device)
-            y = (torch.rand((1, n), generator=gen, device=device) < s).to(torch.float32)
-            hist = torch.zeros((1, 2, NUM_BINS), dtype=torch.float32, device=device)
-            bins = torch.clamp((s * NUM_BINS).to(torch.int64), max=NUM_BINS - 1).reshape(-1)
-            idx2 = torch.cat([bins, bins + NUM_BINS])
-            w2 = torch.cat([y, 1.0 - y], dim=1).reshape(-1)
-            reps = 200 if n <= CTR_BATCH else 20
-            def launch():
-                _histogram_cuda(hist, s, y, None, NUM_BINS, (0.0, 1.0))
-
-            before = _kernels.LAUNCHES["fused_auc_hist"]
-            kernel_ms = _time_ms(launch, device, reps)
-            _check(_kernels.LAUNCHES["fused_auc_hist"] == before + reps + 3, "timing launch count")
-            host_ms = _host_ms(launch, device, reps)
-            device_ms = _device_ms(launch, device, reps, "fused_auc_hist_kernel")
-            plain_ms = _time_ms(
-                lambda: hist.add_(_histogram_plain_full(s, y, None, NUM_BINS, (0.0, 1.0))),
-                device, reps)
-            library_ms = _time_ms(
-                lambda: torch.bincount(idx2, weights=w2, minlength=2 * NUM_BINS),
-                device, reps)
-            # scores + labels read once (unit weights are implicit); the
-            # histogram read and written once (accumulate form)
-            nbytes = 8 * n + 2 * 8 * NUM_BINS
-            rows.append({
-                "n": n, "tasks": 1, "num_bins": NUM_BINS,
-                "scores": "skewed" if skewed else "uniform",
-                "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "kernel_device_ms": device_ms, "kernel_host_ms_per_call": host_ms,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                "bytes": nbytes, "reps": reps,
-            })
+    for n, tasks, skewed, weighted in (
+        (CTR_BATCH, 1, False, False),
+        (CTR_BATCH, 1, True, False),
+        (CTR_BATCH, 4, True, True),  # the weighted multi-task stream's shape
+        (1 << 24, 1, False, False),
+        (1 << 24, 1, True, False),
+    ):
+        rows.append(_timing_row(gen, n, tasks, skewed, weighted, device))
     return {"phase": "timing", "card": _card_line(), "rows": rows,
+            "design_sweep": _design_sweep(gen, device, full_sweep),
             "library_call": "torch.bincount over precomputed bin indices (binning not timed)"}
 
 
@@ -527,9 +720,24 @@ def _card_line() -> str:
     return out.stdout.strip()
 
 
+def _ptxas_summary(log: str):
+    """Registers, spills and barriers of each kernel in an ``-Xptxas -v``
+    log, by mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = []
+        elif name and ("registers" in line or "spill" in line):
+            out[name].append(line.strip())
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sweep", action="store_true",
+                        help="time every launch design over every batch size in the timing phase")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -542,7 +750,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = _kernels.build_all()
     _emit({"phase": "build", "built": built, "seconds": time.perf_counter() - t0,
-           "ptxas": _kernels.build_log("fused_auc_hist").strip().splitlines()[-6:]})
+           "ptxas": _ptxas_summary(_kernels.build_log("fused_auc_hist"))})
 
     _kernels.reset_launch_counts()
     _emit(phase_classify(device, seed=args.seed))
@@ -552,10 +760,12 @@ def main(argv=None) -> int:
     kvp = phase_kernel_vs_plain(device, seed=args.seed + 2)
     _emit(kvp)
     _emit(phase_sync(device, seed=args.seed + 3))
-    timing = phase_timing(device, seed=args.seed + 4)
+    timing = phase_timing(device, seed=args.seed + 4, full_sweep=args.sweep)
     _emit(timing)
 
-    main_row = next(r for r in timing["rows"] if r["n"] == CTR_BATCH and r["scores"] == "skewed")
+    main_row = next(r for r in timing["rows"]
+                    if r["n"] == CTR_BATCH and r["tasks"] == 1 and r["scores"] == "skewed")
+    big = [r for r in timing["rows"] if r["n"] == 1 << 24]
     _emit({"kernels": [{
         "name": "fused_auc_hist",
         "route": "cuda",
@@ -568,6 +778,10 @@ def main(argv=None) -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": "bytes",
         "library_ms": main_row["library_ms"],
+        "device_ms": main_row["kernel_device_ms"],
+        "design": main_row["design"],
+        "design_2_24": big[0]["design"],
+        "bound_share_2_24": {r["scores"]: r["bound_share_device"] for r in big},
     }]})
     print(_card_line(), flush=True)
     _emit({"ok": True, "device": {

@@ -21,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 from typing import Dict, List
@@ -34,23 +35,40 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+
+# Fields of csrc/fused_auc_hist.cu's K1Launch, in order, as `struct` codes
+# (P pointer, q long long, i int, f float). A launch packs them with
+# K1_LAUNCH (native alignment, padded to the struct's 8-byte multiple) and
+# passes the bytes by pointer: one pack and one pointer cost the host less
+# than as many ctypes arguments or a ctypes.Structure.
+K1_LAUNCH_FIELDS = (
+    ("scores", "P"), ("labels", "P"), ("weights", "P"), ("task_lo", "P"),
+    ("task_span", "P"), ("out", "P"), ("label_row_stride", "q"),
+    ("weight_row_stride", "q"), ("n", "q"), ("num_tasks", "i"),
+    ("num_bins", "i"), ("per_task_bounds", "i"), ("lo", "f"),
+    ("inv_span", "f"), ("cluster", "i"), ("clusters_per_task", "i"),
+    ("smem_bytes", "i"), ("split", "i"),
+)
+
+
+def _padded(fmt: str) -> struct.Struct:
+    return struct.Struct(fmt + f"{-struct.calcsize(fmt) % 8}x")
+
+
+K1_LAUNCH = _padded("@" + "".join(code for _, code in K1_LAUNCH_FIELDS))
+
+
 # source stem -> ctypes signature of every exported function
 _SIGNATURES = {
     "fused_auc_hist": {
         "tev_fused_auc_hist": (
-            ctypes.c_int,
-            [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_float,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ],
+            ctypes.c_int, [ctypes.c_char_p, ctypes.c_void_p]
         ),
-        "tev_fused_auc_hist_blocks_per_sm": (
+        "tev_fused_auc_hist_init": (ctypes.c_int, [ctypes.c_int]),
+        "tev_fused_auc_hist_max_active_clusters": (
             ctypes.c_int, [ctypes.c_int, ctypes.c_int]
         ),
+        "tev_fused_auc_hist_global_blocks_per_sm": (ctypes.c_int, []),
         "tev_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }

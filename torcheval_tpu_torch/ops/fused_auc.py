@@ -28,8 +28,7 @@ whole task falls into the 0.5 bin (``bounds=None``).
 
 from __future__ import annotations
 
-import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,13 +42,6 @@ from torcheval_tpu_torch.utils.convert import (
 )
 
 DEFAULT_NUM_BINS = 8192
-
-# a block's shared-memory histogram is 2 * num_bins float32; above this the
-# kernel's global-memory variant is used (Hopper opts in to 227 KB a block)
-_SHARED_HIST_MAX_BYTES = 200 * 1024
-# samples a block of the shared variant should cover, so that zeroing and
-# flushing its 2 * num_bins histogram stays a small share of its work
-_MIN_SAMPLES_PER_BLOCK = 1024
 
 
 def _auc_from_hist(hist: torch.Tensor) -> torch.Tensor:
@@ -88,12 +80,26 @@ def _as_2d(
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Scores as float32 (T, n); labels and weights broadcast to the same
     shape as expanded views (a 1-D weight shared by every task is not
-    copied). An absent weight stays ``None``: unit weights are implicit."""
-    scores = torch.atleast_2d(input).to(torch.float32)
-    labels = torch.atleast_2d(target).to(torch.float32).expand(scores.shape)
+    copied). An absent weight stays ``None``: unit weights are implicit.
+    Each step is skipped where it would change nothing: this runs on every
+    streaming update."""
+    scores = _float32_rows(input)
+    labels = _float32_rows(target)
+    if labels.shape != scores.shape:
+        labels = labels.expand(scores.shape)
     if weight is not None:
-        weight = torch.atleast_2d(weight).to(torch.float32).expand(scores.shape)
+        weight = _float32_rows(weight)
+        if weight.shape != scores.shape:
+            weight = weight.expand(scores.shape)
     return scores, labels, weight
+
+
+def _float32_rows(x: torch.Tensor) -> torch.Tensor:
+    """``torch.atleast_2d(x).to(torch.float32)``, without the calls that
+    would not change ``x``."""
+    if x.ndim < 2:
+        x = x.reshape(1, -1)
+    return x if x.dtype == torch.float32 else x.to(torch.float32)
 
 
 def _normalize_scores(scores: torch.Tensor) -> torch.Tensor:
@@ -181,16 +187,168 @@ def _histogram_plain_full(
 
 # ------------------------------------------------------------------- kernel
 
+_THREADS = 512  # threads a CTA (kThreads in csrc/fused_auc_hist.cu)
+# The switch points below come from chip_smoke.py's design sweep
+# (`python3 chip_smoke.py --sweep`, PERF.md): T = 1, skewed and uniform
+# scores, 65,536 to 2^24 samples, 8,192 and 65,536 bins.
+#
+# A histogram of up to this many bytes (2 * num_bins float32: 8,192 bins)
+# is kept whole in every CTA ("replicated"), in clusters of
+# _REPLICA_CLUSTER whose copies the flush sums over distributed shared
+# memory; a cluster joins the task for every _CTA_SAMPLES samples a CTA
+_REPLICA_MAX_BYTES = 64 * 1024
+_REPLICA_CLUSTER = 8
+_CTA_SAMPLES = 1 << 11
+# A larger histogram is split over a cluster (C doubling from 2 until a
+# CTA's slice, 2 * ceil(num_bins / C) float32, fits _SLICE_TARGET_BYTES),
+# when the batch has at least _SPLIT_SAMPLES_PER_BIN samples a bin to pay
+# for zeroing and flushing it; a smaller batch, or a slice past
+# _SLICE_MAX_BYTES at C = 16 (num_bins > 204,800), takes the global-memory
+# variant, a block for every _GLOBAL_BLOCK_SAMPLES samples
+_SLICE_TARGET_BYTES = 64 * 1024
+_SLICE_MAX_BYTES = 100 * 1024
+_SPLIT_SAMPLES_PER_BIN = 16
+_GLOBAL_BLOCK_SAMPLES = 1 << 8
+_MAX_TASKS = 65535  # gridDim.y
 
-def _row_stride(x: torch.Tensor) -> int:
-    """Row stride of a (T, n) operand the kernel reads (0 for a row
-    broadcast over tasks); samples must be unit-stride."""
-    if x.stride(1) != 1 and x.shape[1] > 1:
+
+class K1Geometry(NamedTuple):
+    """One launch's shape: ``clusters_per_task`` clusters of ``cluster``
+    CTAs for each task, each CTA with ``smem_bytes`` of shared memory:
+    a whole copy of the task histogram (``split`` False) or its slice of
+    it (``split`` True). ``smem_bytes`` 0 is the global-memory variant,
+    where ``cluster`` is 1 and a "cluster" is one block."""
+
+    cluster: int
+    clusters_per_task: int
+    smem_bytes: int
+    split: bool = False
+
+    @property
+    def shared(self) -> bool:
+        """The histogram in the cluster's shared memory (else the
+        global-memory variant)."""
+        return self.smem_bytes > 0
+
+    @property
+    def single(self) -> bool:
+        """One cluster a task: each bin has one writer, and the flush adds
+        it into the state with a plain load and store."""
+        return self.shared and self.clusters_per_task == 1
+
+    @property
+    def slots(self) -> int:
+        """Bins a CTA holds: all of them (replicated), or those b with
+        b % cluster == its rank, bin b at slot b // cluster (split)."""
+        return self.smem_bytes // 8
+
+
+def _slice_bytes(num_bins: int, cluster: int) -> int:
+    return 2 * 4 * -(-num_bins // cluster)
+
+
+def k1_geometry(
+    n: int,
+    num_tasks: int,
+    num_bins: int,
+    *,
+    active_clusters: Callable[[int, int], int],
+) -> K1Geometry:
+    """The kernel's launch geometry for ``num_tasks`` rows of ``n``
+    samples into ``num_bins`` bins.
+
+    ``active_clusters(cluster, smem_bytes)`` is how many such clusters the
+    card holds at once (for ``(1, 0)``: blocks of the global-memory
+    variant); the wrapper queries it once per device and layout, a test
+    passes a model of the card.
+
+    - Layout: replicated up to ``_REPLICA_MAX_BYTES`` of histogram; else
+      split when ``n`` reaches ``_SPLIT_SAMPLES_PER_BIN`` samples a bin and
+      a slice fits ``_SLICE_MAX_BYTES``; else the global-memory variant.
+    - Clusters a task: one for each ``cluster * _CTA_SAMPLES`` samples
+      (``_GLOBAL_BLOCK_SAMPLES`` a block on the global variant), at most
+      what fills the card with every task resident, at least one. One
+      cluster a task is the owner-store flush.
+    """
+    if not 2 <= num_bins < 2**24 or not 1 <= num_tasks <= _MAX_TASKS:
         raise ValueError(
-            "fused_auc_hist kernel needs unit stride along samples, got "
-            f"strides {x.stride()}"
+            f"fused_auc_hist kernel takes 2 <= num_bins < 2**24 and 1 to "
+            f"{_MAX_TASKS} tasks, got num_bins={num_bins}, tasks={num_tasks}"
         )
-    return x.stride(0)
+    split = 8 * num_bins > _REPLICA_MAX_BYTES
+    if not split:
+        cluster, smem = _REPLICA_CLUSTER, 8 * num_bins
+    else:
+        cluster = 2
+        while cluster < 16 and _slice_bytes(num_bins, cluster) > _SLICE_TARGET_BYTES:
+            cluster *= 2
+        smem = _slice_bytes(num_bins, cluster)
+    per = cluster * _CTA_SAMPLES
+    if split and (smem > _SLICE_MAX_BYTES or n < _SPLIT_SAMPLES_PER_BIN * num_bins):
+        cluster, smem, split, per = 1, 0, False, _GLOBAL_BLOCK_SAMPLES
+    resident = active_clusters(cluster, smem)
+    if resident < 1:
+        raise RuntimeError(
+            f"fused_auc_hist: no cluster of {cluster} CTAs with {smem} bytes "
+            "of shared memory each can be scheduled on this device"
+        )
+    want = -(-max(n, 1) // per)
+    return K1Geometry(cluster, max(1, min(want, resident // num_tasks)), smem, split)
+
+
+_DEVICES: Dict[int, Callable[[int, int], int]] = {}
+_GEOMETRY: Dict[tuple, K1Geometry] = {}
+_BOUNDS: Dict[Tuple[float, float], Tuple[float, float]] = {}
+
+
+def _device_occupancy(lib, device: int) -> Callable[[int, int], int]:
+    """Set up the kernel on ``device`` (its function attributes, once) and
+    return its ``active_clusters`` query, each answer cached."""
+    query = _DEVICES.get(device)
+    if query is not None:
+        return query
+    with torch.cuda.device(device):
+        _kernels.check(lib, lib.tev_fused_auc_hist_init(_SLICE_MAX_BYTES),
+                       "fused_auc_hist init")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    answers: Dict[Tuple[int, int], int] = {}
+
+    def active_clusters(cluster: int, smem_bytes: int) -> int:
+        key = (cluster, smem_bytes)
+        if key not in answers:
+            with torch.cuda.device(device):
+                if smem_bytes == 0:
+                    got = sms * lib.tev_fused_auc_hist_global_blocks_per_sm()
+                else:
+                    got = lib.tev_fused_auc_hist_max_active_clusters(cluster, smem_bytes)
+                    if got < 0:
+                        _kernels.check(lib, -got, "fused_auc_hist occupancy query")
+            answers[key] = got
+        return answers[key]
+
+    _DEVICES[device] = active_clusters
+    return active_clusters
+
+
+def _geometry(lib, device: int, n: int, num_tasks: int, num_bins: int) -> K1Geometry:
+    key = (device, n, num_tasks, num_bins)
+    geometry = _GEOMETRY.get(key)
+    if geometry is None:
+        if len(_GEOMETRY) > 4096:
+            _GEOMETRY.clear()
+        geometry = _GEOMETRY[key] = k1_geometry(
+            n, num_tasks, num_bins, active_clusters=_device_occupancy(lib, device)
+        )
+    return geometry
+
+
+def _bounds_f32(bounds: Tuple[float, float]) -> Tuple[float, float]:
+    """``_fixed_bounds`` as Python floats (exact), cached per bounds."""
+    got = _BOUNDS.get(bounds)
+    if got is None:
+        lo, inv_span = _fixed_bounds(bounds)
+        got = _BOUNDS[bounds] = (float(lo), float(inv_span))
+    return got
 
 
 def _unit_stride_rows(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -199,31 +357,35 @@ def _unit_stride_rows(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return x
 
 
-_GRID_CACHE: dict = {}
+def _check_out(out: torch.Tensor, scores: torch.Tensor, num_bins: int) -> None:
+    if (
+        out.dtype != torch.float32
+        or out.shape != (scores.shape[0], 2, num_bins)
+        or not out.is_contiguous()
+    ):
+        raise ValueError(
+            f"out must be a contiguous float32 ({scores.shape[0]}, 2, "
+            f"{num_bins}) tensor, got {out.dtype} {tuple(out.shape)}"
+        )
+    if out.get_device() != scores.get_device():
+        raise ValueError(f"out is on {out.device}, scores on {scores.device}")
 
 
-def _blocks_per_task(lib, device: torch.device, n: int, num_tasks: int,
-                     num_bins: int, use_shared: bool) -> int:
-    key = (device.index, num_bins, use_shared)
-    cap = _GRID_CACHE.get(key)
-    if cap is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        if use_shared:
-            per_sm = lib.tev_fused_auc_hist_blocks_per_sm(num_bins, device.index)
-            if per_sm <= 0:
-                raise RuntimeError(
-                    f"fused_auc_hist: no block of {2 * num_bins * 4} bytes of "
-                    "shared memory fits on an SM"
-                )
-        else:
-            per_sm = 8
-        cap = sms * per_sm
-        _GRID_CACHE[key] = cap
-    per_block = _MIN_SAMPLES_PER_BLOCK
-    if use_shared:
-        per_block = max(per_block, num_bins // 2)
-    want = -(-n // per_block)
-    return max(1, min(want, max(1, cap // num_tasks)))
+def _check_rows(name: str, x: torch.Tensor, scores: torch.Tensor) -> None:
+    """A (T, n) operand the kernel reads beside ``scores``: float32, on its
+    device, its shape, unit stride along samples (a row broadcast over
+    tasks, row stride 0, is fine)."""
+    if (
+        x.dtype != torch.float32
+        or x.get_device() != scores.get_device()
+        or x.shape != scores.shape
+        or (x.stride(1) != 1 and x.shape[1] > 1)
+    ):
+        raise ValueError(
+            f"{name} must be float32 {tuple(scores.shape)} on {scores.device} "
+            f"with unit stride along samples, got {x.dtype} "
+            f"{tuple(x.shape)} strides {x.stride()} on {x.device}"
+        )
 
 
 def _histogram_cuda(
@@ -233,77 +395,81 @@ def _histogram_cuda(
     weights: Optional[torch.Tensor],
     num_bins: int,
     bounds: Optional[Tuple[float, float]],
+    geometry: Optional[K1Geometry] = None,
 ) -> torch.Tensor:
     """Add the histogram of raw (T, n) scores into ``out`` (T, 2, num_bins)
-    with the Hopper kernel, in place, and return ``out``.
+    with the Hopper kernel, in place, and return ``out``, every operand
+    checked.
 
-    ``labels`` and ``weights`` are float32 (T, n), dense or broadcast
-    along tasks (row stride 0); ``weights=None`` means unit weights. The
-    kernel launches on the current stream; n == 0 launches nothing.
+    ``scores`` is contiguous float32; ``labels`` and ``weights`` float32
+    (T, n), dense or broadcast along tasks (row stride 0);
+    ``weights=None`` means unit weights. The kernel launches on the current
+    stream; n == 0 launches nothing. ``geometry`` overrides
+    ``k1_geometry``'s choice.
     """
-    num_tasks, n = scores.shape
-    dev = scores.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_auc_hist kernel needs CUDA tensors, got {dev}")
-    operands = {"out": out, "scores": scores, "labels": labels}
+    if not scores.is_cuda:
+        raise ValueError(f"fused_auc_hist kernel needs CUDA tensors, got {scores.device}")
+    if scores.dtype != torch.float32 or not scores.is_contiguous():
+        raise ValueError(f"scores must be contiguous float32, got {scores.dtype}")
+    _check_out(out, scores, num_bins)
+    _check_rows("labels", labels, scores)
     if weights is not None:
-        operands["weights"] = weights
-    for name, t in operands.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, scores on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(out.shape) != (num_tasks, 2, num_bins) or not out.is_contiguous():
-        raise ValueError(
-            f"out must be a contiguous ({num_tasks}, 2, {num_bins}) tensor, "
-            f"got {tuple(out.shape)}"
-        )
-    if not scores.is_contiguous():
-        raise ValueError("scores must be contiguous")
-    for name in ("labels", "weights"):
-        t = operands.get(name)
-        if t is not None and tuple(t.shape) != (num_tasks, n):
-            raise ValueError(f"{name} shape {tuple(t.shape)} != scores {(num_tasks, n)}")
-    if not 2 <= num_bins < 2**24 or num_tasks > 65535:
-        raise ValueError(
-            f"fused_auc_hist kernel takes 2 <= num_bins < 2**24 and at most "
-            f"65535 tasks, got num_bins={num_bins}, tasks={num_tasks}"
-        )
+        _check_rows("weights", weights, scores)
+    return _launch(out, scores, labels, weights, num_bins, bounds, geometry)
+
+
+def _launch(
+    out: torch.Tensor,
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    num_bins: int,
+    bounds: Optional[Tuple[float, float]],
+    geometry: Optional[K1Geometry] = None,
+) -> torch.Tensor:
+    """The launch, on operands as ``_histogram_cuda`` checks them; the bin
+    and task counts are checked by ``k1_geometry``, once per shape."""
+    num_tasks, n = scores.shape
     if n == 0:
         return out
+    device = scores.get_device()
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(out, scores, labels, weights, num_bins, bounds, geometry)
     lib = _kernels.load("fused_auc_hist")
-    use_shared = 2 * num_bins * 4 <= _SHARED_HIST_MAX_BYTES
+    if geometry is None:
+        geometry = _geometry(lib, device, n, num_tasks, num_bins)
     if bounds is None:
         task_lo, task_span = _task_lo_span(scores)
         task_lo, task_span = task_lo.contiguous(), task_span.contiguous()
-        lo, inv_span, per_task = np.float32(0), np.float32(0), 1
+        per_task, lo, inv_span = 1, 0.0, 0.0
         lo_ptr, span_ptr = task_lo.data_ptr(), task_span.data_ptr()
     else:
-        lo, inv_span = _fixed_bounds(bounds)
-        per_task, lo_ptr, span_ptr = 0, None, None
-    blocks = _blocks_per_task(lib, dev, n, num_tasks, num_bins, use_shared)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.tev_fused_auc_hist(
+        lo, inv_span = _bounds_f32(bounds)
+        per_task, lo_ptr, span_ptr = 0, 0, 0
+    args = _kernels.K1_LAUNCH.pack(
         scores.data_ptr(),
         labels.data_ptr(),
-        _row_stride(labels),
-        weights.data_ptr() if weights is not None else None,
-        _row_stride(weights) if weights is not None else 0,
+        0 if weights is None else weights.data_ptr(),
+        lo_ptr,
+        span_ptr,
+        out.data_ptr(),
+        labels.stride(0),
+        0 if weights is None else weights.stride(0),
         n,
         num_tasks,
         num_bins,
         per_task,
-        ctypes.c_float(lo),
-        ctypes.c_float(inv_span),
-        lo_ptr,
-        span_ptr,
-        out.data_ptr(),
-        int(use_shared),
-        blocks,
-        dev.index,
-        stream,
+        lo,
+        inv_span,
+        geometry.cluster,
+        geometry.clusters_per_task,
+        geometry.smem_bytes,
+        geometry.split,
     )
-    _kernels.check(lib, code, "fused_auc_hist launch")
+    code = lib.tev_fused_auc_hist(args, torch._C._cuda_getCurrentRawStream(device))
+    if code:
+        _kernels.check(lib, code, "fused_auc_hist launch")
     _kernels.LAUNCHES["fused_auc_hist"] += 1
     return out
 
@@ -320,13 +486,19 @@ def _histogram_into(
     bounds: Optional[Tuple[float, float]],
 ) -> torch.Tensor:
     """Add the batch histogram into ``out``: in place through the kernel
-    for CUDA tensors, ``out + plain histogram`` for CPU tensors."""
+    for CUDA tensors, ``out + plain histogram`` for CPU tensors.
+
+    On CUDA only ``out`` is checked on every call: the entry points put
+    every input on one device, and ``_as_2d``, ``contiguous`` and
+    ``_unit_stride_rows`` make them float32 (T, n) rows the kernel reads,
+    so ``_histogram_cuda``'s other checks cannot fail here."""
     if scores.shape[-1] == 0:
         # zero samples -> zero histogram (the min/max has no identity)
         return out
     scores2, labels2, weights2 = _as_2d(scores, labels, weights)
     if scores2.is_cuda:
-        return _histogram_cuda(
+        _check_out(out, scores2, num_bins)
+        return _launch(
             out,
             scores2.contiguous(),
             _unit_stride_rows(labels2),

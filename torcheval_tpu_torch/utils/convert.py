@@ -66,6 +66,8 @@ def to_torch(
     there with the right dtype)."""
     if isinstance(x, torch.Tensor):
         t = x.detach()
+        if (device is None or t.device == device) and (dtype is None or t.dtype == dtype):
+            return t  # what .to() would return, without its cost on every update
     else:
         arr = np.asarray(x)
         if arr.dtype == np.float64:
