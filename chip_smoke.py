@@ -18,8 +18,9 @@ phases, printing one JSON line for each:
    samples MLPerf's DLRM-DCNv2 benchmark scores with AUC) in batches of
    65,536 through ``StreamingBinaryAUROC`` and ``StreamingBinaryAUPRC``
    (8192 bins, bounds (0, 1), unit weights), plus a 4-task weighted stream
-   of 2^22 samples; the histograms are checked against a float64 oracle and
-   the fused-AUC kernel must have launched once per update.
+   of 2^22 samples; the histograms are checked against a float64 oracle,
+   the fused-AUC kernel must have launched once per update, and the
+   stream must reach ``STREAM_RATE_FLOOR`` samples a second.
 3. ``kernel_vs_plain``: the kernel wrapper against its plain PyTorch
    version on the same CUDA tensors, over sizes, task counts, score
    distributions, weights, bounds, NaN and empty inputs and bin counts, and
@@ -30,15 +31,17 @@ phases, printing one JSON line for each:
    unit weights, within rtol 1e-5 with mass conserved on random weights.
 4. ``sync``: four ``LocalReplicaGroup`` replicas on the card, each fed a
    quarter of smaller classify and click streams; the synced results must
-   equal single-stream metrics bitwise.
+   equal single-stream metrics bitwise. The sync is timed three times,
+   each after the card's queue has drained.
 5. ``timing``: the kernel against its plain version and ``torch.bincount``
    at the main path's shapes (T = 1 at 65,536 and 2^24 samples, and the
-   weighted 4-task batch), with its device time from the profiler, its
-   host time per call split three ways (``StreamingBinaryAUROC.update``,
-   the checked wrapper, the bare C launch), the least time the memory
-   traffic needs and the share of it reached; then a sweep of launch
-   designs over batch sizes, which sets where one cluster a task gives
-   way to several.
+   weighted 4-task batch) and at 65,536 bins, with its device time from
+   the profiler, its host time per call split three ways
+   (``StreamingBinaryAUROC.update``, the checked wrapper, the bare C
+   launch), the least time the memory traffic needs and the share of it
+   reached; then a sweep of launch designs over batch sizes at 8,192 and
+   65,536 bins, which holds the wrapper's pick against the designs on the
+   other side of each of its switch points (``design_choices``).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -91,6 +94,9 @@ NUM_BINS = 8192
 IMAGENET_VAL = 50_000
 CRITEO_EVAL = 89_137_319
 CTR_BATCH = 65_536
+# the least ctr_auc stream rate on a card: a Criteo 1TB evaluation pass
+# within a second of metric time
+STREAM_RATE_FLOOR = 1e8
 
 
 def _emit(obj) -> None:
@@ -260,6 +266,8 @@ def phase_ctr_auc(device, n=CRITEO_EVAL, batch=CTR_BATCH, num_bins=NUM_BINS,
     launches = _kernels.LAUNCHES["fused_auc_hist"]
     if cuda:
         _check(launches == updates, f"K1 launched {launches} times for {updates} updates")
+        _check(n / seconds >= STREAM_RATE_FLOOR,
+               f"AUC stream at {n / seconds:.3g} samples/s, under {STREAM_RATE_FLOOR:.0e}")
 
     # oracle pass: the same batches regenerated from the seed
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -310,7 +318,7 @@ def _k1_design(n, tasks, num_bins, geometry=None):
     if geometry is None:
         geometry = fa._geometry(_kernels.load("fused_auc_hist"), torch.cuda.current_device(),
                                 n, tasks, num_bins)
-    mode = "single" if geometry.single else ("multi" if geometry.shared else "global")
+    mode = "split" if geometry.split else ("replicated" if geometry.shared else "global")
     return {"cluster": geometry.cluster, "clusters_per_task": geometry.clusters_per_task,
             "smem_bytes": geometry.smem_bytes, "mode": mode}
 
@@ -492,11 +500,15 @@ def phase_sync(device, classify_n=8192, num_classes=1000, batch=1024,
         s, y = _clicks(gen, (min(ctr_batch, ctr_n - start),), device)
         for coll in (single, replicas[i % world]):
             toolkit.update_collection({k: coll[k] for k in ("auroc", "auprc")}, s, y)
-    t0 = time.perf_counter()
-    synced = toolkit.get_synced_metric_collection(replicas, group)
-    values = {name: m.compute() for name, m in synced.items()}
-    _sync(device)
-    seconds = time.perf_counter() - t0
+    # timed from a drained queue: the replicas' updates are not the sync's
+    seconds = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        synced = toolkit.get_synced_metric_collection(replicas, group)
+        values = {name: m.compute() for name, m in synced.items()}
+        _sync(device)
+        seconds.append(time.perf_counter() - t0)
     expected = {name: m.compute() for name, m in single.items()}
     for name in ("acc", "acc_macro", "f1_macro", "auroc", "auprc"):
         for state in synced[name].state_dict():
@@ -512,7 +524,8 @@ def phase_sync(device, classify_n=8192, num_classes=1000, batch=1024,
         "classify_samples": classify_n, "ctr_samples": ctr_n,
         "values": {k: float(v) for k, v in values.items()},
         "bitwise": ["acc", "acc_macro", "f1_macro", "auroc", "auprc"],
-        "loss_abs_err": loss_err, "sync_seconds": seconds,
+        "loss_abs_err": loss_err, "sync_seconds": sorted(seconds)[1],
+        "sync_seconds_runs": seconds,
     }
 
 
@@ -574,11 +587,7 @@ def _bare_launch(out, s, y, w, num_bins, bounds, device):
     lib = _kernels.load("fused_auc_hist")
     tasks, n = s.shape
     g = fa._geometry(lib, torch.cuda.current_device(), n, tasks, num_bins)
-    lo, inv_span = fa._bounds_f32(bounds)
-    args = _kernels.K1_LAUNCH.pack(
-        s.data_ptr(), y.data_ptr(), 0 if w is None else w.data_ptr(), 0, 0,
-        out.data_ptr(), y.stride(0), 0 if w is None else w.stride(0), n, tasks, num_bins,
-        0, lo, inv_span, g.cluster, g.clusters_per_task, g.smem_bytes, g.split)
+    args = fa._pack_launch(out, s, y, w, num_bins, bounds, g)
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch():
@@ -588,23 +597,23 @@ def _bare_launch(out, s, y, w, num_bins, bounds, device):
     return launch
 
 
-def _timing_row(gen, n, tasks, skewed, weighted, device):
+def _timing_row(gen, n, tasks, skewed, weighted, device, num_bins=NUM_BINS):
     s = _scores(gen, (tasks, n), skewed, device)
     y = (torch.rand((tasks, n), generator=gen, device=device) < s).to(torch.float32)
     w = torch.rand((tasks, n), generator=gen, device=device) if weighted else None
-    hist = torch.zeros((tasks, 2, NUM_BINS), dtype=torch.float32, device=device)
-    bins = torch.clamp((s * NUM_BINS).to(torch.int64), max=NUM_BINS - 1)
-    bins = (bins + torch.arange(tasks, device=device)[:, None] * NUM_BINS).reshape(-1)
-    idx2 = torch.cat([bins, bins + tasks * NUM_BINS])
+    hist = torch.zeros((tasks, 2, num_bins), dtype=torch.float32, device=device)
+    bins = torch.clamp((s * num_bins).to(torch.int64), max=num_bins - 1)
+    bins = (bins + torch.arange(tasks, device=device)[:, None] * num_bins).reshape(-1)
+    idx2 = torch.cat([bins, bins + tasks * num_bins])
     ww = torch.ones_like(s) if w is None else w
     w2 = torch.cat([(ww * y).reshape(-1), (ww * (1.0 - y)).reshape(-1)])
     reps = 200 if n <= CTR_BATCH else 20
     bounds = (0.0, 1.0)
 
     def launch():
-        _histogram_cuda(hist, s, y, w, NUM_BINS, bounds)
+        _histogram_cuda(hist, s, y, w, num_bins, bounds)
 
-    metric = StreamingBinaryAUROC(num_tasks=tasks, num_bins=NUM_BINS, device=device)
+    metric = StreamingBinaryAUROC(num_tasks=tasks, num_bins=num_bins, device=device)
     us, uy, uw = (s[0], y[0], None) if tasks == 1 else (s, y, w)
 
     before = _kernels.LAUNCHES["fused_auc_hist"]
@@ -613,21 +622,21 @@ def _timing_row(gen, n, tasks, skewed, weighted, device):
     host = {
         "update": _host_ms(lambda: metric.update(us, uy, uw), device, reps),
         "wrapper": _host_ms(launch, device, reps),
-        "c_launch": _host_ms(_bare_launch(hist, s, y, w, NUM_BINS, bounds, device), device, reps),
+        "c_launch": _host_ms(_bare_launch(hist, s, y, w, num_bins, bounds, device), device, reps),
     }
     device_ms = _device_ms(launch, device, reps)
-    plain_ms = _time_ms(lambda: hist.add_(_histogram_plain_full(s, y, w, NUM_BINS, bounds)),
+    plain_ms = _time_ms(lambda: hist.add_(_histogram_plain_full(s, y, w, num_bins, bounds)),
                         device, reps)
     library_ms = _time_ms(
-        lambda: torch.bincount(idx2, weights=w2, minlength=2 * tasks * NUM_BINS), device, reps)
+        lambda: torch.bincount(idx2, weights=w2, minlength=2 * tasks * num_bins), device, reps)
     # scores + labels (+ weights) read once, unit weights implicit; the
     # histogram read and written once (accumulate form)
-    nbytes = (12 if weighted else 8) * tasks * n + 2 * 8 * tasks * NUM_BINS
+    nbytes = (12 if weighted else 8) * tasks * n + 2 * 8 * tasks * num_bins
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {
-        "n": n, "tasks": tasks, "num_bins": NUM_BINS,
+        "n": n, "tasks": tasks, "num_bins": num_bins,
         "scores": "skewed" if skewed else "uniform", "weighted": weighted,
-        "design": _k1_design(n, tasks, NUM_BINS),
+        "design": _k1_design(n, tasks, num_bins),
         "kernel_ms": kernel_ms, "kernel_device_ms": device_ms,
         "kernel_host_ms_per_call": host["wrapper"], "host_ms_per_call": host,
         "plain_ms": plain_ms, "library_ms": library_ms,
@@ -637,15 +646,24 @@ def _timing_row(gen, n, tasks, skewed, weighted, device):
     }
 
 
+def _design_name(g):
+    """``rep_cCxK`` (replicated), ``split_cCxK``: K clusters of C CTAs a
+    task; ``global_xK``: K blocks of the global-memory variant."""
+    if not g.shared:
+        return f"global_x{g.clusters_per_task}"
+    return f"{'split' if g.split else 'rep'}_c{g.cluster}x{g.clusters_per_task}"
+
+
 def _design_sweep(gen, device, full=False):
     """Device time of launch designs over batch sizes (T = 1, unit
     weights): at 8,192 bins, replicated clusters of 1 to 16 CTAs in counts
     from one a task to a full card, and the split layout; at 65,536 bins,
     the split layout against the global-memory variant. Sets the
     geometry's switch points. Forced geometries go through the checked
-    wrapper like any other launch. ``full`` sweeps every batch size and
-    design; the default keeps the rows that bracket the wrapper's
-    choices at the main path's sizes."""
+    wrapper like any other launch; the wrapper's own pick is timed first
+    and marked ``picked``. ``full`` sweeps every batch size and design;
+    the default keeps, at the smallest and largest batch, the designs on
+    each side of the wrapper's switch points."""
     lib = _kernels.load("fused_auc_hist")
     dev = torch.cuda.current_device()
     active = fa._device_occupancy(lib, dev)
@@ -655,42 +673,56 @@ def _design_sweep(gen, device, full=False):
         s = _scores(gen, (1, n), skewed, device)
         y = (torch.rand((1, n), generator=gen, device=device) < s).to(torch.float32)
         hist = torch.zeros((1, 2, num_bins), dtype=torch.float32, device=device)
-        designs = {"default": fa._geometry(lib, dev, n, 1, num_bins), **designs}
-        for name, g in designs.items():
+        pick = fa._geometry(lib, dev, n, 1, num_bins)
+        for g in [pick] + [g for g in designs if g != pick]:
             ms = _device_ms(lambda: _histogram_cuda(hist, s, y, None, num_bins, (0.0, 1.0), g),
                             device, 30 if n <= (1 << 20) else 10)
             rows.append({"n": n, "num_bins": num_bins, "scores": "skewed" if skewed else "uniform",
-                         "design": name, "cluster": g.cluster, "split": g.split,
-                         "clusters_per_task": g.clusters_per_task, "device_ms": ms})
+                         "design": _design_name(g), "picked": g == pick, "cluster": g.cluster,
+                         "split": g.split, "clusters_per_task": g.clusters_per_task,
+                         "device_ms": ms})
 
     sizes = (1 << 16, 1 << 18, 1 << 20, 1 << 24) if full else (1 << 16, 1 << 24)
     for n in sizes:
-        designs = {}
+        designs = []
         for c in (1, 2, 4, 8, 16):
             most = active(c, 8 * NUM_BINS)
             for ctas in (8, 16, 32, 64, 128, c * most):
                 k = ctas // c
                 if 1 <= k <= most and (k == 1 or 4 * c * k * fa._THREADS <= n):
                     if full or ctas in (32, c * most):
-                        designs[f"rep_c{c}x{k}"] = K1Geometry(c, k, 8 * NUM_BINS)
+                        designs.append(K1Geometry(c, k, 8 * NUM_BINS))
         split_most = active(8, NUM_BINS)
-        designs["split_c8x1"] = K1Geometry(8, 1, NUM_BINS, True)
-        designs[f"split_c8x{split_most}"] = K1Geometry(8, split_most, NUM_BINS, True)
+        designs += [K1Geometry(8, 1, NUM_BINS, True), K1Geometry(8, split_most, NUM_BINS, True)]
         for skewed in (True, False) if n == 1 << 24 else (True,):
             run(n, NUM_BINS, skewed, designs)
     big = 65_536
-    for n in (1 << 16, 1 << 20, 1 << 24) if full else ():
-        designs = {}
-        for c in (8, 16):
+    for n in (1 << 16, 1 << 20, 1 << 24) if full else (1 << 16, 1 << 24):
+        designs = []
+        for c in (8, 16) if full else (8,):
             smem = 8 * big // c
             most = active(c, smem)
-            designs[f"split_c{c}x1"] = K1Geometry(c, 1, smem, True)
-            designs[f"split_c{c}x{most}"] = K1Geometry(c, most, smem, True)
+            designs += [K1Geometry(c, most, smem, True)]
+            if full:
+                designs += [K1Geometry(c, 1, smem, True)]
         most = active(1, 0)
-        for k in (4, 16, most):
-            designs[f"global_x{k}"] = K1Geometry(1, k, 0)
+        designs += [K1Geometry(1, k, 0) for k in ((4, 16, most) if full else (most,))]
         run(n, big, True, designs)
     return rows
+
+
+def _design_choices(sweep):
+    """For each swept shape: the wrapper's pick and the fastest design it
+    passed over, with their device times."""
+    out = []
+    for key in dict.fromkeys((r["n"], r["num_bins"], r["scores"]) for r in sweep):
+        group = [r for r in sweep if (r["n"], r["num_bins"], r["scores"]) == key]
+        pick = next(r for r in group if r["picked"])
+        other = min((r for r in group if not r["picked"]), key=lambda r: r["device_ms"])
+        out.append({"n": key[0], "num_bins": key[1], "scores": key[2],
+                    "pick": pick["design"], "pick_ms": pick["device_ms"],
+                    "best_other": other["design"], "best_other_ms": other["device_ms"]})
+    return out
 
 
 def phase_timing(device, seed=4, full_sweep=False):
@@ -704,8 +736,13 @@ def phase_timing(device, seed=4, full_sweep=False):
         (1 << 24, 1, True, False),
     ):
         rows.append(_timing_row(gen, n, tasks, skewed, weighted, device))
+    # 65,536 bins: the global-memory variant below 16 samples a bin, the
+    # split layout above
+    for n in (CTR_BATCH, 1 << 24):
+        rows.append(_timing_row(gen, n, 1, True, False, device, num_bins=65_536))
+    sweep = _design_sweep(gen, device, full_sweep)
     return {"phase": "timing", "card": _card_line(), "rows": rows,
-            "design_sweep": _design_sweep(gen, device, full_sweep),
+            "design_choices": _design_choices(sweep), "design_sweep": sweep,
             "library_call": "torch.bincount over precomputed bin indices (binning not timed)"}
 
 
@@ -763,9 +800,10 @@ def main(argv=None) -> int:
     timing = phase_timing(device, seed=args.seed + 4, full_sweep=args.sweep)
     _emit(timing)
 
-    main_row = next(r for r in timing["rows"]
+    rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
+    main_row = next(r for r in rows
                     if r["n"] == CTR_BATCH and r["tasks"] == 1 and r["scores"] == "skewed")
-    big = [r for r in timing["rows"] if r["n"] == 1 << 24]
+    big = [r for r in rows if r["n"] == 1 << 24]
     _emit({"kernels": [{
         "name": "fused_auc_hist",
         "route": "cuda",
@@ -782,6 +820,9 @@ def main(argv=None) -> int:
         "design": main_row["design"],
         "design_2_24": big[0]["design"],
         "bound_share_2_24": {r["scores"]: r["bound_share_device"] for r in big},
+        "design_choices": [
+            [c["n"], c["num_bins"], c["scores"], c["pick"], c["pick_ms"],
+             c["best_other"], c["best_other_ms"]] for c in timing["design_choices"]],
     }]})
     print(_card_line(), flush=True)
     _emit({"ok": True, "device": {

@@ -68,10 +68,10 @@ def test_geometry_invariants(num_bins, n, tasks):
         assert g.cluster == 2 or 8 * _slots(num_bins, g.cluster // 2) > fa._SLICE_TARGET_BYTES
         per = g.cluster * fa._CTA_SAMPLES
     else:
-        assert (g.cluster, g.smem_bytes, g.split, g.shared, g.single) == (1, 0, False, False, False)
+        assert (g.cluster, g.smem_bytes, g.split, g.shared) == (1, 0, False, False)
         per = fa._GLOBAL_BLOCK_SAMPLES
     assert g.clusters_per_task == max(1, min(-(-n // per), resident // tasks))
-    assert g.single == (g.shared and g.clusters_per_task == 1)
+    assert g.shared == (g.smem_bytes > 0)
 
 
 @pytest.mark.parametrize(
@@ -80,7 +80,7 @@ def test_geometry_invariants(num_bins, n, tasks):
         # the streaming metric's batch: 4 clusters of 8 CTAs, 2,048 samples each
         (65_536, 1, 8192, K1Geometry(8, 4, 65536)),
         (65_536, 4, 8192, K1Geometry(8, 4, 65536)),
-        # a small batch: one cluster, the owner-store flush
+        # a small batch: one cluster
         (16_384, 1, 8192, K1Geometry(8, 1, 65536)),
         # a large batch fills the card, the tasks sharing it
         (1 << 24, 1, 8192, K1Geometry(8, h100_model(8, 65536), 65536)),
@@ -145,8 +145,8 @@ def _mirror(bins, wpos, wneg, geometry, num_bins, out, nthreads_per_cta=4, offse
     samples into its CTAs' shared memory (the visiting CTA's own copy when
     replicated, the owner's slice when split), then each CTA flushes its
     contiguous range of ``out`` (2 * num_bins), reading the owner's slot or
-    summing the copies in rank order -- a plain add with one cluster, an
-    "atomic" (also an add here) with several."""
+    summing the copies in rank order, and adding it in (a global atomic on
+    the card; integer counts come out the same in any order)."""
     c, k, slots = geometry.cluster, geometry.clusters_per_task, geometry.slots
     n = bins.shape[0]
     visits = _visits(n, offset, c * k * nthreads_per_cta)
@@ -206,7 +206,7 @@ def test_cluster_layouts_rebuild_the_plain_histogram(num_bins, split, clusters, 
 
 @pytest.mark.parametrize("split", [False, True])
 def test_flush_accumulates_into_the_state(split):
-    """The single-cluster flush adds into what the state already holds."""
+    """The flush adds into what the state already holds."""
     num_bins, n = 1000, 5000
     rng = np.random.default_rng(5)
     bins = rng.integers(0, num_bins, n)
@@ -235,6 +235,35 @@ def test_launch_struct_mirrors_the_source():
         (name, {"P": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int,
                 "f": ctypes.c_float}[code]) for name, code in src]}))
     assert _kernels.K1_LAUNCH.size == ctypes_size
+
+
+@pytest.mark.parametrize("per_task", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_pack_launch_fills_every_field(per_task, weighted):
+    """``_pack_launch`` (shared by the wrapper and the smoke's bare launch)
+    puts each operand and geometry value in its own ``K1Launch`` field."""
+    scores = torch.zeros((3, 10))
+    labels = torch.zeros((1, 10)).expand(3, 10)  # broadcast: row stride 0
+    weights = torch.zeros((3, 10)) if weighted else None
+    out = torch.zeros((3, 2, 64))
+    g = K1Geometry(8, 5, 512, False)
+    task_bounds = (torch.zeros((3, 1)), torch.ones((3, 1))) if per_task else None
+    bounds = None if per_task else (-3.0, 5.0)
+    packed = fa._pack_launch(out, scores, labels, weights, 64, bounds, g, task_bounds)
+    names = [name for name, _ in _kernels.K1_LAUNCH_FIELDS]
+    got = dict(zip(names, _kernels.K1_LAUNCH.unpack(packed)))
+    lo, inv_span = fa._fixed_bounds((-3.0, 5.0))
+    assert got == {
+        "scores": scores.data_ptr(), "labels": labels.data_ptr(),
+        "weights": weights.data_ptr() if weighted else 0,
+        "task_lo": task_bounds[0].data_ptr() if per_task else 0,
+        "task_span": task_bounds[1].data_ptr() if per_task else 0,
+        "out": out.data_ptr(), "label_row_stride": 0,
+        "weight_row_stride": 10 if weighted else 0, "n": 10, "num_tasks": 3,
+        "num_bins": 64, "per_task_bounds": int(per_task),
+        "lo": 0.0 if per_task else float(lo), "inv_span": 0.0 if per_task else float(inv_span),
+        "cluster": 8, "clusters_per_task": 5, "smem_bytes": 512, "split": 0,
+    }
 
 
 def test_python_constants_match_the_source():

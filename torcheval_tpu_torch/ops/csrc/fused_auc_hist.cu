@@ -40,7 +40,7 @@
 //     `red.shared::cluster.add`.
 // On the H100 a remote `red.shared::cluster` costs far more than a local
 // shared atomic: 8,192 bins split over 8 CTAs ran 3-20x slower than private
-// copies (PERF.md, PR 2). So the split layout serves only histograms a CTA
+// copies (PERF.md). So the split layout serves only histograms a CTA
 // cannot hold, where the alternative is a global atomic a sample; past
 // num_bins > 204,800 (100 KB slices at C = 16), or with fewer than 16
 // samples a bin to pay for zeroing and flushing the slices, a global-memory
@@ -54,11 +54,12 @@
 // 2^24. A label other than 0 or 1 (soft, or NaN) adds its float masses
 // straight into the output instead. Weighted launches add float masses.
 //
-// Work sized to the batch: with one cluster a task each bin has exactly one
-// writer, and the flush adds it into the state with a plain load and store,
-// no global atomics. With several clusters a task (up to a persistent grid
-// that fills the card) each cluster adds its non-zero bins with one global
-// atomic each, coalesced since each CTA walks a contiguous range. The
+// Work sized to the batch: a task gets one cluster for every 2,048 samples
+// a CTA, up to a persistent grid that fills the card, and each cluster adds
+// its non-zero bins into the state with one global atomic each, coalesced
+// since each CTA walks a contiguous range. (One cluster a task could flush
+// with plain stores, each bin having one writer; at the streaming batch of
+// 65,536 samples four clusters beat one, so that flush is not kept.) The
 // Python wrapper picks the layout and the cluster size and count from n, T
 // and num_bins (ops/fused_auc.py::k1_geometry, from a measured sweep).
 //
@@ -110,7 +111,7 @@ struct K1Launch {
   float lo;
   float inv_span;
   int cluster;            // CTAs a cluster (power of two <= 16; 1: global)
-  int clusters_per_task;  // 1: owner-store flush, no global atomics
+  int clusters_per_task;  // clusters (blocks, global variant) a task
   int smem_bytes;         // 2 * slots * 4 a CTA; 0: global-memory variant
   int split;              // 0: replicated (slots == num_bins); 1: split
 };
@@ -363,16 +364,9 @@ fused_auc_hist_kernel(const K1Launch a) {
     const int chunk = (entries + a.cluster - 1) / a.cluster;
     const int begin = (int)sink.rank * chunk;
     const int end = min(begin + chunk, entries);
-    const bool single = a.clusters_per_task == 1;
     for (int j = begin + threadIdx.x; j < end; j += kThreads) {
       const float v = sink.cluster_value(j, a.cluster);
-      if (v != 0.0f) {
-        if (single) {
-          out_t[j] = out_t[j] + v;  // the only writer of this bin
-        } else {
-          atomicAdd(&out_t[j], v);
-        }
-      }
+      if (v != 0.0f) atomicAdd(&out_t[j], v);
     }
     cluster.sync();  // no CTA leaves while its shared memory is still read
   }

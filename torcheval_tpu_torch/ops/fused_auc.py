@@ -231,12 +231,6 @@ class K1Geometry(NamedTuple):
         return self.smem_bytes > 0
 
     @property
-    def single(self) -> bool:
-        """One cluster a task: each bin has one writer, and the flush adds
-        it into the state with a plain load and store."""
-        return self.shared and self.clusters_per_task == 1
-
-    @property
     def slots(self) -> int:
         """Bins a CTA holds: all of them (replicated), or those b with
         b % cluster == its rank, bin b at slot b // cluster (split)."""
@@ -267,8 +261,7 @@ def k1_geometry(
       a slice fits ``_SLICE_MAX_BYTES``; else the global-memory variant.
     - Clusters a task: one for each ``cluster * _CTA_SAMPLES`` samples
       (``_GLOBAL_BLOCK_SAMPLES`` a block on the global variant), at most
-      what fills the card with every task resident, at least one. One
-      cluster a task is the owner-store flush.
+      what fills the card with every task resident, at least one.
     """
     if not 2 <= num_bins < 2**24 or not 1 <= num_tasks <= _MAX_TASKS:
         raise ValueError(
@@ -439,15 +432,41 @@ def _launch(
     lib = _kernels.load("fused_auc_hist")
     if geometry is None:
         geometry = _geometry(lib, device, n, num_tasks, num_bins)
+    task_bounds = None
     if bounds is None:
         task_lo, task_span = _task_lo_span(scores)
-        task_lo, task_span = task_lo.contiguous(), task_span.contiguous()
+        task_bounds = (task_lo.contiguous(), task_span.contiguous())
+    args = _pack_launch(out, scores, labels, weights, num_bins, bounds, geometry, task_bounds)
+    code = lib.tev_fused_auc_hist(args, torch._C._cuda_getCurrentRawStream(device))
+    if code:
+        _kernels.check(lib, code, "fused_auc_hist launch")
+    _kernels.LAUNCHES["fused_auc_hist"] += 1
+    return out
+
+
+def _pack_launch(
+    out: torch.Tensor,
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    num_bins: int,
+    bounds: Optional[Tuple[float, float]],
+    geometry: K1Geometry,
+    task_bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> bytes:
+    """The kernel's ``K1Launch`` argument for these operands, packed in the
+    C field order (``_kernels.K1_LAUNCH_FIELDS``): fixed ``bounds``, or,
+    with ``bounds=None``, ``task_bounds`` = contiguous (T, 1) per-task
+    minimum and span, which the caller keeps alive until the launch."""
+    if bounds is None:
+        task_lo, task_span = task_bounds
         per_task, lo, inv_span = 1, 0.0, 0.0
         lo_ptr, span_ptr = task_lo.data_ptr(), task_span.data_ptr()
     else:
         lo, inv_span = _bounds_f32(bounds)
         per_task, lo_ptr, span_ptr = 0, 0, 0
-    args = _kernels.K1_LAUNCH.pack(
+    num_tasks, n = scores.shape
+    return _kernels.K1_LAUNCH.pack(
         scores.data_ptr(),
         labels.data_ptr(),
         0 if weights is None else weights.data_ptr(),
@@ -467,11 +486,6 @@ def _launch(
         geometry.smem_bytes,
         geometry.split,
     )
-    code = lib.tev_fused_auc_hist(args, torch._C._cuda_getCurrentRawStream(device))
-    if code:
-        _kernels.check(lib, code, "fused_auc_hist launch")
-    _kernels.LAUNCHES["fused_auc_hist"] += 1
-    return out
 
 
 # ----------------------------------------------------------------- dispatch
