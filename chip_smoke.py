@@ -33,7 +33,25 @@ phases, printing one JSON line for each:
    quarter of smaller classify and click streams; the synced results must
    equal single-stream metrics bitwise. The sync is timed three times,
    each after the card's queue has drained.
-5. ``timing``: the kernel against its plain version and ``torch.bincount``
+5. ``curve``: the exact curve family over growable buffers. The Criteo
+   stream of phase 2 feeds ``BinaryAUROC``, ``BinaryAUPRC`` and
+   ``BinaryAUROC(use_fused=True)``; the exact values are held to float64
+   oracles built apart from their cumsum/trapezoid chain (Mann-Whitney over
+   mid-ranks, step-wise average precision) within ``CURVE_TOL``, and the
+   fused value, whose compute launches K1 once, equals the plain histogram
+   AUROC of the same buffers bitwise. An ImageNet-1k validation stream of
+   softmax scores feeds ``MulticlassAUROC`` and ``MulticlassAUPRC``, each
+   class held to the same oracles. Each compute's wall and device time,
+   its costliest kernels, the buffers' bytes and the peak allocation are
+   reported, with the reverse cummin timed in one and two levels.
+6. ``mp_sync``: two spawned ranks, one process each, joined by gloo over a
+   ``FileStore``, metric state on the card: each feeds its half of phase
+   4's stream to that collection plus exact ``BinaryAUROC``/``BinaryAUPRC``
+   and syncs over ``MultiHostGroup``. Every synced value and state equals
+   one process's stream bitwise (the loss mean within 1e-6), a subgroup of
+   rank 1 leaves rank 0 untouched, and the sync is timed three times from a
+   drained queue.
+7. ``timing``: the kernel against its plain version and ``torch.bincount``
    at the main path's shapes (T = 1 at 65,536 and 2^24 samples, and the
    weighted 4-task batch) and at 65,536 bins, with its device time from
    the profiler, its host time per call split three ways
@@ -49,7 +67,7 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2 and 4 at small sizes with ``device="cpu"``.
+1, 2 and 4 to 6 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -58,26 +76,42 @@ import argparse
 import importlib
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from torcheval_tpu_torch.distributed import LocalReplicaGroup  # noqa: E402
+from torcheval_tpu_torch.distributed import LocalReplicaGroup, MultiHostGroup  # noqa: E402
 from torcheval_tpu_torch.metrics import (  # noqa: E402
+    BinaryAUPRC,
+    BinaryAUROC,
     Mean,
     MulticlassAccuracy,
+    MulticlassAUPRC,
+    MulticlassAUROC,
     MulticlassF1Score,
     StreamingBinaryAUPRC,
     StreamingBinaryAUROC,
     Throughput,
 )
 from torcheval_tpu_torch.metrics import toolkit  # noqa: E402
+from torcheval_tpu_torch.metrics.functional.classification._curve_kernels import (  # noqa: E402
+    _reverse_cummin,
+)
+from torcheval_tpu_torch.metrics.functional.classification.auprc import (  # noqa: E402
+    _multiclass_auprc_compute,
+)
+from torcheval_tpu_torch.metrics.functional.classification.auroc import (  # noqa: E402
+    _multiclass_auroc_compute,
+)
 from torcheval_tpu_torch.ops import _kernels  # noqa: E402
 fa = importlib.import_module("torcheval_tpu_torch.ops.fused_auc")  # the module, not ops.fused_auc
 from torcheval_tpu_torch.ops.fused_auc import (  # noqa: E402
@@ -97,6 +131,10 @@ CTR_BATCH = 65_536
 # the least ctr_auc stream rate on a card: a Criteo 1TB evaluation pass
 # within a second of metric time
 STREAM_RATE_FLOOR = 1e8
+# exact curve values against their float64 oracles: float32 counts are
+# exact below 2^24, and past it (Criteo's negatives) a cumulative count is
+# off by a few units in its last place, ~1e-7 of the area
+CURVE_TOL = 1e-5
 
 
 def _emit(obj) -> None:
@@ -473,33 +511,57 @@ def phase_kernel_vs_plain(device, seed=2):
     }
 
 
-def phase_sync(device, classify_n=8192, num_classes=1000, batch=1024,
-               ctr_n=1 << 22, ctr_batch=CTR_BATCH, world=4, seed=3):
-    group = LocalReplicaGroup([torch.device(device)] * world)
+def _sync_collection(device, num_classes, exact=False):
+    """The sync phases' collection; ``exact`` adds the buffered
+    ``BinaryAUROC``/``BinaryAUPRC`` over the click stream."""
+    coll = {
+        "acc": MulticlassAccuracy(device=device),
+        "acc_macro": MulticlassAccuracy(average="macro", num_classes=num_classes, device=device),
+        "f1_macro": MulticlassF1Score(num_classes=num_classes, average="macro", device=device),
+        "loss": Mean(device=device),
+        "auroc": StreamingBinaryAUROC(device=device),
+        "auprc": StreamingBinaryAUPRC(device=device),
+    }
+    if exact:
+        coll["exact_auroc"] = BinaryAUROC(device=device)
+        coll["exact_auprc"] = BinaryAUPRC(device=device)
+    return coll
 
-    def collection():
-        return {
-            "acc": MulticlassAccuracy(device=device),
-            "acc_macro": MulticlassAccuracy(average="macro", num_classes=num_classes, device=device),
-            "f1_macro": MulticlassF1Score(num_classes=num_classes, average="macro", device=device),
-            "loss": Mean(device=device),
-            "auroc": StreamingBinaryAUROC(device=device),
-            "auprc": StreamingBinaryAUPRC(device=device),
-        }
 
-    single, replicas = collection(), [collection() for _ in range(world)]
+_CLASSIFY_NAMES = ("acc", "acc_macro", "f1_macro")
+
+
+def _feed_sync_stream(colls, device, seed, classify_n, num_classes, batch, ctr_n, ctr_batch):
+    """Feed the sync phases' stream (classify batches, then click batches,
+    from one generator) to ``colls(i)``: the collections batch ``i`` goes
+    to, each updating the members it has. Returns the number of click
+    batches."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    cls_names = ("acc", "acc_macro", "f1_macro")
     for i, start in enumerate(range(0, classify_n, batch)):
         logits, labels = _classify_batch(gen, min(batch, classify_n - start), num_classes, device)
         batch_loss = F.cross_entropy(logits, labels)
-        for coll in (single, replicas[i % world]):
-            toolkit.update_collection({k: coll[k] for k in cls_names}, logits, labels)
-            coll["loss"].update(batch_loss)
+        for coll in colls(i):
+            toolkit.update_collection(
+                {k: coll[k] for k in _CLASSIFY_NAMES if k in coll}, logits, labels)
+            if "loss" in coll:
+                coll["loss"].update(batch_loss)
+    clicks = 0
     for i, start in enumerate(range(0, ctr_n, ctr_batch)):
         s, y = _clicks(gen, (min(ctr_batch, ctr_n - start),), device)
-        for coll in (single, replicas[i % world]):
-            toolkit.update_collection({k: coll[k] for k in ("auroc", "auprc")}, s, y)
+        for coll in colls(i):
+            names = [k for k in ("auroc", "auprc", "exact_auroc", "exact_auprc") if k in coll]
+            toolkit.update_collection({k: coll[k] for k in names}, s, y)
+        clicks += 1
+    return clicks
+
+
+def phase_sync(device, classify_n=8192, num_classes=1000, batch=1024,
+               ctr_n=1 << 22, ctr_batch=CTR_BATCH, world=4, seed=3):
+    group = LocalReplicaGroup([torch.device(device)] * world)
+    single = _sync_collection(device, num_classes)
+    replicas = [_sync_collection(device, num_classes) for _ in range(world)]
+    _feed_sync_stream(lambda i: (single, replicas[i % world]), device, seed,
+                      classify_n, num_classes, batch, ctr_n, ctr_batch)
     # timed from a drained queue: the replicas' updates are not the sync's
     seconds = []
     for _ in range(3):
@@ -526,6 +588,349 @@ def phase_sync(device, classify_n=8192, num_classes=1000, batch=1024,
         "bitwise": ["acc", "acc_macro", "f1_macro", "auroc", "auprc"],
         "loss_abs_err": loss_err, "sync_seconds": sorted(seconds)[1],
         "sync_seconds_runs": seconds,
+    }
+
+
+# ----------------------------------------------------------- exact curves
+
+
+def _exact_oracle(scores, labels):
+    """float64 exact AUROC and average precision of each row of (R, n)
+    scores with 0/1 labels, from integer counts of each tie group, apart
+    from the metrics' cumsum/trapezoid chain: AUROC is the Mann-Whitney
+    statistic over mid-ranks, ``(R+ - P(P+1)/2) / (P N)``; average
+    precision sums, over the distinct thresholds from the top, each one's
+    recall step times its precision. NaN for a row without positives or
+    without negatives."""
+    rows, n = scores.shape
+    s, order = torch.sort(scores, dim=-1)
+    y = torch.gather(labels.to(torch.int64), 1, order).reshape(-1)
+    new = torch.ones_like(s, dtype=torch.bool)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    new = new.reshape(-1)
+    gid = torch.cumsum(new, 0) - 1  # tie groups, numbered across rows
+    groups = int(gid[-1]) + 1
+    cnt = torch.bincount(gid, minlength=groups)
+    pos = torch.zeros(groups, dtype=torch.int64, device=s.device).index_add_(0, gid, y)
+    row = torch.arange(rows, device=s.device).repeat_interleave(n)[new]
+    first_gid = gid[torch.arange(rows, device=s.device) * n]
+    cnt_below = torch.cumsum(cnt, 0) - cnt  # samples in lower groups (all rows)
+    pos_below = torch.cumsum(pos, 0) - pos
+    cnt_below = cnt_below - cnt_below[first_gid][row]  # ... of this row
+    pos_below = pos_below - pos_below[first_gid][row]
+    p = labels.to(torch.int64).sum(-1)
+    neg = n - p
+    midrank = cnt_below.double() + (cnt.double() + 1.0) / 2.0
+    rank_sum = torch.zeros(rows, dtype=torch.float64, device=s.device).index_add_(
+        0, row, midrank * pos.double())
+    pd, nd = p.double(), neg.double()
+    auroc = (rank_sum - pd * (pd + 1.0) / 2.0) / (pd * nd)
+    tp = p[row] - pos_below  # samples at or above the group's threshold
+    fp = neg[row] - (cnt_below - pos_below)
+    ap = torch.zeros(rows, dtype=torch.float64, device=s.device).index_add_(
+        0, row, pos.double() * tp.double() / (tp + fp).double()) / pd
+    bad = (p == 0) | (neg == 0)
+    nan = torch.full_like(auroc, float("nan"))
+    return torch.where(bad, nan, auroc), torch.where(bad, nan, ap)
+
+
+def _profile(fn, device):
+    """Device time of one call of ``fn`` (every CUDA kernel's self time
+    in a torch.profiler trace) and its five costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(device)
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            kernels.append((us / 1e3, evt.count, evt.key))
+    kernels.sort(reverse=True)
+    _check(bool(kernels) and kernels[0][0] > 0, "profiler shows no device time")
+    return {"device_ms": sum(k[0] for k in kernels),
+            "top_kernels": [[k[2][:80], k[0], k[1]] for k in kernels[:5]]}
+
+
+def _timed_compute(metric, device):
+    """One ``compute()`` from a drained queue, timed to its result."""
+    _sync(device)
+    t0 = time.perf_counter()
+    value = metric.compute()
+    _sync(device)
+    return value, time.perf_counter() - t0
+
+
+def _buffer_bytes(*metrics):
+    return sum(getattr(m, name).numel() * getattr(m, name).element_size()
+               for m in metrics for name in m._buffer_specs)
+
+
+def phase_curve(device, n=CRITEO_EVAL, batch=CTR_BATCH, cls_n=IMAGENET_VAL,
+                num_classes=1000, cls_batch=1024, num_bins=NUM_BINS, seed=5):
+    """Exact AUROC/AUPRC over growable buffers at Criteo 1TB evaluation
+    scale, plus the fused histogram AUROC on the same stream, and the
+    multiclass pair over ImageNet-1k validation; each held to a float64
+    oracle."""
+    cuda = torch.device(device).type == "cuda"
+    auroc = BinaryAUROC(device=device)
+    auprc = BinaryAUPRC(device=device)
+    fused = BinaryAUROC(use_fused=True, device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for start in range(0, n, batch):
+        s, y = _clicks(gen, (min(batch, n - start),), device)
+        for m in (auroc, auprc, fused):
+            m.update(s, y)
+    _sync(device)
+    stream_seconds = time.perf_counter() - t0
+    buffer_bytes = _buffer_bytes(auroc, auprc, fused)
+
+    before = _kernels.LAUNCHES["fused_auc_hist"]
+    values, wall = {}, {}
+    for name, m in (("auroc", auroc), ("auprc", auprc), ("auroc_fused", fused)):
+        values[name], wall[name] = _timed_compute(m, device)
+    launches = _kernels.LAUNCHES["fused_auc_hist"] - before
+    # once more: the first computes also load kernels and grow the allocator
+    warm = {name: _timed_compute(m, device)[1]
+            for name, m in (("auroc", auroc), ("auprc", auprc), ("auroc_fused", fused))}
+    _check(launches == (1 if cuda else 0), f"the fused compute launched K1 {launches} times")
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    profiles, cummin_ms = {}, {}
+    if cuda:
+        for name, m in (("auroc", auroc), ("auprc", auprc), ("auroc_fused", fused)):
+            profiles[name] = _profile(m.compute, device)
+        # both sides of the reverse cummin's design: one sequential scan of
+        # the 2^27-slot row against the two-level scan the metrics run
+        row = auroc.inputs
+        cummin_ms = {
+            "one_level": _time_ms(lambda: torch.cummin(torch.flip(row, (-1,)), -1), device, 1),
+            "two_level": _time_ms(lambda: _reverse_cummin(row), device, 5),
+        }
+
+    # the fused value against the plain histogram of the same valid samples
+    inputs, targets, weights = (b[None] for b in fused._valid())
+    plain_hist = _histogram_plain_full(inputs, targets, weights, num_bins, None)
+    kernel_hist = fa.histogram_delta_kernel(inputs, targets, weights, num_bins, None)
+    _check(torch.equal(kernel_hist, plain_hist), "fused compute's histogram != plain version")
+    _check(torch.equal(values["auroc_fused"], _auc_from_hist(plain_hist)[0]),
+           "fused AUROC != plain histogram AUROC")
+    del inputs, targets, weights, plain_hist, kernel_hist
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stream = [_clicks(gen, (min(batch, n - start),), device) for start in range(0, n, batch)]
+    scores = torch.cat([s for s, _ in stream])[None]
+    clicks = torch.cat([y for _, y in stream])[None]
+    del stream
+    o_auroc, o_auprc = (float(v[0]) for v in _exact_oracle(scores, clicks))
+    del scores, clicks
+    err = {"auroc": abs(float(values["auroc"]) - o_auroc),
+           "auprc": abs(float(values["auprc"]) - o_auprc)}
+    _check(max(err.values()) <= CURVE_TOL, f"exact curve values off the float64 oracle: {err}")
+    criteo = {
+        "samples": n, "batch": batch, "stream_seconds": stream_seconds,
+        "capacity": auroc.inputs.shape[-1], "buffer_bytes": buffer_bytes,
+        "peak_bytes": peak, "values": {k: float(v) for k, v in values.items()},
+        "oracle": {"auroc": o_auroc, "auprc": o_auprc}, "err_vs_float64": err,
+        "fused_minus_exact": float(values["auroc_fused"]) - o_auroc,
+        "compute_wall_s": wall, "compute_wall_s_warm": warm, "compute_profile": profiles,
+        "reverse_cummin_ms": cummin_ms,
+    }
+    del auroc, auprc, fused, values
+
+    mc_auroc = MulticlassAUROC(num_classes=num_classes, device=device)
+    mc_auprc = MulticlassAUPRC(num_classes=num_classes, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    probs_all, labels_all = [], []
+    for start in range(0, cls_n, cls_batch):
+        logits, labels = _classify_batch(gen, min(cls_batch, cls_n - start), num_classes, device)
+        probs = torch.softmax(logits, dim=-1)
+        mc_auroc.update(probs, labels)
+        mc_auprc.update(probs, labels)
+        probs_all.append(probs)
+        labels_all.append(labels)
+    cls_values, cls_wall, cls_profiles = {}, {}, {}
+    for name, m in (("auroc_macro", mc_auroc), ("auprc_macro", mc_auprc)):
+        cls_values[name], cls_wall[name] = _timed_compute(m, device)
+        if cuda:
+            cls_profiles[name] = _profile(m.compute, device)
+    inputs, targets = mc_auroc._padded()
+    per_auroc = _multiclass_auroc_compute(inputs, targets, mc_auroc._valid_mask(inputs.shape[0]))
+    per_auprc = _multiclass_auprc_compute(*mc_auprc._padded())
+    _check(torch.equal(torch.mean(per_auroc), cls_values["auroc_macro"])
+           and torch.equal(torch.mean(per_auprc), cls_values["auprc_macro"]),
+           "macro values != the mean of the per-class values")
+    probs = torch.cat(probs_all)
+    labels = torch.cat(labels_all)
+    onehot = labels[None, :] == torch.arange(num_classes, device=device)[:, None]
+    o_auroc, o_auprc = _exact_oracle(probs.T, onehot)
+    scored = ~torch.isnan(o_auroc)
+    _check(bool(scored.any()), "no class has both positives and negatives")
+    cls_err = {
+        "auroc": float((per_auroc.double() - o_auroc)[scored].abs().max()),
+        "auprc": float((per_auprc.double() - o_auprc)[scored].abs().max()),
+    }
+    _check(max(cls_err.values()) <= CURVE_TOL,
+           f"per-class curve values off the float64 oracle: {cls_err}")
+    imagenet = {
+        "samples": cls_n, "num_classes": num_classes, "batch": cls_batch,
+        "classes_scored": int(scored.sum()),
+        "values": {k: float(v) for k, v in cls_values.items()},
+        "max_class_err_vs_float64": cls_err, "compute_wall_s": cls_wall,
+        "compute_profile": cls_profiles,
+    }
+    return {"phase": "curve", "device": str(device), "k1_launches": launches,
+            "criteo": criteo, "imagenet": imagenet}
+
+
+# ------------------------------------------------------ multi-process sync
+
+
+def _spawn_ranks(target, world, args, timeout):
+    """Run ``target(rank, world, *args)`` in ``world`` spawned processes
+    and wait for them all. A rank that exits non-zero, or the timeout,
+    ends the others at once and raises; no process outlives the call."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, world, *args)) for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f"spawned ranks exited with {codes} (timeout {timeout} s)")
+
+
+def _cpu_states(state_dicts):
+    return {name: {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in sd.items()}
+            for name, sd in state_dicts.items()}
+
+
+def _same_state(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def _mp_rank(rank, world, device, out_dir, sizes, seed):
+    """One rank of ``phase_mp_sync``: its share of the sync stream, then
+    the syncs, written to ``out_dir/rank<r>.pt``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out_dir, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        coll = _sync_collection(device, sizes["num_classes"], exact=True)
+        _kernels.reset_launch_counts()
+        clicks = _feed_sync_stream(
+            lambda i: (coll,) if i % world == rank else (), device, seed, sizes["classify_n"],
+            sizes["num_classes"], sizes["batch"], sizes["ctr_n"], sizes["ctr_batch"])
+        launches = _kernels.LAUNCHES["fused_auc_hist"]
+        group = MultiHostGroup()
+        values = toolkit.sync_and_compute_collection(coll, group)
+        state_dicts = toolkit.get_synced_state_dict_collection(coll, group)
+        seconds = []
+        for _ in range(3):
+            _sync(device)
+            t0 = time.perf_counter()
+            synced = toolkit.get_synced_metric_collection(coll, group)
+            for m in synced.values():
+                m.compute()
+            _sync(device)
+            seconds.append(time.perf_counter() - t0)
+        sub = group.new_subgroup([1])
+        before = {name: m.state_dict() for name, m in coll.items()}
+        untouched = toolkit.get_synced_metric_collection(coll, sub) is coll and all(
+            _same_state(v, getattr(coll[name], k))
+            for name, sd in before.items() for k, v in sd.items())
+        torch.save({
+            "values": {k: v.cpu() for k, v in values.items()},
+            "state_dicts": _cpu_states(state_dicts), "seconds": seconds,
+            "launches": launches, "clicks": (clicks - rank + world - 1) // world,
+            "sub_member": sub.is_member, "sub_untouched": untouched,
+        }, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mp_sync(device, classify_n=8192, num_classes=1000, batch=1024,
+                  ctr_n=1 << 22, ctr_batch=CTR_BATCH, world=2, seed=6, timeout=600):
+    """``world`` spawned ranks, one process each, joined by gloo over a
+    ``FileStore``; metric state on ``device``. Each rank feeds its share
+    (batch ``i`` to rank ``i % world``) of the ``sync`` phase's stream to
+    that phase's collection plus exact ``BinaryAUROC``/``BinaryAUPRC``,
+    then syncs over a ``MultiHostGroup``. Every rank's synced values and
+    state must equal one process's stream bitwise (the loss mean within
+    1e-6); a subgroup of rank 1 must leave rank 0 untouched."""
+    cuda = torch.device(device).type == "cuda"
+    sizes = {"classify_n": classify_n, "num_classes": num_classes, "batch": batch,
+             "ctr_n": ctr_n, "ctr_batch": ctr_batch}
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        _spawn_ranks(_mp_rank, world, (str(device), out_dir, sizes, seed), timeout)
+        spawn_seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            path = os.path.join(out_dir, f"rank{r}.pt")
+            _check(os.path.exists(path), f"rank {r} wrote no result")
+            ranks.append(torch.load(path, weights_only=False))
+
+    # one process: the stream in order, and in the merged order (rank 0's
+    # batches, then rank 1's, ...) that the synced buffers hold
+    single = _sync_collection(device, num_classes, exact=True)
+    _feed_sync_stream(lambda i: (single,), device, seed, classify_n, num_classes, batch,
+                      ctr_n, ctr_batch)
+    expected = {name: m.compute() for name, m in single.items()}
+    merged_order = {k: _sync_collection(device, num_classes, exact=True)[k]
+                    for k in ("exact_auroc", "exact_auprc")}
+    for owner in range(world):
+        _feed_sync_stream(lambda i: (merged_order,) if i % world == owner else (), device,
+                          seed, classify_n, num_classes, batch, ctr_n, ctr_batch)
+    states = _cpu_states({name: m.state_dict() for name, m in single.items()})
+    states.update(_cpu_states({k: m.state_dict() for k, m in merged_order.items()}))
+    loss_err = 0.0
+    for r, got in enumerate(ranks):
+        for name, value in got["values"].items():
+            want = expected[name].cpu()
+            if name == "loss":
+                loss_err = max(loss_err, float((value - want).abs()))
+            else:
+                _check(torch.equal(value, want), f"rank {r}: synced {name} != single stream")
+            for k, v in got["state_dicts"][name].items():
+                _check(name == "loss" or _same_state(v, states[name][k]),
+                       f"rank {r}: synced state {name}.{k} != single stream")
+        _check(got["sub_member"] == (r == 1), f"rank {r}: subgroup membership wrong")
+        _check(got["sub_untouched"], f"rank {r}: subgroup [1] sync touched its metrics")
+        if cuda:
+            _check(got["launches"] == 2 * got["clicks"],
+                   f"rank {r}: K1 launched {got['launches']} times for {got['clicks']} click batches")
+    _check(loss_err <= 1e-6 * max(1.0, float(expected["loss"].abs())), f"loss off by {loss_err}")
+    seconds = [sorted(got["seconds"])[1] for got in ranks]
+    return {
+        "phase": "mp_sync", "device": str(device), "world": world, "backend": "gloo",
+        "classify_samples": classify_n, "ctr_samples": ctr_n,
+        "values": {k: float(v) for k, v in ranks[0]["values"].items()},
+        "bitwise": sorted(k for k in expected if k != "loss"), "loss_abs_err": loss_err,
+        "sync_seconds": seconds, "sync_seconds_runs": [got["seconds"] for got in ranks],
+        "k1_launches": [got["launches"] for got in ranks], "spawn_seconds": spawn_seconds,
     }
 
 
@@ -797,6 +1202,9 @@ def main(argv=None) -> int:
     kvp = phase_kernel_vs_plain(device, seed=args.seed + 2)
     _emit(kvp)
     _emit(phase_sync(device, seed=args.seed + 3))
+    curve = phase_curve(device, seed=args.seed + 5)
+    _emit(curve)
+    _emit(phase_mp_sync(device, seed=args.seed + 6))
     timing = phase_timing(device, seed=args.seed + 4, full_sweep=args.sweep)
     _emit(timing)
 
@@ -810,6 +1218,7 @@ def main(argv=None) -> int:
         "source": "torcheval_tpu_torch/ops/csrc/fused_auc_hist.cu",
         "replaces": "torcheval_tpu/ops/fused_auc.py:164",
         "launches": ctr["k1_launches"],
+        "launches_use_fused": curve["k1_launches"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],

@@ -48,6 +48,38 @@ def test_phase_sync_small_on_cpu():
     assert out["world"] == 4 and out["loss_abs_err"] <= 1e-6
 
 
+def test_phase_curve_small_on_cpu():
+    _kernels.reset_launch_counts()
+    out = chip_smoke.phase_curve(CPU, n=150_000, batch=40_000, cls_n=2500, num_classes=40,
+                                 cls_batch=512)
+    assert out["k1_launches"] == 0  # CPU tensors take the plain histogram
+    criteo, imagenet = out["criteo"], out["imagenet"]
+    assert criteo["capacity"] == 1 << 18 and criteo["buffer_bytes"] == 8 * 4 * (1 << 18)
+    assert max(criteo["err_vs_float64"].values()) <= chip_smoke.CURVE_TOL
+    assert imagenet["classes_scored"] == 40
+    assert max(imagenet["max_class_err_vs_float64"].values()) <= chip_smoke.CURVE_TOL
+
+
+def test_exact_oracle_matches_the_jax_curve_metrics():
+    """The smoke's float64 oracle (mid-rank Mann-Whitney, step-wise
+    average precision) against the JAX package on tied scores."""
+    rng = np.random.default_rng(9)
+    s = (np.round(rng.random((3, 500)) * 30) / 30).astype(np.float32)
+    y = (rng.random((3, 500)) < s).astype(np.float32)
+    auroc, ap = chip_smoke._exact_oracle(torch.from_numpy(s), torch.from_numpy(y))
+    np.testing.assert_allclose(auroc.numpy(), np.asarray(JM.BinaryAUROC(num_tasks=3).update(s, y).compute()),
+                               atol=1e-6)
+    np.testing.assert_allclose(ap.numpy(), np.asarray(JM.BinaryAUPRC(num_tasks=3).update(s, y).compute()),
+                               atol=1e-6)
+
+
+def test_phase_mp_sync_small_on_cpu():
+    out = chip_smoke.phase_mp_sync(CPU, classify_n=1024, num_classes=20, batch=256,
+                                   ctr_n=1 << 14, ctr_batch=1 << 12, timeout=180)
+    assert out["world"] == 2 and out["loss_abs_err"] <= 1e-6
+    assert "exact_auroc" in out["bitwise"] and len(out["sync_seconds"]) == 2
+
+
 def test_main_refuses_to_run_without_cuda(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

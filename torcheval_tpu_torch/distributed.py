@@ -1,20 +1,28 @@
-"""Replica group abstractions for metric state sync.
+"""Process and replica groups for metric state sync.
 
-Counterpart of ``torcheval_tpu/distributed.py`` for this slice:
-``ProcessGroup`` (the interface the sync layer needs), ``SingleProcessGroup``
-(a world of one) and ``LocalReplicaGroup`` (N metric replicas driven by
-one process, one per ``torch.device`` -- several may share one card). The
-multi-process ``torch.distributed`` group (gloo on the CPU, NCCL on the
-card) is the next slice; ``encode_length``/``decode_length``, the
-int32-pair wire encoding of a payload length, are here for it.
+Counterpart of ``torcheval_tpu/distributed.py``: ``ProcessGroup`` (the
+interface the sync layer needs), ``SingleProcessGroup`` (a world of one),
+``LocalReplicaGroup`` (N metric replicas driven by one process, one per
+``torch.device`` -- several may share one card), and ``MultiHostGroup`` /
+``MultiHostSubgroup``: one rank per process over ``torch.distributed``,
+the counterparts of the JAX package's multi-host groups.
+
+An object gather pickles the object, gathers every rank's byte length as
+an int32 pair (``encode_length``), pads the bytes to the longest and
+gathers them in one ``all_gather``. The byte tensors live where the
+backend wants them: on the CPU under gloo, on ``cuda:<current device>``
+under NCCL. The caller picks the backend in ``init_process_group``;
+nothing here switches it.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 LENGTH_WIRE_DTYPE = np.int32
 _LENGTH_BASE = 1 << 31
@@ -67,7 +75,20 @@ class ProcessGroup:
     def rank(self) -> int:
         raise NotImplementedError
 
+    @property
+    def is_member(self) -> bool:
+        """Whether this process takes part in the group's collectives; a
+        subgroup handle held by a non-member says False, and the toolkit
+        then returns its metrics untouched."""
+        return True
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """Global ranks of the members, ascending."""
+        return tuple(range(self.world_size))
+
     def new_subgroup(self, ranks: Sequence[int]) -> "ProcessGroup":
+        """A group scoped to ``ranks`` (ranks of this group)."""
         raise NotImplementedError(
             f"{type(self).__name__} does not support subgroup scoping"
         )
@@ -134,6 +155,12 @@ class LocalReplicaGroup(ProcessGroup):
     def rank(self) -> int:
         return 0
 
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        if self._member_ranks is not None:
+            return self._member_ranks
+        return tuple(range(self.world_size))
+
     def new_subgroup(self, ranks: Sequence[int]) -> "LocalReplicaGroup":
         ranks = _check_subgroup_ranks(ranks, self.world_size)
         sub = LocalReplicaGroup([self.devices[r] for r in ranks])
@@ -148,7 +175,104 @@ class LocalReplicaGroup(ProcessGroup):
         return list(objs)
 
 
+class MultiHostGroup(ProcessGroup):
+    """The processes of a ``torch.distributed`` job, one rank each.
+
+    ``group`` is a ``torch.distributed`` process group (default: the
+    world) and ``ranks`` its global ranks, read from ``group`` when not
+    given (a process outside ``group`` must give them).
+    ``torch.distributed.init_process_group`` must have run; give it the
+    address (``tcp://localhost:<port>`` or a ``FileStore``), world size
+    and rank yourself.
+    """
+
+    def __init__(self, group=None, ranks: Optional[Sequence[int]] = None) -> None:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                f"{type(self).__name__} needs torch.distributed initialized "
+                "(torch.distributed.init_process_group with its address, "
+                "world size and rank)"
+            )
+        if ranks is None:
+            ranks = (
+                range(dist.get_world_size())
+                if group is None
+                else dist.get_process_group_ranks(group)
+            )
+        self._group = group
+        self._ranks = tuple(ranks)
+        me = dist.get_rank()
+        self._index = self._ranks.index(me) if me in self._ranks else None
+
+    @property
+    def world_size(self) -> int:
+        return len(self._ranks)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the group (-1 for a non-member)."""
+        return -1 if self._index is None else self._index
+
+    @property
+    def is_member(self) -> bool:
+        return self._index is not None
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        return self._ranks
+
+    def new_subgroup(self, ranks: Sequence[int]) -> "MultiHostSubgroup":
+        """A subgroup of ``ranks`` (ranks of this group). Like
+        ``torch.distributed.new_group``, which it calls, every process of
+        the job calls it, in the same order; non-members get a handle with
+        ``is_member == False``."""
+        rel = _check_subgroup_ranks(ranks, self.world_size)
+        members = [self._ranks[r] for r in rel]
+        return MultiHostSubgroup(dist.new_group(ranks=members), members)
+
+    def _byte_device(self) -> torch.device:
+        if dist.get_backend(self._group) == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def _all_gather(self, arr: np.ndarray) -> List[np.ndarray]:
+        """One ``all_gather`` of a same-shaped array from every member."""
+        if self._index is None:
+            raise RuntimeError(
+                f"process {dist.get_rank()} is not a member of the group of "
+                f"ranks {self._ranks}; non-members must not issue its "
+                "collectives (the toolkit returns their metrics untouched)"
+            )
+        local = torch.from_numpy(np.ascontiguousarray(arr)).to(self._byte_device())
+        out = [torch.empty_like(local) for _ in self._ranks]
+        dist.all_gather(out, local, group=self._group)
+        return [t.cpu().numpy() for t in out]
+
+    def allgather_array(self, x) -> List[np.ndarray]:
+        return self._all_gather(_as_numpy(x))
+
+    def allgather_object(self, obj) -> List[Any]:
+        payload = np.frombuffer(pickle.dumps(obj), dtype=np.uint8)
+        sizes = [decode_length(n) for n in self._all_gather(encode_length(payload.size))]
+        padded = np.zeros(max(sizes), dtype=np.uint8)
+        padded[: payload.size] = payload
+        gathered = self._all_gather(padded)
+        return [pickle.loads(g[:size].tobytes()) for g, size in zip(gathered, sizes)]
+
+
+class MultiHostSubgroup(MultiHostGroup):
+    """A subset of the job's processes over its own ``torch.distributed``
+    group, as ``MultiHostGroup.new_subgroup`` makes it; ``ranks`` are
+    global ranks, and a process outside them holds a handle with
+    ``is_member == False``."""
+
+    def __init__(self, group, ranks: Sequence[int]) -> None:
+        super().__init__(group, ranks)
+
+
 def default_process_group() -> ProcessGroup:
-    """The world group: a world of one until the multi-process
-    ``torch.distributed`` group lands."""
+    """The world group: ``MultiHostGroup()`` when ``torch.distributed`` is
+    initialized with more than one process, else a world of one."""
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return MultiHostGroup()
     return SingleProcessGroup()

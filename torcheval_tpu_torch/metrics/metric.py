@@ -262,6 +262,12 @@ class Metric(Generic[TComputeReturn], ABC):
             for name in self._state_name_to_default
         }
 
+    def _sync_state_dict(self) -> Dict[str, TState]:
+        """What a sync ships of this metric: ``state_dict()`` unless a
+        subclass trims it (buffered metrics send their valid prefix, not
+        their capacity). Checkpoints keep using ``state_dict()``."""
+        return self.state_dict()
+
     def load_state_dict(
         self, state_dict: Dict[str, TState], strict: bool = True
     ) -> None:

@@ -7,9 +7,11 @@ or zero-suppressed (uint32 indices of the bit-nonzero elements plus their
 values, lossless) when that at least halves a large state -- with shapes,
 dtypes, encodings and scalar states riding the metadata. A collection
 syncs in one metadata gather plus one payload gather, whatever the number
-of metrics. A crc32 of each payload rides the metadata and is checked on
-receipt. The multi-process path, the bf16/int8 wire rungs and the
-resilience layer are later slices.
+of metrics, over local replicas or over processes. A crc32 of each payload
+rides the metadata and is checked on receipt. Each rank's shapes ride its
+own metadata, so states of different shapes per rank (buffers of different
+capacity) unpack. The bf16/int8 wire rungs and the resilience layer are
+later slices.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from torcheval_tpu_torch.distributed import LocalReplicaGroup
+from torcheval_tpu_torch.distributed import LocalReplicaGroup, ProcessGroup
 
 # {metric_name: {state_name: TState}}
 MetricStates = Dict[str, Dict[str, Any]]
@@ -143,27 +145,41 @@ def _unpack_rank_states(
     return out
 
 
-def sync_states(
-    metric_states: List[MetricStates], process_group: LocalReplicaGroup
-) -> List[MetricStates]:
-    """Gather every replica's metric states, through the wire protocol.
+def sync_states(metric_states, process_group: ProcessGroup) -> List[MetricStates]:
+    """Gather every rank's metric states to every rank, through the wire
+    protocol; returns the per-rank states as numpy, in rank order.
 
-    ``metric_states`` is the per-replica list ``[{metric_name:
-    state_dict}, ...]``. Every replica's states are packed and go through
-    one ``allgather_object`` (metadata, scalar states, payload size and
-    crc32) and at most one ``allgather_array`` (the payloads), then come
-    back unpacked as numpy, in rank order. The multi-process group of the
-    next slice pads the payloads to one length for its array gather.
+    Under a ``LocalReplicaGroup``, ``metric_states`` is the per-replica
+    list ``[{metric_name: state_dict}, ...]``; under a multi-process group
+    it is this process's ``{metric_name: state_dict}``. Either way the
+    states travel through one ``allgather_object`` (each rank's metadata,
+    scalar states, payload size and crc32) and at most one
+    ``allgather_array`` (the payloads, padded to the longest on the
+    multi-process path).
     """
-    order = metrics_traversal_order(metric_states[0])
-    packed = [_pack_rank_states(ms, order) for ms in metric_states]
-    metas = process_group.allgather_object(
-        [(meta, int(flat.size), zlib.crc32(flat)) for meta, flat in packed]
-    )
-    if all(size == 0 for _, size, _ in metas):
-        bufs = [np.zeros(0, dtype=np.uint8)] * len(metas)
+    if isinstance(process_group, LocalReplicaGroup):
+        template = metric_states[0]
+        order = metrics_traversal_order(template)
+        packed = [_pack_rank_states(ms, order) for ms in metric_states]
+        metas = process_group.allgather_object(
+            [(meta, int(flat.size), zlib.crc32(flat)) for meta, flat in packed]
+        )
+        if all(size == 0 for _, size, _ in metas):
+            bufs = [np.zeros(0, dtype=np.uint8)] * len(metas)
+        else:
+            bufs = process_group.allgather_array([flat for _, flat in packed])
     else:
-        bufs = process_group.allgather_array([flat for _, flat in packed])
+        template = metric_states
+        order = metrics_traversal_order(template)
+        meta, flat = _pack_rank_states(metric_states, order)
+        metas = process_group.allgather_object((meta, int(flat.size), zlib.crc32(flat)))
+        max_bytes = max(size for _, size, _ in metas)
+        if max_bytes == 0:
+            bufs = [np.zeros(0, dtype=np.uint8)] * len(metas)
+        else:
+            padded = np.zeros(max_bytes, dtype=np.uint8)
+            padded[: flat.size] = flat
+            bufs = process_group.allgather_array(padded)
     out = []
     for rank, ((meta, size, crc), buf) in enumerate(zip(metas, bufs)):
         buf = np.asarray(buf, dtype=np.uint8)
@@ -172,5 +188,5 @@ def sync_states(
                 f"rank {rank}'s gathered metric-state payload failed its "
                 f"checksum ({size} bytes); refusing to merge corrupt state"
             )
-        out.append(_unpack_rank_states(metric_states[0], order, meta, buf))
+        out.append(_unpack_rank_states(template, order, meta, buf))
     return out

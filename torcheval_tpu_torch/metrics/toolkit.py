@@ -1,10 +1,13 @@
 """Distributed sync toolkit and collection helpers.
 
-Counterpart of ``torcheval_tpu/metrics/toolkit.py`` for this slice:
-``sync_and_compute(_collection)``, ``get_synced_metric(_collection)`` on the
-local-replica path (states gathered through ``synclib.sync_states`` and
-merged rank by rank into clones), ``update_collection`` (every plan built,
-and so validated, before any runs; then each runs eagerly in turn),
+Counterpart of ``torcheval_tpu/metrics/toolkit.py``:
+``sync_and_compute(_collection)``, ``get_synced_metric(_collection)`` and
+``get_synced_state_dict(_collection)`` over local replicas or over
+processes (each metric's ``_sync_state_dict()`` gathered through
+``synclib.sync_states``, then merged rank by rank, in ascending rank
+order, into clones; a process outside a subgroup gets its metrics back
+untouched), ``update_collection`` (every plan built, and so validated,
+before any runs; then each runs eagerly in turn), ``classwise_converter``,
 ``clone_metric(s)``, ``reset_metrics`` and ``to_device``.
 
 Left for later slices: sync provenance, resilience policies, the
@@ -35,6 +38,9 @@ __all__ = [
     "sync_and_compute_collection",
     "get_synced_metric",
     "get_synced_metric_collection",
+    "get_synced_state_dict",
+    "get_synced_state_dict_collection",
+    "classwise_converter",
     "clone_metric",
     "clone_metrics",
     "reset_metrics",
@@ -103,23 +109,29 @@ def get_synced_metric_collection(
     process_group: Optional[ProcessGroup] = None,
 ) -> Dict[str, Metric]:
     """Collection variant: every metric's states travel in one batched
-    exchange ordered by ``synclib.metrics_traversal_order``; the merge
-    folds ranks in ascending order (rank 0 + rank 1, then + rank 2, ...)."""
+    exchange ordered by ``synclib.metrics_traversal_order``; every rank
+    merges, folding ranks in ascending order (rank 0 + rank 1, then
+    + rank 2, ...). A process outside the group's members, or a world of
+    one, gets its collection back untouched."""
     group = process_group if process_group is not None else default_process_group()
-    if not isinstance(group, LocalReplicaGroup):
-        if group.world_size != 1:
-            raise NotImplementedError(
-                "multi-process sync lands with the torch.distributed group"
+    local = isinstance(group, LocalReplicaGroup)
+    if not local and (not group.is_member or group.world_size == 1):
+        if group.is_member:
+            _logger.warning(
+                "World size is 1, and metric states are not synced; "
+                "returning the input metric collection."
             )
-        _logger.warning(
-            "World size is 1, and metric states are not synced; "
-            "returning the input metric collection."
-        )
         return metrics if isinstance(metrics, dict) else metrics[0]
 
-    replicas = _select_replicas(metrics, group, "metric collections")
-    payload = [{name: m.state_dict() for name, m in coll.items()} for coll in replicas]
-    template = replicas[0]
+    if local:
+        replicas = _select_replicas(metrics, group, "metric collections")
+        payload: Any = [
+            {name: m._sync_state_dict() for name, m in coll.items()} for coll in replicas
+        ]
+        template = replicas[0]
+    else:
+        payload = {name: m._sync_state_dict() for name, m in metrics.items()}
+        template = metrics
     per_rank_states = synclib.sync_states(payload, group)
 
     merged: Dict[str, Metric] = {}
@@ -133,6 +145,23 @@ def get_synced_metric_collection(
         target.merge_state(rank_metrics[1:])
         merged[name] = target
     return merged
+
+
+def get_synced_state_dict(
+    metric: MetricOrReplicas, process_group: Optional[ProcessGroup] = None
+) -> Dict[str, TState]:
+    """The synced metric's ``state_dict()``: the same merged state on
+    every rank, for a checkpoint."""
+    return get_synced_metric(metric, process_group).state_dict()
+
+
+def get_synced_state_dict_collection(
+    metrics: Union[Dict[str, Metric], List[Dict[str, Metric]]],
+    process_group: Optional[ProcessGroup] = None,
+) -> Dict[str, Dict[str, TState]]:
+    """``{name: state_dict()}`` of the synced collection."""
+    synced = get_synced_metric_collection(metrics, process_group)
+    return {name: m.state_dict() for name, m in synced.items()}
 
 
 def _restore_state_types(state_dict: Dict[str, Any]) -> Dict[str, TState]:
@@ -214,3 +243,18 @@ def update_collection(
     for metric, plan in planned:
         metric._apply_update_plan(plan)
     return metrics
+
+
+def classwise_converter(
+    input: torch.Tensor, name: str, labels: Optional[List[str]] = None
+) -> Dict[str, torch.Tensor]:
+    """A per-class vector as ``{f"{name}_{label}": value}`` (labels default
+    to the class indices)."""
+    if labels is None:
+        return {f"{name}_{i}": val for i, val in enumerate(input)}
+    if len(labels) != input.shape[0]:
+        raise ValueError(
+            f"Number of labels {len(labels)} must equal the number of classes "
+            f"{input.shape[0]}."
+        )
+    return {f"{name}_{label}": val for label, val in zip(labels, input)}

@@ -78,6 +78,29 @@ def to_torch(
     return t.to(device=device, dtype=dtype)
 
 
+# what the JAX package's arrays hold with x64 disabled: its 64-bit inputs
+# arrive narrowed to 32 bits
+_NARROW_64 = {
+    torch.int64: torch.int32,
+    torch.float64: torch.float32,
+    torch.complex128: torch.complex64,
+}
+
+
+def narrow_dtype(dtype: torch.dtype) -> torch.dtype:
+    """A 64-bit dtype narrowed to the 32-bit one the JAX package would hold
+    (int64 -> int32, float64 -> float32); other dtypes as they are.
+    Buffered example states take their dtype from the first batch, so
+    narrowing keeps their dtypes equal across the two packages."""
+    return _NARROW_64.get(dtype, dtype)
+
+
+def narrow_64(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``narrow_dtype(t.dtype)`` (no copy when that is its own)."""
+    dtype = narrow_dtype(t.dtype)
+    return t if dtype == t.dtype else t.to(dtype)
+
+
 def to_torch_float(
     x: TensorLike, *, device: Optional[torch.device] = None
 ) -> torch.Tensor:
@@ -130,15 +153,18 @@ def load_numpy_state_dict(metric, state: Dict[str, Any]) -> None:
 
     Array states must arrive with the dtype this metric registered -- the
     two packages share state dtypes, so a mismatch means the payload
-    belongs to another metric -- and scalar states stay Python numbers.
+    belongs to another metric -- and scalar states stay Python numbers. A
+    buffered example state (``metrics/_buffer.py``) takes the payload's
+    dtype: its dtype is fixed by the first batch, not at registration.
     """
+    buffers = getattr(metric, "_buffer_specs", {})
     converted: Dict[str, Any] = {}
     for name, value in state.items():
         current = getattr(metric, name, None)
         if isinstance(current, torch.Tensor):
             arr = np.array(value, copy=True)
             t = torch.from_numpy(arr)
-            if t.dtype != current.dtype:
+            if t.dtype != current.dtype and name not in buffers:
                 raise TypeError(
                     f"state {name!r} of {type(metric).__name__} is "
                     f"{current.dtype}, got a {arr.dtype} array"
