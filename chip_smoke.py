@@ -43,7 +43,9 @@ phases, printing one JSON line for each:
    softmax scores feeds ``MulticlassAUROC`` and ``MulticlassAUPRC``, each
    class held to the same oracles. Each compute's wall and device time,
    its costliest kernels, the buffers' bytes and the peak allocation are
-   reported, with the reverse cummin timed in one and two levels.
+   reported, with the reverse cummin timed in one and two levels, and the
+   ``use_fused`` compute's histogram timed as K1, its plain version and one
+   ``torch.bincount``.
 6. ``mp_sync``: two spawned ranks, one process each, joined by gloo over a
    ``FileStore``, metric state on the card: each feeds its half of phase
    4's stream to that collection plus exact ``BinaryAUROC``/``BinaryAUPRC``
@@ -51,7 +53,25 @@ phases, printing one JSON line for each:
    one process's stream bitwise (the loss mean within 1e-6), a subgroup of
    rank 1 leaves rank 0 untouched, and the sync is timed three times from a
    drained queue.
-7. ``timing``: the kernel against its plain version and ``torch.bincount``
+7. ``counters``: the counter families at published scales, each held to
+   an int64/float64 oracle. ImageNet-1k validation (50,000 x 1,000, batches
+   of 1,024): ``MulticlassConfusionMatrix`` bitwise, ``MulticlassPrecision``
+   and ``MulticlassRecall`` at every average within 1e-6, the multiclass
+   binned precision-recall curve in both ``optimization`` modes (bitwise
+   equal to each other and to exact counts), ``MulticlassBinnedAUROC`` and
+   ``MulticlassBinnedAUPRC``. The Criteo stream of phase 2: the binary
+   binned curve and AUPRC (counters within the float32 accumulation
+   bound), ``HistogramBinnedAUROC`` at 100 and 2^20 thresholds (histograms
+   bitwise, AUROC within 1e-6), ``BinaryBinnedAUROC`` over the first 2^22
+   samples and ``StreamingBinaryAUROC`` beside them, K1 once an update.
+   OpenImages V6 validation (41,620 x 600, about two labels an image):
+   ``MultilabelAccuracy`` under every criterion, ``TopKMultilabelAccuracy``
+   at k = 5 with its ``topk`` bitwise to a host totalOrder oracle over rows
+   with planted ties, +-0 and NaN, and the multilabel binned family. Per
+   stream: update wall ms per batch (and the device time of one batch in
+   each binned PRC mode), each compute's wall and device time, costliest
+   kernels and peak bytes.
+8. ``timing``: the kernel against its plain version and ``torch.bincount``
    at the main path's shapes (T = 1 at 65,536 and 2^24 samples, and the
    weighted 4-task batch) and at 65,536 bins, with its device time from
    the profiler, its host time per call split three ways
@@ -67,7 +87,7 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2 and 4 to 6 at small sizes with ``device="cpu"``.
+1, 2 and 4 to 7 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -83,6 +103,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -93,14 +114,28 @@ from torcheval_tpu_torch.distributed import LocalReplicaGroup, MultiHostGroup  #
 from torcheval_tpu_torch.metrics import (  # noqa: E402
     BinaryAUPRC,
     BinaryAUROC,
+    BinaryBinnedAUPRC,
+    BinaryBinnedAUROC,
+    BinaryBinnedPrecisionRecallCurve,
+    HistogramBinnedAUROC,
     Mean,
     MulticlassAccuracy,
     MulticlassAUPRC,
     MulticlassAUROC,
+    MulticlassBinnedAUPRC,
+    MulticlassBinnedAUROC,
+    MulticlassBinnedPrecisionRecallCurve,
+    MulticlassConfusionMatrix,
     MulticlassF1Score,
+    MulticlassPrecision,
+    MulticlassRecall,
+    MultilabelAccuracy,
+    MultilabelBinnedAUPRC,
+    MultilabelBinnedPrecisionRecallCurve,
     StreamingBinaryAUPRC,
     StreamingBinaryAUROC,
     Throughput,
+    TopKMultilabelAccuracy,
 )
 from torcheval_tpu_torch.metrics import toolkit  # noqa: E402
 from torcheval_tpu_torch.metrics.functional.classification._curve_kernels import (  # noqa: E402
@@ -112,7 +147,7 @@ from torcheval_tpu_torch.metrics.functional.classification.auprc import (  # noq
 from torcheval_tpu_torch.metrics.functional.classification.auroc import (  # noqa: E402
     _multiclass_auroc_compute,
 )
-from torcheval_tpu_torch.ops import _kernels  # noqa: E402
+from torcheval_tpu_torch.ops import _kernels, topk  # noqa: E402
 fa = importlib.import_module("torcheval_tpu_torch.ops.fused_auc")  # the module, not ops.fused_auc
 from torcheval_tpu_torch.ops.fused_auc import (  # noqa: E402
     K1Geometry,
@@ -634,27 +669,33 @@ def _exact_oracle(scores, labels):
     return torch.where(bad, nan, auroc), torch.where(bad, nan, ap)
 
 
-def _profile(fn, device):
+def _profile(fn, device, reps=1):
     """Device time of one call of ``fn`` (every CUDA kernel's self time
-    in a torch.profiler trace) and its five costliest kernels."""
+    in a torch.profiler trace of ``reps`` calls, over ``reps``) and its
+    five costliest kernels. A trace that shows no kernel is taken once
+    more (CUPTI has dropped a short window's kernels); a second empty
+    trace fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _sync(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(2):
         _sync(device)
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = evt.self_cuda_time_total
-            kernels.append((us / 1e3, evt.count, evt.key))
-    kernels.sort(reverse=True)
-    _check(bool(kernels) and kernels[0][0] > 0, "profiler shows no device time")
-    return {"device_ms": sum(k[0] for k in kernels),
-            "top_kernels": [[k[2][:80], k[0], k[1]] for k in kernels[:5]]}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            _sync(device)
+        kernels = []
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA:
+                us = getattr(evt, "self_device_time_total", None)
+                if us is None:
+                    us = evt.self_cuda_time_total
+                kernels.append((us / 1e3 / reps, evt.count / reps, evt.key))
+        kernels.sort(reverse=True)
+        if kernels and kernels[0][0] > 0:
+            return {"device_ms": sum(k[0] for k in kernels),
+                    "top_kernels": [[k[2][:80], k[0], k[1]] for k in kernels[:5]]}
+    raise AssertionError("profiler shows no device time")
 
 
 def _timed_compute(metric, device):
@@ -723,6 +764,26 @@ def phase_curve(device, n=CRITEO_EVAL, batch=CTR_BATCH, cls_n=IMAGENET_VAL,
     _check(torch.equal(kernel_hist, plain_hist), "fused compute's histogram != plain version")
     _check(torch.equal(values["auroc_fused"], _auc_from_hist(plain_hist)[0]),
            "fused AUROC != plain histogram AUROC")
+    use_fused = {}
+    if cuda:
+        # the use_fused compute's histogram over the valid samples: K1
+        # (with its min/max), the plain version, and one torch.bincount
+        # over precomputed bin indices (binning not timed)
+        bins = (torch.clamp(torch.nan_to_num(fa._prepare_scores(inputs, None), nan=0.0), 0.0, 1.0)
+                * num_bins).to(torch.int64).clamp_(0, num_bins - 1).reshape(-1)
+        idx2 = torch.cat([bins, bins + num_bins])
+        w2 = torch.cat([(weights * targets).reshape(-1), (weights * (1.0 - targets)).reshape(-1)])
+        del bins
+        use_fused = {
+            "samples": inputs.shape[-1],
+            "kernel_ms": _time_ms(lambda: fa.histogram_delta_kernel(
+                inputs, targets, weights, num_bins, None), device, 3),
+            "plain_ms": _time_ms(lambda: _histogram_plain_full(
+                inputs, targets, weights, num_bins, None), device, 3),
+            "library_ms": _time_ms(lambda: torch.bincount(
+                idx2, weights=w2, minlength=2 * num_bins), device, 3),
+        }
+        del idx2, w2
     del inputs, targets, weights, plain_hist, kernel_hist
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -742,7 +803,7 @@ def phase_curve(device, n=CRITEO_EVAL, batch=CTR_BATCH, cls_n=IMAGENET_VAL,
         "oracle": {"auroc": o_auroc, "auprc": o_auprc}, "err_vs_float64": err,
         "fused_minus_exact": float(values["auroc_fused"]) - o_auroc,
         "compute_wall_s": wall, "compute_wall_s_warm": warm, "compute_profile": profiles,
-        "reverse_cummin_ms": cummin_ms,
+        "reverse_cummin_ms": cummin_ms, "use_fused_histogram": use_fused,
     }
     del auroc, auprc, fused, values
 
@@ -932,6 +993,479 @@ def phase_mp_sync(device, classify_n=8192, num_classes=1000, batch=1024,
         "sync_seconds": seconds, "sync_seconds_runs": [got["seconds"] for got in ranks],
         "k1_launches": [got["launches"] for got in ranks], "spawn_seconds": spawn_seconds,
     }
+
+
+# ------------------------------------------------------------ counters
+
+
+OPENIMAGES_VAL = 41_620  # OpenImages V6 validation images
+OPENIMAGES_LABELS = 600  # boxable classes
+AVERAGES = ("micro", "macro", "weighted", None)
+CRITERIA = ("exact_match", "hamming", "overlap", "contain", "belong")
+
+
+def _grid_bins(scores, grid):
+    """Oracle bin of each score on a ``linspace(0, 1, T)`` grid: the last
+    threshold at or below it, -1 below the grid; found from
+    ``floor(score * (T - 1))`` in float64 and corrected by one exact
+    float32 compare each way, apart from the metrics' searches. Checks its
+    own answer."""
+    t = grid.shape[0]
+    j = torch.floor(scores.double() * (t - 1)).clamp(-1, t - 1).to(torch.int64)
+    at = grid[j.clamp(min=0)]
+    j = torch.where((j >= 0) & (at > scores), j - 1, j)
+    up = grid[(j + 1).clamp(max=t - 1)]
+    j = torch.where((j + 1 < t) & (up <= scores), j + 1, j)
+    below = j < 0
+    ok = torch.where(below, grid[0] > scores, grid[j.clamp(min=0)] <= scores)
+    ok &= (j == t - 1) | (grid[(j + 1).clamp(max=t - 1)] > scores)
+    _check(bool(ok.all()), "oracle grid bins inconsistent")
+    return j
+
+
+def _binned_oracle(bins, columns, is_target, num_t):
+    """int64 (T, K, 2) histogram [negative, positive] of (N, K) oracle
+    bins; bins below the grid are dropped."""
+    k = bins.shape[-1] if bins.ndim == 2 else 1
+    col = columns if columns is not None else torch.zeros_like(bins)
+    flat = (bins * k + col) * 2 + is_target.to(torch.int64)
+    flat = torch.where(bins >= 0, flat, torch.full_like(flat, num_t * k * 2))
+    return torch.bincount(flat.reshape(-1), minlength=num_t * k * 2 + 1)[:-1].reshape(num_t, k, 2)
+
+
+def _oracle_counters(hist):
+    """(tp, fp, fn) int64 (T, K) from an int64 (T, K, 2) histogram."""
+    suffix = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,))
+    fp, tp = suffix[..., 0], suffix[..., 1]
+    return tp, fp, hist[..., 1].sum(0, keepdim=True) - tp
+
+
+def _ulp32(x):
+    """float32 spacing at each |x| (float64)."""
+    x32 = x.abs().to(torch.float32)
+    return (torch.nextafter(x32, torch.full_like(x32, float("inf"))) - x32).double()
+
+
+def _within_bound(states, oracles, updates):
+    """float32 counters against exact counts: each update adds an exact
+    integer and rounds by at most half an ulp of the running count, so
+    ``|error| <= updates * ulp(final) / 2`` a counter. Returns (ok, max
+    error, exact)."""
+    ok, worst, exact = True, 0.0, True
+    for state, oracle in zip(states, oracles):
+        oracle = oracle.to(state.device).double()
+        err = (state.double() - oracle).abs()
+        ok &= bool((err <= updates * _ulp32(oracle) / 2).all())
+        worst = max(worst, float(err.max()))
+        exact &= bool((err == 0).all())
+    return ok, worst, exact
+
+
+def _binned_auroc64(tp, fp):
+    """float64 binned AUROC of (T, ...) ascending-threshold counts: the
+    trapezoid over the ROC points from the top threshold down, (0, 0)
+    first; 0.5 without positives or negatives."""
+    zero = torch.zeros_like(tp[:1])
+    y = torch.cat([zero, torch.flip(tp, (0,))]).double()
+    x = torch.cat([zero, torch.flip(fp, (0,))]).double()
+    area = ((x[1:] - x[:-1]) * (y[1:] + y[:-1]) / 2).sum(0)
+    factor = y[-1] * x[-1]
+    return torch.where(factor == 0, torch.full_like(area, 0.5), area / factor.clamp(min=1))
+
+
+def _binned_auprc64(tp, fp, fn):
+    """float64 binned AUPRC of (T, ...) counts: recall steps from the top
+    threshold down to recall 0, each times the precision at its lower end
+    (precision 1 where nothing is predicted)."""
+    tp, fp, fn = tp.double(), fp.double(), fn.double()
+    pred = tp + fp
+    precision = torch.where(pred > 0, tp / pred.clamp(min=1), torch.ones_like(tp))
+    recall = tp / (tp + fn)
+    recall = torch.cat([recall, torch.zeros_like(recall[:1])])
+    precision = torch.cat([precision, torch.ones_like(precision[:1])])
+    return torch.nan_to_num((-(recall[1:] - recall[:-1]) * precision[:-1]).sum(0), nan=0.0)
+
+
+def _timed_update(timers, name, device, fn):
+    """Run ``fn`` from a drained queue and add its wall ms to
+    ``timers[name]``."""
+    _sync(device)
+    t0 = time.perf_counter()
+    fn()
+    _sync(device)
+    timers.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+
+
+def _median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def _mode_device_ms(make, inputs, targets, device):
+    """Device time of one update in each ``optimization`` mode, on fresh
+    metrics fed the stream's last batch (CUDA only): what the card spends,
+    apart from the host's launch cost."""
+    if torch.device(device).type != "cuda":
+        return None
+    return {mode: _profile(lambda m=make(mode): m.update(inputs, targets), device, reps=10)["device_ms"]
+            for mode in ("vectorized", "memory")}
+
+
+def _compute_reports(metrics, device):
+    """Each metric's compute: its value, its wall time (first and warm,
+    each from a drained queue), its device time and costliest kernels
+    (profiler) and the peak bytes allocated during it."""
+    cuda = torch.device(device).type == "cuda"
+    values, report = {}, {}
+    for name, m in metrics.items():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        values[name], first = _timed_compute(m, device)
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
+        warm = _timed_compute(m, device)[1]
+        entry = {"wall_ms_first": first * 1e3, "wall_ms_warm": warm * 1e3, "peak_bytes": peak}
+        if cuda:
+            entry.update(_profile(m.compute, device, reps=10))
+        report[name] = entry
+    return values, report
+
+
+def _stream_peak(device):
+    return torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else None
+
+
+def _reset_peak(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _counters_imagenet(device, n, num_classes, batch, num_t, seed):
+    """ImageNet-1k validation: logits into the confusion matrix, precision
+    and recall; softmax scores into the multiclass binned family."""
+    cm = MulticlassConfusionMatrix(num_classes, device=device)
+    prec = {str(a): MulticlassPrecision(num_classes=num_classes, average=a, device=device)
+            for a in AVERAGES}
+    rec = {str(a): MulticlassRecall(num_classes=num_classes, average=a, device=device)
+           for a in AVERAGES}
+    prc = {mode: MulticlassBinnedPrecisionRecallCurve(
+        num_classes=num_classes, threshold=num_t, optimization=mode, device=device)
+        for mode in ("vectorized", "memory")}
+    auroc = MulticlassBinnedAUROC(num_classes=num_classes, threshold=num_t, device=device)
+    auprc = MulticlassBinnedAUPRC(num_classes=num_classes, threshold=num_t, device=device)
+    grid = prc["memory"].threshold
+    cm_oracle = torch.zeros(num_classes * num_classes, dtype=torch.int64)
+    hist = torch.zeros((num_t, num_classes, 2), dtype=torch.int64, device=device)
+    timers, updates = {}, 0
+    classes = torch.arange(num_classes, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    _reset_peak(device)
+    for start in range(0, n, batch):
+        logits, labels = _classify_batch(gen, min(batch, n - start), num_classes, device)
+        probs = torch.softmax(logits, dim=-1)
+        _timed_update(timers, "confusion_matrix", device, lambda: cm.update(logits, labels))
+        _timed_update(timers, "precision_x4", device,
+                      lambda: [m.update(logits, labels) for m in prec.values()])
+        _timed_update(timers, "recall_x4", device,
+                      lambda: [m.update(logits, labels) for m in rec.values()])
+        for mode, m in prc.items():
+            _timed_update(timers, f"binned_prc_{mode}", device, lambda m=m: m.update(probs, labels))
+        _timed_update(timers, "binned_auroc_append", device, lambda: auroc.update(probs, labels))
+        _timed_update(timers, "binned_auprc", device, lambda: auprc.update(probs, labels))
+        updates += 1
+        # oracle: int64 counts on the host and the device, apart from the metrics
+        pred = logits.double().argmax(dim=-1)
+        cm_oracle += torch.bincount((labels * num_classes + pred).cpu(),
+                                    minlength=num_classes * num_classes)
+        onehot = labels[:, None] == classes[None, :]
+        hist += _binned_oracle(_grid_bins(probs, grid), classes[None, :], onehot, num_t)
+    stream_peak = _stream_peak(device)
+
+    cm_oracle = cm_oracle.reshape(num_classes, num_classes)
+    _check(torch.equal(cm.confusion_matrix.cpu().to(torch.int64), cm_oracle),
+           "confusion matrix != int64 oracle")
+    tp_c = torch.diag(cm_oracle).double()
+    pred_c, label_c = cm_oracle.sum(0).double(), cm_oracle.sum(1).double()
+    seen = (label_c > 0) | (pred_c > 0)
+    per = {"precision": torch.nan_to_num(tp_c / pred_c), "recall": torch.nan_to_num(tp_c / label_c)}
+    want = {}
+    for kind, values in per.items():
+        want[f"{kind}_micro"] = tp_c.sum() / label_c.sum()
+        want[f"{kind}_macro"] = values[seen].mean()
+        want[f"{kind}_weighted"] = (values * label_c / label_c.sum()).sum()
+        want[f"{kind}_None"] = values
+    got = {f"precision_{a}": m.compute() for a, m in prec.items()}
+    got.update({f"recall_{a}": m.compute() for a, m in rec.items()})
+    rate_err = max(float((got[k].double().cpu() - want[k]).abs().max()) for k in want)
+    _check(rate_err <= 1e-6, f"precision/recall off the float64 oracle by {rate_err}")
+
+    modes_bitwise = all(torch.equal(getattr(prc["vectorized"], s), getattr(prc["memory"], s))
+                        for s in ("num_tp", "num_fp", "num_fn"))
+    _check(modes_bitwise, "vectorized and memory binned PRC counters differ")
+    tp, fp, fn = _oracle_counters(hist)
+    ok, count_err, exact = _within_bound(
+        [prc["memory"].num_tp, prc["memory"].num_fp, prc["memory"].num_fn], [tp, fp, fn], updates)
+    _check(ok, f"binned PRC counters past the accumulation bound (max error {count_err})")
+    # (the confusion matrix's compute hands back its state: no kernel to time)
+    values, computes = _compute_reports(
+        {"precision_macro": prec["macro"], "recall_macro": rec["macro"],
+         "binned_prc_vectorized": prc["vectorized"], "binned_prc_memory": prc["memory"],
+         "binned_auroc": auroc, "binned_auprc": auprc}, device)
+    auroc_err = abs(float(values["binned_auroc"][0]) - float(_binned_auroc64(tp, fp).mean()))
+    auprc_err = abs(float(values["binned_auprc"]) - float(_binned_auprc64(tp, fp, fn).mean()))
+    _check(auroc_err <= 1e-6, f"binned AUROC off the float64 oracle by {auroc_err}")
+    _check(auprc_err <= CURVE_TOL, f"binned AUPRC off the float64 oracle by {auprc_err}")
+    return {
+        "samples": n, "num_classes": num_classes, "batch": batch, "num_thresholds": num_t,
+        "updates": updates, "prc_modes_bitwise": modes_bitwise, "counters_exact": exact,
+        "counter_max_err": count_err, "rate_max_err_vs_float64": rate_err,
+        "binned_auroc_err_vs_float64": auroc_err, "binned_auprc_err_vs_float64": auprc_err,
+        "values": {"binned_auroc_macro": float(values["binned_auroc"][0]),
+                   "binned_auprc_macro": float(values["binned_auprc"]),
+                   "precision_macro": float(values["precision_macro"]),
+                   "recall_macro": float(values["recall_macro"])},
+        "update_ms_median": {k: _median(v) for k, v in timers.items()},
+        "update_ms_first": {k: v[0] for k, v in timers.items()},
+        "vectorized_over_memory": _median(timers["binned_prc_vectorized"])
+        / _median(timers["binned_prc_memory"]),
+        "prc_update_device_ms": _mode_device_ms(
+            lambda mode: MulticlassBinnedPrecisionRecallCurve(
+                num_classes=num_classes, threshold=num_t, optimization=mode, device=device),
+            probs, labels, device),
+        "stream_peak_bytes": stream_peak, "compute": computes,
+    }
+
+
+def _counters_criteo(device, n, batch, buffered, hist_bins, num_t, seed):
+    """The Criteo 1TB evaluation click stream into the binary binned
+    family, the histogram AUROC at each of ``hist_bins`` thresholds, the
+    buffered binned AUROC over its first ``buffered`` samples, and
+    ``StreamingBinaryAUROC`` beside them (K1, once an update)."""
+    cuda = torch.device(device).type == "cuda"
+    prc = BinaryBinnedPrecisionRecallCurve(threshold=num_t, device=device)
+    auprc = BinaryBinnedAUPRC(threshold=num_t, device=device)
+    hists = {t: HistogramBinnedAUROC(threshold=t, device=device) for t in hist_bins}
+    bauroc = BinaryBinnedAUROC(threshold=num_t, device=device)
+    streaming = StreamingBinaryAUROC(num_bins=NUM_BINS, device=device)
+    oracle = {t: torch.zeros((t, 1, 2), dtype=torch.int64, device=device) for t in hist_bins}
+    grid = {t: h.threshold for t, h in hists.items()}
+    prc_hist = torch.zeros((num_t, 1, 2), dtype=torch.int64, device=device)
+    buffered_hist = torch.zeros_like(prc_hist)
+    k1_ref = torch.zeros((1, 2, NUM_BINS), dtype=torch.float64, device=device)
+    timers, updates = {}, 0
+    _kernels.reset_launch_counts()
+    _reset_peak(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for start in range(0, n, batch):
+        s, y = _clicks(gen, (min(batch, n - start),), device)
+        _timed_update(timers, "binned_prc", device, lambda: prc.update(s, y))
+        _timed_update(timers, "binned_auprc", device, lambda: auprc.update(s, y))
+        for t, h in hists.items():
+            _timed_update(timers, f"hist_auroc_{t}", device, lambda h=h: h.update(s, y))
+        _timed_update(timers, "streaming_auroc", device, lambda: streaming.update(s, y))
+        head = max(0, min(buffered - start, s.shape[0]))
+        if head:
+            _timed_update(timers, "binned_auroc_append", device,
+                          lambda: bauroc.update(s[:head], y[:head]))
+        updates += 1
+        is_pos = y > 0.5
+        for t in hist_bins:
+            bins = _grid_bins(s, grid[t])
+            oracle[t] += _binned_oracle(bins[:, None], None, is_pos[:, None], t)
+        prc_bins = _grid_bins(s, prc.threshold)
+        prc_hist += _binned_oracle(prc_bins[:, None], None, is_pos[:, None], num_t)
+        if head:
+            buffered_hist += _binned_oracle(prc_bins[:head, None], None, is_pos[:head, None], num_t)
+        k1_ref += _oracle_hist(s[None], y[None], None, NUM_BINS)
+    stream_peak = _stream_peak(device)
+    launches = _kernels.LAUNCHES["fused_auc_hist"]
+    if cuda:
+        _check(launches == updates, f"K1 launched {launches} times for {updates} streaming updates")
+    _check(torch.equal(streaming.hist.double(), k1_ref), "streaming histogram != float64 oracle")
+
+    hist_bitwise, hist_err = [], []
+    values, computes = _compute_reports(
+        {"binned_prc": prc, "binned_auprc": auprc, "binned_auroc_buffered": bauroc,
+         **{f"hist_auroc_{t}": h for t, h in hists.items()}}, device)
+    for t, h in hists.items():
+        flat = torch.cat([oracle[t][:, 0, 0], oracle[t][:, 0, 1]])
+        hist_bitwise.append(torch.equal(h.hist.to(torch.int64), flat))
+        otp, ofp, _ = _oracle_counters(oracle[t])
+        hist_err.append(abs(float(values[f"hist_auroc_{t}"][0]) - float(_binned_auroc64(otp, ofp)[0])))
+    _check(all(hist_bitwise), "HistogramBinnedAUROC histogram != int64 oracle")
+    _check(max(hist_err) <= 1e-6, f"HistogramBinnedAUROC off the float64 trapezoid by {hist_err}")
+    tp, fp, fn = _oracle_counters(prc_hist)
+    ok, count_err, exact = _within_bound(
+        [prc.num_tp, prc.num_fp, prc.num_fn], [tp[:, 0], fp[:, 0], fn[:, 0]], updates)
+    _check(ok, f"binned PRC counters past the accumulation bound (max error {count_err})")
+    _check(all(torch.equal(getattr(prc, k), getattr(auprc, k)) for k in ("num_tp", "num_fp", "num_fn")),
+           "binned AUPRC counters != binned PRC counters")
+    auprc_err = abs(float(values["binned_auprc"]) - float(_binned_auprc64(tp, fp, fn)[0]))
+    _check(auprc_err <= CURVE_TOL, f"binned AUPRC off the float64 oracle by {auprc_err}")
+    btp, bfp, _ = _oracle_counters(buffered_hist)
+    bauroc_err = abs(float(values["binned_auroc_buffered"][0]) - float(_binned_auroc64(btp, bfp)[0]))
+    _check(bauroc_err <= 1e-6, f"buffered binned AUROC off the float64 oracle by {bauroc_err}")
+    return {
+        "samples": n, "batch": batch, "num_thresholds": num_t, "hist_thresholds": list(hist_bins),
+        "buffered_samples": min(buffered, n), "updates": updates, "k1_launches": launches,
+        "hist_bitwise": hist_bitwise, "hist_auroc_err_vs_float64": hist_err,
+        "counters_exact": exact, "counter_max_err": count_err,
+        "binned_auprc_err_vs_float64": auprc_err, "buffered_auroc_err_vs_float64": bauroc_err,
+        "values": {"binned_auprc": float(values["binned_auprc"]),
+                   "binned_auroc_buffered": float(values["binned_auroc_buffered"][0]),
+                   **{f"hist_auroc_{t}": float(values[f"hist_auroc_{t}"][0]) for t in hist_bins}},
+        "update_ms_median": {k: _median(v) for k, v in timers.items()},
+        "update_ms_first": {k: v[0] for k, v in timers.items()},
+        "stream_peak_bytes": stream_peak, "compute": computes,
+    }
+
+
+def _multilabel_batch(gen, n, num_labels, device):
+    """OpenImages-like multilabel scores: about two positive labels an
+    image, their scores raised, plus planted rows for top-k: a row of
+    ties, a row on a coarse grid, and rows with +-0 and NaN of both
+    signs."""
+    targets = (torch.rand((n, num_labels), generator=gen, device=device)
+               < 2.0 / num_labels).to(torch.int64)
+    logits = torch.randn((n, num_labels), generator=gen, device=device) * 1.5 - 3.0
+    scores = torch.sigmoid(logits + 3.5 * targets)
+    scores[0] = 0.25
+    scores[1] = torch.round(scores[1] * 8) / 8
+    scores[2, ::7] = 0.0
+    scores[2, 3::7] = -0.0
+    scores[3, ::11] = float("nan")
+    scores[3, 5::11] = -float("nan")
+    return scores, targets
+
+
+def _topk_oracle(x, k):
+    """Host numpy top-k of float32 rows by IEEE totalOrder, ties by
+    ascending index: a stable sort of the sign-magnitude integer keys."""
+    b = x.view(np.int32).astype(np.int64)
+    key = np.where(b < 0, b ^ 0x7FFFFFFF, b)
+    order = np.argsort(-key, axis=-1, kind="stable")[:, :k]
+    return np.take_along_axis(x, order, -1), order
+
+
+def _criteria_counts(pred, target):
+    """Integer counts of the rows (or, for hamming, labels) each criterion
+    calls correct, from 0/1 int64 predictions."""
+    wrong = (pred != target).sum(1)
+    missed = (target * (1 - pred)).sum(1)
+    extra = (pred * (1 - target)).sum(1)
+    hit = (pred * target).sum(1)
+    empty = (pred + target).sum(1) == 0
+    return {
+        "exact_match": int((wrong == 0).sum()), "hamming": int((pred == target).sum()),
+        "overlap": int(((hit > 0) | empty).sum()), "contain": int((missed == 0).sum()),
+        "belong": int((extra == 0).sum()),
+    }
+
+
+def _counters_openimages(device, n, num_labels, batch, num_t, k, seed):
+    """OpenImages V6 validation scale: multilabel accuracy under every
+    criterion, top-k multilabel accuracy (its ``topk`` held to a host
+    totalOrder oracle), and the multilabel binned family."""
+    acc = {c: MultilabelAccuracy(criteria=c, device=device) for c in CRITERIA}
+    topk_acc = {c: TopKMultilabelAccuracy(criteria=c, k=k, device=device) for c in CRITERIA}
+    prc = {mode: MultilabelBinnedPrecisionRecallCurve(
+        num_labels=num_labels, threshold=num_t, optimization=mode, device=device)
+        for mode in ("vectorized", "memory")}
+    auprc = MultilabelBinnedAUPRC(num_labels=num_labels, threshold=num_t, device=device)
+    grid = auprc.threshold
+    labels = torch.arange(num_labels, device=device)
+    hist = torch.zeros((num_t, num_labels, 2), dtype=torch.int64, device=device)
+    acc_oracle = dict.fromkeys(CRITERIA, 0)
+    topk_oracle = dict.fromkeys(CRITERIA, 0)
+    timers, updates, topk_bitwise, rows = {}, 0, True, 0
+    _reset_peak(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for start in range(0, n, batch):
+        scores, targets = _multilabel_batch(gen, min(batch, n - start), num_labels, device)
+        # the two binned modes differ on NaN by design (both packages), so
+        # the binned family sees the planted NaN scores as 0
+        clean = torch.nan_to_num(scores, nan=0.0)
+        _timed_update(timers, "multilabel_accuracy_x5", device,
+                      lambda: [m.update(scores, targets) for m in acc.values()])
+        _timed_update(timers, "topk_multilabel_accuracy_x5", device,
+                      lambda: [m.update(scores, targets) for m in topk_acc.values()])
+        for mode, m in prc.items():
+            _timed_update(timers, f"binned_prc_{mode}", device, lambda m=m: m.update(clean, targets))
+        _timed_update(timers, "binned_auprc", device, lambda: auprc.update(clean, targets))
+        updates += 1
+        host = scores.cpu().numpy()
+        tgt = targets.cpu().numpy()
+        want_vals, want_idx = _topk_oracle(host, k)
+        got_vals, got_idx = topk(scores, k)
+        topk_bitwise &= (got_idx.cpu().numpy().astype(np.int64) == want_idx).all() and (
+            got_vals.cpu().numpy().view(np.int32) == want_vals.view(np.int32)).all()
+        rows += host.shape[0]
+        for c, v in _criteria_counts((~(host < 0.5)).astype(np.int64), tgt).items():
+            acc_oracle[c] += v
+        top = np.zeros_like(tgt)
+        np.put_along_axis(top, want_idx, 1, -1)
+        for c, v in _criteria_counts(top, tgt).items():
+            topk_oracle[c] += v
+        hist += _binned_oracle(_grid_bins(clean, grid), labels[None, :], targets, num_t)
+    stream_peak = _stream_peak(device)
+    _check(bool(topk_bitwise), "ops.topk on the card != host totalOrder oracle")
+    for name, metrics, oracle in (("accuracy", acc, acc_oracle), ("top-k accuracy", topk_acc, topk_oracle)):
+        for c, m in metrics.items():
+            total = rows * num_labels if c == "hamming" else rows
+            ok, err, _ = _within_bound([m.num_correct, m.num_total],
+                                       [torch.tensor(oracle[c]), torch.tensor(total)], updates)
+            # below 2^24 the bound admits only the exact count
+            _check(ok, f"{name} {c}: counters off the integer oracle by {err}")
+    modes_bitwise = all(torch.equal(getattr(prc["vectorized"], s), getattr(prc["memory"], s))
+                        for s in ("num_tp", "num_fp", "num_fn"))
+    _check(modes_bitwise, "vectorized and memory multilabel binned PRC counters differ")
+    tp, fp, fn = _oracle_counters(hist)
+    ok, count_err, exact = _within_bound(
+        [prc["memory"].num_tp, prc["memory"].num_fp, prc["memory"].num_fn], [tp, fp, fn], updates)
+    _check(ok, f"multilabel binned PRC counters past the accumulation bound ({count_err})")
+    values, computes = _compute_reports(
+        {"accuracy_hamming": acc["hamming"], "topk_accuracy_overlap": topk_acc["overlap"],
+         "binned_prc_vectorized": prc["vectorized"], "binned_prc_memory": prc["memory"],
+         "binned_auprc": auprc}, device)
+    auprc_err = abs(float(values["binned_auprc"]) - float(_binned_auprc64(tp, fp, fn).mean()))
+    _check(auprc_err <= CURVE_TOL, f"multilabel binned AUPRC off the float64 oracle by {auprc_err}")
+    return {
+        "samples": n, "num_labels": num_labels, "batch": batch, "num_thresholds": num_t, "k": k,
+        "updates": updates, "topk_oracle_bitwise": bool(topk_bitwise),
+        "prc_modes_bitwise": modes_bitwise, "counters_exact": exact,
+        "counter_max_err": count_err, "binned_auprc_err_vs_float64": auprc_err,
+        "positives_per_image": float(hist[..., 1].sum()) / n,
+        "values": {**{f"accuracy_{c}": float(m.compute()) for c, m in acc.items()},
+                   **{f"topk_accuracy_{c}": float(m.compute()) for c, m in topk_acc.items()},
+                   "binned_auprc_macro": float(values["binned_auprc"])},
+        "update_ms_median": {k_: _median(v) for k_, v in timers.items()},
+        "update_ms_first": {k_: v[0] for k_, v in timers.items()},
+        "vectorized_over_memory": _median(timers["binned_prc_vectorized"])
+        / _median(timers["binned_prc_memory"]),
+        "prc_update_device_ms": _mode_device_ms(
+            lambda mode: MultilabelBinnedPrecisionRecallCurve(
+                num_labels=num_labels, threshold=num_t, optimization=mode, device=device),
+            clean, targets, device),
+        "stream_peak_bytes": stream_peak, "compute": computes,
+    }
+
+
+def phase_counters(device, imagenet_n=IMAGENET_VAL, num_classes=1000, batch=1024,
+                   ctr_n=CRITEO_EVAL, ctr_batch=CTR_BATCH, ctr_buffered=1 << 22,
+                   hist_bins=(100, 1 << 20), openimages_n=OPENIMAGES_VAL,
+                   num_labels=OPENIMAGES_LABELS, num_thresholds=100, topk_k=5, seed=7):
+    """The counter families at published scales, each held to an int64 /
+    float64 oracle: ImageNet-1k validation into the confusion matrix,
+    precision, recall and the multiclass binned family; the Criteo 1TB
+    evaluation stream into the binary binned family, the histogram AUROC
+    and ``StreamingBinaryAUROC`` (K1); OpenImages V6 validation into the
+    multilabel accuracies and the multilabel binned family."""
+    t0 = time.perf_counter()
+    imagenet = _counters_imagenet(device, imagenet_n, num_classes, batch, num_thresholds, seed)
+    criteo = _counters_criteo(device, ctr_n, ctr_batch, ctr_buffered, hist_bins, num_thresholds,
+                              seed + 1)
+    openimages = _counters_openimages(device, openimages_n, num_labels, batch, num_thresholds,
+                                      topk_k, seed + 2)
+    return {"phase": "counters", "device": str(device), "seconds": time.perf_counter() - t0,
+            "imagenet": imagenet, "criteo": criteo, "openimages": openimages}
 
 
 def _time_ms(fn, device, reps):
@@ -1205,6 +1739,8 @@ def main(argv=None) -> int:
     curve = phase_curve(device, seed=args.seed + 5)
     _emit(curve)
     _emit(phase_mp_sync(device, seed=args.seed + 6))
+    counters = phase_counters(device, seed=args.seed + 7)
+    _emit(counters)
     timing = phase_timing(device, seed=args.seed + 4, full_sweep=args.sweep)
     _emit(timing)
 
@@ -1219,6 +1755,8 @@ def main(argv=None) -> int:
         "replaces": "torcheval_tpu/ops/fused_auc.py:164",
         "launches": ctr["k1_launches"],
         "launches_use_fused": curve["k1_launches"],
+        "launches_counters": counters["criteo"]["k1_launches"],
+        "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],

@@ -3,21 +3,53 @@
 from torcheval_tpu_torch.metrics.classification.accuracy import (
     BinaryAccuracy,
     MulticlassAccuracy,
+    MultilabelAccuracy,
+    TopKMultilabelAccuracy,
 )
 from torcheval_tpu_torch.metrics.classification.auprc import (
     BinaryAUPRC,
     MulticlassAUPRC,
     MultilabelAUPRC,
 )
-from torcheval_tpu_torch.metrics.classification.auroc import BinaryAUROC, MulticlassAUROC
+from torcheval_tpu_torch.metrics.classification.auroc import (
+    BinaryAUROC,
+    MulticlassAUROC,
+)
+from torcheval_tpu_torch.metrics.classification.binned_auprc import (
+    BinaryBinnedAUPRC,
+    MulticlassBinnedAUPRC,
+    MultilabelBinnedAUPRC,
+)
+from torcheval_tpu_torch.metrics.classification.binned_auroc import (
+    BinaryBinnedAUROC,
+    HistogramBinnedAUROC,
+    MulticlassBinnedAUROC,
+)
+from torcheval_tpu_torch.metrics.classification.binned_precision_recall_curve import (
+    BinaryBinnedPrecisionRecallCurve,
+    MulticlassBinnedPrecisionRecallCurve,
+    MultilabelBinnedPrecisionRecallCurve,
+)
+from torcheval_tpu_torch.metrics.classification.confusion_matrix import (
+    BinaryConfusionMatrix,
+    MulticlassConfusionMatrix,
+)
 from torcheval_tpu_torch.metrics.classification.f1_score import (
     BinaryF1Score,
     MulticlassF1Score,
+)
+from torcheval_tpu_torch.metrics.classification.precision import (
+    BinaryPrecision,
+    MulticlassPrecision,
 )
 from torcheval_tpu_torch.metrics.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
     MultilabelPrecisionRecallCurve,
+)
+from torcheval_tpu_torch.metrics.classification.recall import (
+    BinaryRecall,
+    MulticlassRecall,
 )
 from torcheval_tpu_torch.metrics.classification.recall_at_fixed_precision import (
     BinaryRecallAtFixedPrecision,
@@ -32,17 +64,34 @@ __all__ = [
     "BinaryAccuracy",
     "BinaryAUPRC",
     "BinaryAUROC",
+    "BinaryBinnedAUPRC",
+    "BinaryBinnedAUROC",
+    "BinaryBinnedPrecisionRecallCurve",
+    "BinaryConfusionMatrix",
     "BinaryF1Score",
+    "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
+    "BinaryRecall",
     "BinaryRecallAtFixedPrecision",
+    "HistogramBinnedAUROC",
     "MulticlassAccuracy",
     "MulticlassAUPRC",
     "MulticlassAUROC",
+    "MulticlassBinnedAUPRC",
+    "MulticlassBinnedAUROC",
+    "MulticlassBinnedPrecisionRecallCurve",
+    "MulticlassConfusionMatrix",
     "MulticlassF1Score",
+    "MulticlassPrecision",
     "MulticlassPrecisionRecallCurve",
+    "MulticlassRecall",
+    "MultilabelAccuracy",
     "MultilabelAUPRC",
+    "MultilabelBinnedAUPRC",
+    "MultilabelBinnedPrecisionRecallCurve",
     "MultilabelPrecisionRecallCurve",
     "MultilabelRecallAtFixedPrecision",
     "StreamingBinaryAUPRC",
     "StreamingBinaryAUROC",
+    "TopKMultilabelAccuracy",
 ]

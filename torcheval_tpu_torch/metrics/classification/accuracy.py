@@ -1,6 +1,6 @@
 """Accuracy class metrics (counterpart of
-``torcheval_tpu/metrics/classification/accuracy.py``: ``MulticlassAccuracy``
-and ``BinaryAccuracy``). The classes own counter accumulation; the math
+``torcheval_tpu/metrics/classification/accuracy.py``: ``MulticlassAccuracy``,
+``BinaryAccuracy``, ``MultilabelAccuracy`` and ``TopKMultilabelAccuracy``). The classes own counter accumulation; the math
 lives in the functional module."""
 
 from __future__ import annotations
@@ -16,6 +16,12 @@ from torcheval_tpu_torch.metrics.functional.classification.accuracy import (
     _binary_accuracy_update,
     _binary_accuracy_update_input_check,
     _multiclass_accuracy_update,
+    _multilabel_accuracy_param_check,
+    _multilabel_accuracy_update,
+    _multilabel_accuracy_update_input_check,
+    _topk_multilabel_accuracy_param_check,
+    _topk_multilabel_accuracy_update,
+    _topk_multilabel_accuracy_update_input_check,
 )
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
@@ -97,4 +103,76 @@ class BinaryAccuracy(MulticlassAccuracy):
             ("num_correct", "num_total"),
             (input, target),
             (float(self.threshold),),
+        )
+
+
+class MultilabelAccuracy(MulticlassAccuracy):
+    """Multilabel accuracy under one of five criteria (``exact_match``,
+    ``hamming``, ``overlap``, ``contain``, ``belong``; see
+    ``functional.multilabel_accuracy``).
+
+    >>> import torch
+    >>> from torcheval_tpu_torch.metrics import MultilabelAccuracy
+    >>> metric = MultilabelAccuracy(device="cpu")
+    >>> _ = metric.update(torch.tensor([[0.1, 0.9], [0.8, 0.9]]), torch.tensor([[0, 1], [1, 1]]))
+    >>> metric.compute()
+    tensor(1.)
+    """
+
+    def __init__(
+        self,
+        *,
+        threshold: float = 0.5,
+        criteria: str = "exact_match",
+        device: DeviceLike = None,
+    ) -> None:
+        super().__init__(device=device)
+        _multilabel_accuracy_param_check(criteria)
+        self.threshold = threshold
+        self.criteria = criteria
+
+    def _update_plan(self, input, target):
+        input, target = self._input(input), self._input(target)
+        _multilabel_accuracy_update_input_check(input, target)
+        return UpdatePlan(
+            _multilabel_accuracy_update,
+            ("num_correct", "num_total"),
+            (input, target),
+            (float(self.threshold), self.criteria),
+        )
+
+
+class TopKMultilabelAccuracy(MulticlassAccuracy):
+    """Multilabel accuracy with the ``k`` top-scored labels of each row
+    predicted positive (ties to the lower label index).
+
+    >>> import torch
+    >>> from torcheval_tpu_torch.metrics import TopKMultilabelAccuracy
+    >>> metric = TopKMultilabelAccuracy(criteria="hamming", k=2, device="cpu")
+    >>> _ = metric.update(torch.tensor([[0.9, 0.2, 0.8], [0.1, 0.7, 0.3], [0.6, 0.5, 0.4]]),
+    ...                   torch.tensor([[1, 0, 1], [0, 1, 0], [1, 0, 1]]))
+    >>> metric.compute()
+    tensor(0.6667)
+    """
+
+    def __init__(
+        self,
+        *,
+        criteria: str = "exact_match",
+        k: int = 2,
+        device: DeviceLike = None,
+    ) -> None:
+        super().__init__(device=device)
+        _topk_multilabel_accuracy_param_check(criteria, k)
+        self.criteria = criteria
+        self.k = k
+
+    def _update_plan(self, input, target):
+        input, target = self._input(input), self._input(target)
+        _topk_multilabel_accuracy_update_input_check(input, target, self.k)
+        return UpdatePlan(
+            _topk_multilabel_accuracy_update,
+            ("num_correct", "num_total"),
+            (input, target),
+            (self.criteria, self.k),
         )

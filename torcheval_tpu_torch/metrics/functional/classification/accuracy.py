@@ -1,12 +1,15 @@
-"""Accuracy (multiclass and binary).
+"""Accuracy (multiclass, binary and multilabel).
 
 Counterpart of ``torcheval_tpu/metrics/functional/classification/accuracy.py``
 (``_multiclass_accuracy_update`` :49, ``_accuracy_compute`` :109, the param
-and input checks, ``multiclass_accuracy``, ``binary_accuracy``). Per-class
+and input checks, ``multiclass_accuracy``, ``binary_accuracy``,
+``multilabel_accuracy`` :410, ``topk_multilabel_accuracy`` :443). Per-class
 counts use ``segment_sum`` with the JAX package's drop semantics for
 targets outside ``[0, num_classes)``; top-k correctness uses the same
 rank-count rule (an example is correct iff fewer than k classes score
-strictly above the target's score).
+strictly above the target's score). Top-k multilabel predictions are the
+``k`` labels ``ops.topk`` picks (``lax.top_k`` order: ties to the lower
+index).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torcheval_tpu_torch.metrics.functional.tensor_utils import (
     correct_mask,
     segment_sum,
 )
+from torcheval_tpu_torch.ops.topk import topk
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
 
 # ---------------------------------------------------------------- multiclass
@@ -198,4 +202,139 @@ def binary_accuracy(
     input, target = to_torch(input, device=dev), to_torch(target, device=dev)
     _binary_accuracy_update_input_check(input, target)
     num_correct, num_total = _binary_accuracy_update(input, target, float(threshold))
+    return num_correct / num_total
+
+
+# ---------------------------------------------------------------- multilabel
+
+
+def _multilabel_update(
+    input_label: torch.Tensor, target: torch.Tensor, criteria: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    n = torch.full((), float(target.shape[0]), device=target.device)
+    if criteria == "exact_match":
+        return torch.sum(torch.all(input_label == target, dim=1)).to(torch.float32), n
+    if criteria == "hamming":
+        num_correct = torch.sum(input_label == target).to(torch.float32)
+        return num_correct, torch.full((), float(target.numel()), device=target.device)
+    if criteria == "overlap":
+        hit = torch.any((input_label == target) & (input_label == 1), dim=1)
+        all_negative = torch.all((input_label == 0) & (target == 0), dim=1)
+        return torch.sum(hit | all_negative).to(torch.float32), n
+    if criteria == "contain":
+        return torch.sum(torch.all(input_label - target >= 0, dim=1)).to(torch.float32), n
+    # belong
+    return torch.sum(torch.all(input_label - target <= 0, dim=1)).to(torch.float32), n
+
+
+def _multilabel_accuracy_update(
+    input: torch.Tensor, target: torch.Tensor, threshold: float, criteria: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    input_label = torch.where(input < threshold, 0, 1)
+    return _multilabel_update(input_label, target, criteria)
+
+
+def _topk_multilabel_accuracy_update(
+    input: torch.Tensor, target: torch.Tensor, criteria: str, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    # exactly k predicted labels a row, ties to the lower index
+    _, idx = topk(input, k)
+    input_label = torch.zeros(input.shape, dtype=target.dtype, device=input.device)
+    input_label.scatter_(1, idx.to(torch.int64), 1)
+    return _multilabel_update(input_label, target, criteria)
+
+
+def _multilabel_accuracy_param_check(criteria: str) -> None:
+    criteria_options = ("exact_match", "hamming", "overlap", "contain", "belong")
+    if criteria not in criteria_options:
+        raise ValueError(
+            f"`criteria` was not in the allowed value of {criteria_options}, "
+            f"got {criteria}."
+        )
+
+
+def _multilabel_accuracy_update_input_check(input: torch.Tensor, target: torch.Tensor) -> None:
+    if input.shape != target.shape:
+        raise ValueError(
+            "The `input` and `target` should have the same dimensions, "
+            f"got shapes {tuple(input.shape)} and {tuple(target.shape)}."
+        )
+
+
+def _topk_multilabel_accuracy_param_check(criteria: str, k: int) -> None:
+    _multilabel_accuracy_param_check(criteria)
+    if type(k) is not int:
+        raise TypeError(f"Expected `k` to be an integer, but {type(k)} was provided.")
+    if k < 2:
+        raise ValueError(
+            f"Expected `k` to be an integer greater than 1, but {k} was provided."
+        )
+
+
+def _topk_multilabel_accuracy_update_input_check(
+    input: torch.Tensor, target: torch.Tensor, k: int
+) -> None:
+    _multilabel_accuracy_update_input_check(input, target)
+    if input.ndim != 2:
+        raise ValueError(
+            f"input should be a two-dimensional tensor, got shape {tuple(input.shape)}."
+        )
+    if input.shape[1] < k:
+        raise ValueError(
+            "input should have at least k classes in dimension 1, "
+            f"got shape {tuple(input.shape)} with k={k}."
+        )
+
+
+def multilabel_accuracy(
+    input,
+    target,
+    *,
+    threshold: float = 0.5,
+    criteria: str = "exact_match",
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Multilabel accuracy of scores binarized at ``threshold`` (class
+    version: ``MultilabelAccuracy``). ``criteria``: ``exact_match`` (every
+    label matches), ``hamming`` (the share of matching labels),
+    ``overlap`` (a positive label in common, or both all negative),
+    ``contain`` (the predictions contain every target), ``belong`` (the
+    predictions are a subset of the targets).
+
+    >>> import torch
+    >>> from torcheval_tpu_torch.metrics.functional import multilabel_accuracy
+    >>> multilabel_accuracy(torch.tensor([[0.1, 0.9], [0.8, 0.9]]), torch.tensor([[0, 1], [1, 1]]))
+    tensor(1.)
+    """
+    dev = functional_device(device, input, target)
+    input, target = to_torch(input, device=dev), to_torch(target, device=dev)
+    _multilabel_accuracy_param_check(criteria)
+    _multilabel_accuracy_update_input_check(input, target)
+    num_correct, num_total = _multilabel_accuracy_update(input, target, float(threshold), criteria)
+    return num_correct / num_total
+
+
+def topk_multilabel_accuracy(
+    input,
+    target,
+    *,
+    criteria: str = "exact_match",
+    k: int = 2,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Multilabel accuracy with the ``k`` top-scored labels of each row
+    predicted positive (class version: ``TopKMultilabelAccuracy``).
+
+    >>> import torch
+    >>> from torcheval_tpu_torch.metrics.functional import topk_multilabel_accuracy
+    >>> topk_multilabel_accuracy(torch.tensor([[0.9, 0.2, 0.8], [0.1, 0.7, 0.3],
+    ...     [0.6, 0.5, 0.4]]), torch.tensor([[1, 0, 1], [0, 1, 0], [1, 0, 1]]),
+    ...     criteria="hamming", k=2)
+    tensor(0.6667)
+    """
+    dev = functional_device(device, input, target)
+    input, target = to_torch(input, device=dev), to_torch(target, device=dev)
+    _topk_multilabel_accuracy_param_check(criteria, k)
+    _topk_multilabel_accuracy_update_input_check(input, target, k)
+    num_correct, num_total = _topk_multilabel_accuracy_update(input, target, criteria, k)
     return num_correct / num_total

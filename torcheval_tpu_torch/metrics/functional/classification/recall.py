@@ -1,0 +1,155 @@
+"""Recall (binary and multiclass).
+
+Counterpart of ``torcheval_tpu/metrics/functional/classification/
+recall.py``: the shape of ``precision.py`` with label and prediction
+counts; a class with no label has recall 0, and ``macro`` averages over
+the classes seen in the labels or the predictions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from torcheval_tpu_torch.metrics.functional.tensor_utils import (
+    argmax_last,
+    nan_safe_divide,
+    segment_sum,
+)
+from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
+
+
+def _recall_update_jit(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: Optional[int],
+    average: Optional[str],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if input.ndim == 2:
+        input = argmax_last(input)
+    if average == "micro":
+        num_tp = torch.sum(input == target).to(torch.float32)
+        num_labels = torch.full((), float(target.numel()), device=target.device)
+        return num_tp, num_labels, num_labels
+    ones = torch.ones(target.shape, dtype=torch.float32, device=target.device)
+    num_labels = segment_sum(ones, target, num_classes)
+    num_predictions = segment_sum(ones, input.to(target.dtype), num_classes)
+    tp_mask = (input == target).to(torch.float32)
+    num_tp = segment_sum(tp_mask, target, num_classes)
+    return num_tp, num_labels, num_predictions
+
+
+def _recall_compute(
+    num_tp: torch.Tensor,
+    num_labels: torch.Tensor,
+    num_predictions: torch.Tensor,
+    average: Optional[str],
+) -> torch.Tensor:
+    recall = torch.nan_to_num(nan_safe_divide(num_tp, num_labels))
+    if average == "micro":
+        return recall
+    if average == "macro":
+        mask = (num_labels != 0) | (num_predictions != 0)
+        return torch.sum(torch.where(mask, recall, torch.zeros_like(recall))) / torch.clamp(
+            torch.sum(mask), min=1
+        )
+    if average == "weighted":
+        return torch.sum(recall * (num_labels / torch.sum(num_labels)))
+    return recall
+
+
+def _recall_param_check(num_classes: Optional[int], average: Optional[str]) -> None:
+    average_options = ("micro", "macro", "weighted", None)
+    if average not in average_options:
+        raise ValueError(
+            f"`average` was not in the allowed value of {average_options}, "
+            f"got {average}."
+        )
+    if average != "micro" and (num_classes is None or num_classes <= 0):
+        raise ValueError(
+            f"num_classes should be a positive number when average={average}, "
+            f"got num_classes={num_classes}."
+        )
+
+
+def _recall_update_input_check(
+    input: torch.Tensor, target: torch.Tensor, num_classes: Optional[int]
+) -> None:
+    if input.shape[0] != target.shape[0]:
+        raise ValueError(
+            "The `input` and `target` should have the same first dimension, "
+            f"got shapes {tuple(input.shape)} and {tuple(target.shape)}."
+        )
+    if target.ndim != 1:
+        raise ValueError(
+            f"target should be a one-dimensional tensor, got shape {tuple(target.shape)}."
+        )
+    if not input.ndim == 1 and not (
+        input.ndim == 2 and (num_classes is None or input.shape[1] == num_classes)
+    ):
+        raise ValueError(
+            "input should have shape of (num_sample,) or "
+            f"(num_sample, num_classes), got {tuple(input.shape)}."
+        )
+
+
+def multiclass_recall(
+    input,
+    target,
+    *,
+    num_classes: Optional[int] = None,
+    average: Optional[str] = "micro",
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Recall for multiclass classification (class version:
+    ``MulticlassRecall``).
+
+    >>> import torch
+    >>> from torcheval_tpu_torch.metrics.functional import multiclass_recall
+    >>> multiclass_recall(torch.tensor([0, 2, 1, 3]), torch.tensor([0, 1, 2, 3]))
+    tensor(0.5000)
+    """
+    dev = functional_device(device, input, target)
+    input, target = to_torch(input, device=dev), to_torch(target, device=dev)
+    _recall_param_check(num_classes, average)
+    _recall_update_input_check(input, target, num_classes)
+    num_tp, num_labels, num_predictions = _recall_update_jit(
+        input, target, num_classes, average
+    )
+    return _recall_compute(num_tp, num_labels, num_predictions, average)
+
+
+def _binary_recall_update_jit(
+    input: torch.Tensor, target: torch.Tensor, threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    pred = torch.where(input < threshold, 0, 1)
+    num_tp = torch.sum(pred * target, dim=-1).to(torch.float32)
+    num_true_labels = torch.sum(target, dim=-1).to(torch.float32)
+    return num_tp, num_true_labels
+
+
+def _binary_recall_update_input_check(input: torch.Tensor, target: torch.Tensor) -> None:
+    if input.shape != target.shape:
+        raise ValueError(
+            "The `input` and `target` should have the same dimensions, "
+            f"got shapes {tuple(input.shape)} and {tuple(target.shape)}."
+        )
+
+
+def binary_recall(
+    input, target, *, threshold: float = 0.5, device: DeviceLike = None
+) -> torch.Tensor:
+    """Recall of scores binarized at ``threshold`` (class version:
+    ``BinaryRecall``).
+
+    >>> import torch
+    >>> from torcheval_tpu_torch.metrics.functional import binary_recall
+    >>> binary_recall(torch.tensor([0.2, 0.8, 0.6, 0.3]), torch.tensor([0, 1, 1, 0]))
+    tensor(1.)
+    """
+    dev = functional_device(device, input, target)
+    input, target = to_torch(input, device=dev), to_torch(target, device=dev)
+    _binary_recall_update_input_check(input, target)
+    num_tp, num_true_labels = _binary_recall_update_jit(input, target, float(threshold))
+    return torch.nan_to_num(nan_safe_divide(num_tp, num_true_labels))

@@ -3,12 +3,21 @@
 Counterpart of ``torcheval_tpu/metrics/functional/tensor_utils.py``:
 ``nan_safe_divide``, ``argmax_last`` and ``correct_mask`` with the JAX
 package's pinned semantics -- first index on ties, NaN wins, -0.0 ties
-with +0.0, and a target outside ``[0, C)`` never matches.
+with +0.0, and a target outside ``[0, C)`` never matches -- plus
+``valid_mask``, the curve integrals and the threshold grids of the binned
+metrics. ``segment_sum`` lives in ``ops/segment.py`` and is re-exported
+here.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+from typing import List, Optional, Union
+
+import numpy as np
 import torch
+
+from torcheval_tpu_torch.ops.segment import segment_sum  # noqa: F401  (re-export)
 
 _INT32_MAX = 0x7FFFFFFF
 
@@ -58,17 +67,86 @@ def correct_mask(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (argmax_last(x) == target).to(torch.float32)
 
 
-def segment_sum(
-    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+def valid_mask(n: int, valid, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """Length-``n`` mask with ``valid`` leading ones (the shape-bucketing
+    validity row of the JAX package's masked kernel twins)."""
+    return (torch.arange(n, device=device) < valid).to(dtype)
+
+
+def riemann_integral(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Left-Riemann integral of y(x) over the last axis,
+    ``-sum((x[1:] - x[:-1]) * y[:-1])`` (descending-x convention)."""
+    return -torch.sum((x[..., 1:] - x[..., :-1]) * y[..., :-1], dim=-1)
+
+
+def trapezoid(y: torch.Tensor, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Trapezoidal rule along ``dim``, as the JAX package writes it:
+    ``sum(dx * (y[1:] + y[:-1]) / 2)``."""
+    x = torch.movedim(x, dim, -1)
+    y = torch.movedim(y, dim, -1)
+    dx = x[..., 1:] - x[..., :-1]
+    return torch.sum(dx * (y[..., 1:] + y[..., :-1]) / 2.0, dim=-1)
+
+
+@lru_cache(maxsize=64)
+def _cached_linspace_grid(n: int) -> np.ndarray:
+    """``jnp.linspace(0.0, 1.0, n)`` bit for bit, as a read-only float32
+    numpy array: XLA folds its ``iota / (n - 1)`` into a multiply by the
+    float32 reciprocal, and the endpoint is exactly 1."""
+    if n <= 1:
+        grid = np.zeros((max(n, 0),), dtype=np.float32)
+    else:
+        step = np.float32(1.0) / np.float32(n - 1)
+        grid = np.append(np.arange(n - 1, dtype=np.float32) * step, np.float32(1.0))
+    grid.setflags(write=False)
+    return grid
+
+
+def create_threshold_tensor(
+    threshold: Union[int, List[float], torch.Tensor, np.ndarray],
+    *,
+    span: bool = False,
+    device: Optional[torch.device] = None,
 ) -> torch.Tensor:
-    """``jax.ops.segment_sum`` semantics: ids outside
-    ``[0, num_segments)`` are dropped (``index_add_`` would raise on the
-    CPU and trip a device assert on CUDA, so they are masked first)."""
-    ids = segment_ids.to(torch.int64)
-    valid = (ids >= 0) & (ids < num_segments)
-    out = torch.zeros(num_segments, dtype=data.dtype, device=data.device)
-    return out.index_add_(
-        0,
-        torch.where(valid, ids, torch.zeros_like(ids)),
-        torch.where(valid, data, torch.zeros_like(data)),
+    """int n -> ``linspace(0, 1, n)``; a list or tensor -> float32
+    thresholds on ``device``.
+
+    The checks (1-D, sorted, values in [0, 1]; with ``span=True`` also
+    first value 0 and last value 1, the AUPRC family's rule) run on the
+    host before the grid goes to the device, as in the JAX package."""
+    if isinstance(threshold, int):
+        if span and threshold < 2:
+            raise ValueError("Last value in `threshold` should be 1.")
+        return torch.from_numpy(_cached_linspace_grid(threshold).copy()).to(device)
+    if isinstance(threshold, torch.Tensor):
+        t = threshold.detach().cpu().to(torch.float32).numpy()
+    else:
+        t = np.asarray(threshold, dtype=np.float32)
+    if t.ndim != 1:
+        raise ValueError(
+            "The `threshold` should be a one-dimensional tensor, got shape "
+            f"{t.shape}."
+        )
+    if (np.diff(t) < 0.0).any():
+        raise ValueError("The `threshold` should be a sorted tensor.")
+    if (t < 0.0).any() or (t > 1.0).any():
+        raise ValueError("The values in `threshold` should be in the range of [0, 1].")
+    if span:
+        if t[0] != 0.0:
+            raise ValueError("First value in `threshold` should be 0.")
+        if t[-1] != 1.0:
+            raise ValueError("Last value in `threshold` should be 1.")
+    return torch.from_numpy(np.array(t, dtype=np.float32)).to(device)
+
+
+def searchsorted_right(sorted_values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``jnp.searchsorted(sorted_values, x, side="right")`` over float32
+    values, with JAX's sort comparator: -0.0 ties +0.0 and a NaN of either
+    sign sorts above +inf (so it lands past every threshold). The search
+    runs on the integer order keys, so neither the device's float compare
+    nor its NaN handling can change a result (int64 positions)."""
+    return torch.searchsorted(
+        _order_key(sorted_values.to(torch.float32)),
+        _order_key(x.to(torch.float32)),
+        right=True,
     )

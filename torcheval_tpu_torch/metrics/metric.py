@@ -289,11 +289,18 @@ class Metric(Generic[TComputeReturn], ABC):
 
     # ---------------------------------------------------------------- devices
 
+    # tensor attributes that are configuration, not state (a binned
+    # metric's threshold grid): ``to`` moves them with the states
+    _extra_device_attrs: tuple = ()
+
     def to(self: TSelf, device: DeviceLike, *args: Any, **kwargs: Any) -> TSelf:
-        """Move all states to ``device``."""
+        """Move all states, and the tensors named in
+        ``_extra_device_attrs``, to ``device``."""
         target = canonicalize_device(device)
         for name in self._state_name_to_default:
             setattr(self, name, self._place_state(getattr(self, name), target))
+        for name in self._extra_device_attrs:
+            setattr(self, name, getattr(self, name).to(target))
         self._device = target
         return self
 
