@@ -80,6 +80,27 @@ phases, printing one JSON line for each:
    reached; then a sweep of launch designs over batch sizes at 8,192 and
    65,536 bins, which holds the wrapper's pick against the designs on the
    other side of each of its switch points (``design_choices``).
+9. ``recsys``: the recommendation-eval path at published scales, each
+   stream held to a float64 or integer oracle. The Criteo stream of phase
+   2 (logits x ~ N(-3.5, 1.5), scores sigmoid(x)) through
+   ``toolkit.update_collection`` into the DLRM eval panel:
+   ``BinaryNormalizedEntropy`` on scores and on logits,
+   ``ClickThroughRate``, ``WeightedCalibration`` and
+   ``StreamingBinaryAUROC`` (K1 once an update; values within 1e-5
+   relative, counts within ``_within_bound``, float sums within
+   ``_float_bound``); a 4-task weighted stream of 2^22 samples; the
+   calibration row form over 2^22 rows and 1,000 task ids, some out of
+   range. MLPerf NCF on MovieLens-20M (138,493 users x 1,000 candidates,
+   batches of 4,096, planted ties, NaN and wrapped or out-of-range
+   targets): ``HitRate`` and ``ReciprocalRank`` at 10, bitwise against an
+   int64 rank count. MS MARCO passage dev small (6,980 queries x 1,000
+   BM25 candidates, rows shuffled in batches of 64 queries, with ignored
+   indexes): ``RetrievalPrecision`` at 10 per query and macro, and the
+   functional form, bitwise against a host totalOrder top-k. DLRM ids
+   (26 features of 65,536 ids under a 40 M-row cap): ``num_collisions``
+   and ``frequency_at_k`` bitwise against numpy. Per stream: update wall
+   ms per batch, each compute's wall and device time, peak bytes; K1's
+   launches must equal the panel's updates.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -87,7 +108,7 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2 and 4 to 7 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -117,7 +138,10 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     BinaryBinnedAUPRC,
     BinaryBinnedAUROC,
     BinaryBinnedPrecisionRecallCurve,
+    BinaryNormalizedEntropy,
+    ClickThroughRate,
     HistogramBinnedAUROC,
+    HitRate,
     Mean,
     MulticlassAccuracy,
     MulticlassAUPRC,
@@ -132,12 +156,20 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     MultilabelAccuracy,
     MultilabelBinnedAUPRC,
     MultilabelBinnedPrecisionRecallCurve,
+    ReciprocalRank,
+    RetrievalPrecision,
     StreamingBinaryAUPRC,
     StreamingBinaryAUROC,
     Throughput,
     TopKMultilabelAccuracy,
+    WeightedCalibration,
 )
 from torcheval_tpu_torch.metrics import toolkit  # noqa: E402
+from torcheval_tpu_torch.metrics.functional import (  # noqa: E402
+    frequency_at_k,
+    num_collisions,
+    retrieval_precision,
+)
 from torcheval_tpu_torch.metrics.functional.classification._curve_kernels import (  # noqa: E402
     _reverse_cummin,
 )
@@ -170,6 +202,9 @@ STREAM_RATE_FLOOR = 1e8
 # exact below 2^24, and past it (Criteo's negatives) a cumulative count is
 # off by a few units in its last place, ~1e-7 of the area
 CURVE_TOL = 1e-5
+# CUPTI now and then drops every kernel of a trace, at times twice in a
+# row, so an empty trace is taken again
+PROFILE_ATTEMPTS = 4
 
 
 def _emit(obj) -> None:
@@ -206,10 +241,17 @@ def _scores(gen, shape, skewed, device):
     return torch.rand(shape, generator=gen, device=device)
 
 
-def _clicks(gen, shape, device):
-    s = _scores(gen, shape, True, device)
+def _click_logits(gen, shape, device):
+    """Criteo-like clicks: logits x ~ N(-3.5, 1.5), scores sigmoid(x),
+    labels Bernoulli(score)."""
+    x = torch.randn(shape, generator=gen, device=device) * 1.5 - 3.5
+    s = torch.sigmoid(x)
     y = (torch.rand(shape, generator=gen, device=device) < s).to(torch.float32)
-    return s, y
+    return x, s, y
+
+
+def _clicks(gen, shape, device):
+    return _click_logits(gen, shape, device)[1:]
 
 
 def _oracle_hist(scores, labels, weights, num_bins):
@@ -672,13 +714,12 @@ def _exact_oracle(scores, labels):
 def _profile(fn, device, reps=1):
     """Device time of one call of ``fn`` (every CUDA kernel's self time
     in a torch.profiler trace of ``reps`` calls, over ``reps``) and its
-    five costliest kernels. A trace that shows no kernel is taken once
-    more (CUPTI has dropped a short window's kernels); a second empty
-    trace fails."""
+    five costliest kernels. A trace that shows no kernel is taken again,
+    up to ``PROFILE_ATTEMPTS`` traces in all, the last failing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(PROFILE_ATTEMPTS):
         _sync(device)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1468,6 +1509,448 @@ def phase_counters(device, imagenet_n=IMAGENET_VAL, num_classes=1000, batch=1024
             "imagenet": imagenet, "criteo": criteo, "openimages": openimages}
 
 
+# -------------------------------------------------------- recommendation
+
+
+NCF_USERS = 138_493  # MovieLens-20M users (MLPerf NCF)
+NCF_CANDIDATES = 1000  # the held-out positive and 999 sampled negatives
+MARCO_QUERIES = 6980  # MS MARCO passage ranking, dev small
+MARCO_CANDIDATES = 1000  # the BM25 run's depth
+# relevant passages a query among its BM25 candidates: P(0..3), mean 1.07
+MARCO_RELEVANT = (0.08, 0.80, 0.09, 0.03)
+DLRM_TABLE_ROWS = 40_000_000  # MLPerf DLRM's embedding-table cap
+DLRM_SPARSE_FEATURES = 26
+U32 = 2.0 ** -24  # float32 unit roundoff
+
+
+def _rel_err(got, want):
+    """max |got - want| / |want| over float64 tensors."""
+    got, want = torch.as_tensor(got).double().cpu(), torch.as_tensor(want).double().cpu()
+    return float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+
+
+def _float_bound(states, oracles, batch, updates):
+    """float32 sums of non-negative float terms against their float64
+    sums ``S``: each batch delta is a float32 sum of at most ``batch``
+    terms, each rounded a few times (a log or a product), so it lies
+    within ``(batch + 7) u`` of its terms' sum whatever the summation
+    order; each add into the state rounds by at most half an ulp of the
+    final value: ``|error| <= (batch + 7) u S + updates ulp(S) / 2``.
+    Returns (ok, max relative error)."""
+    ok, worst = True, 0.0
+    for state, oracle in zip(states, oracles):
+        state, oracle = state.double().cpu(), oracle.double().cpu()
+        err = (state - oracle).abs()
+        ok &= bool((err <= (batch + 7) * U32 * oracle + updates * _ulp32(oracle) / 2).all())
+        worst = max(worst, _rel_err(state, oracle))
+    return ok, worst
+
+
+def _entropy64(pos, n):
+    """float64 baseline entropy with the reference's float64-eps clamp."""
+    r = (pos / n).clamp(2.220446049250313e-16, 1 - 2.220446049250313e-16)
+    return -r * torch.log(r) - (1 - r) * torch.log1p(-r)
+
+
+def _ce64(x, y, from_logits):
+    """float64 per-element cross entropy of float32 inputs, by the
+    reference's rules (probabilities clipped to [0, 1], logs clamped at
+    -100)."""
+    x, y = x.double(), y.double()
+    if from_logits:
+        return x.clamp(min=0) - x * y + torch.log1p(torch.exp(-x.abs()))
+    p = x.clamp(0.0, 1.0)
+    return -(y * torch.log(p).clamp(min=-100) + (1 - y) * torch.log1p(-p).clamp(min=-100))
+
+
+def _recsys_criteo(device, n, batch, mt_samples, num_tasks, rows_n, row_tasks, seed):
+    """The DLRM eval panel over the Criteo 1TB evaluation stream, a 4-task
+    weighted stream, and calibration's row form over ``row_tasks`` ids."""
+    panel = {
+        "ne": BinaryNormalizedEntropy(device=device),
+        "ne_logits": BinaryNormalizedEntropy(from_logits=True, device=device),
+        "ctr": ClickThroughRate(device=device),
+        "calibration": WeightedCalibration(device=device),
+        "auroc": StreamingBinaryAUROC(num_bins=NUM_BINS, device=device),
+    }
+    on_scores = {k: panel[k] for k in ("ne", "calibration", "auroc")}
+    o = {k: torch.zeros((), dtype=torch.float64, device=device)
+         for k in ("ce", "ce_logits", "pos", "s")}
+    timers, updates = {}, 0
+    _reset_peak(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    for start in range(0, n, batch):
+        x, s, y = _click_logits(gen, (min(batch, n - start),), device)
+        _timed_update(timers, "scores_ne_calibration_auroc", device,
+                      lambda: toolkit.update_collection(on_scores, s, y))
+        _timed_update(timers, "logits_ne", device,
+                      lambda: toolkit.update_collection({"ne_logits": panel["ne_logits"]}, x, y))
+        _timed_update(timers, "ctr", device,
+                      lambda: toolkit.update_collection({"ctr": panel["ctr"]}, y))
+        updates += 1
+        o["ce"] += _ce64(s, y, False).sum()
+        o["ce_logits"] += _ce64(x, y, True).sum()
+        o["pos"] += y.double().sum()
+        o["s"] += s.double().sum()
+    stream_seconds = time.perf_counter() - t0
+    stream_peak = _stream_peak(device)
+    o = {k: v.cpu() for k, v in o.items()}
+    n64 = torch.tensor(float(n), dtype=torch.float64)
+
+    ok, count_err, exact = _within_bound(
+        [panel["ne"].num_examples, panel["ne"].num_positive, panel["ne_logits"].num_examples,
+         panel["ne_logits"].num_positive, panel["ctr"].click_total, panel["ctr"].weight_total,
+         panel["calibration"].weighted_target_sum],
+        [n64, o["pos"], n64, o["pos"], o["pos"], n64, o["pos"]], updates)
+    _check(ok, f"panel counters past the accumulation bound (max error {count_err})")
+    _check(float(o["pos"]) < 2**24 and float(panel["ctr"].click_total) == float(o["pos"]),
+           "click count below 2^24 not exact")
+    fok, float_rel = _float_bound(
+        [panel["ne"].total_entropy, panel["ne_logits"].total_entropy,
+         panel["calibration"].weighted_input_sum],
+        [o["ce"], o["ce_logits"], o["s"]], batch, updates)
+    _check(fok, f"panel float sums past their bound (max relative error {float_rel})")
+    values, computes = _compute_reports(panel, device)
+    want = {
+        "ne": o["ce"] / n64 / _entropy64(o["pos"], n64),
+        "ne_logits": o["ce_logits"] / n64 / _entropy64(o["pos"], n64),
+        "ctr": o["pos"] / n64,
+        "calibration": o["s"] / o["pos"],
+    }
+    value_err = {k: _rel_err(values[k], v) for k, v in want.items()}
+    _check(max(value_err.values()) <= 1e-5, f"panel values off float64 by {value_err}")
+    # the labels are drawn from the scores: calibration within 5 sigma of 1
+    cal_sigma = 1 / math.sqrt(float(o["pos"]))
+    _check(abs(float(values["calibration"]) - 1) <= 5 * cal_sigma,
+           f"calibration {float(values['calibration'])} is not near 1")
+    _check(bool(torch.isfinite(values["auroc"]).all()), "panel AUROC not finite")
+
+    # 4 tasks, random weights
+    mt = {
+        "ne": BinaryNormalizedEntropy(num_tasks=num_tasks, device=device),
+        "ctr": ClickThroughRate(num_tasks=num_tasks, device=device),
+        "calibration": WeightedCalibration(num_tasks=num_tasks, device=device),
+    }
+    mt_batch = min(batch, mt_samples)
+    om = {k: torch.zeros(num_tasks, dtype=torch.float64, device=device)
+          for k in ("ce", "wy", "w", "ws")}
+    mt_updates = 0
+    for _ in range(0, mt_samples, mt_batch):
+        _, s, y = _click_logits(gen, (num_tasks, mt_batch), device)
+        w = torch.rand((num_tasks, mt_batch), generator=gen, device=device)
+        _timed_update(timers, "tasks_ne", device, lambda: mt["ne"].update(s, y, weight=w))
+        _timed_update(timers, "tasks_ctr", device, lambda: mt["ctr"].update(y, w))
+        _timed_update(timers, "tasks_calibration", device, lambda: mt["calibration"].update(s, y, w))
+        mt_updates += 1
+        w64 = w.double()
+        om["ce"] += (w64 * _ce64(s, y, False)).sum(-1)
+        om["wy"] += (w64 * y.double()).sum(-1)
+        om["w"] += w64.sum(-1)
+        om["ws"] += (w64 * s.double()).sum(-1)
+    om = {k: v.cpu() for k, v in om.items()}
+    mok, mt_rel = _float_bound(
+        [mt["ne"].total_entropy, mt["ne"].num_positive, mt["ne"].num_examples,
+         mt["ctr"].click_total, mt["ctr"].weight_total, mt["calibration"].weighted_input_sum,
+         mt["calibration"].weighted_target_sum],
+        [om["ce"], om["wy"], om["w"], om["wy"], om["w"], om["ws"], om["wy"]], mt_batch, mt_updates)
+    _check(mok, f"4-task float sums past their bound (max relative error {mt_rel})")
+    mt_values, mt_computes = _compute_reports(mt, device)
+    mt_want = {"ne": om["ce"] / om["w"] / _entropy64(om["wy"], om["w"]),
+               "ctr": om["wy"] / om["w"], "calibration": om["ws"] / om["wy"]}
+    mt_err = {k: _rel_err(mt_values[k], v) for k, v in mt_want.items()}
+    _check(max(mt_err.values()) <= 1e-5, f"4-task values off float64 by {mt_err}")
+
+    # the row form: (task id, score, label, weight) rows, ids out of range dropped
+    rows = WeightedCalibration(num_tasks=row_tasks, device=device)
+    orow = {k: torch.zeros(row_tasks, dtype=torch.float64, device=device) for k in ("ws", "wy")}
+    row_updates, dropped = 0, 0
+    for start in range(0, rows_n, batch):
+        m = min(batch, rows_n - start)
+        _, s, y = _click_logits(gen, (m,), device)
+        w = torch.rand((m,), generator=gen, device=device)
+        ids = torch.randint(0, row_tasks, (m,), generator=gen, device=device)
+        ids[::97] = -1 - ids[::97]  # out of range below
+        ids[50::97] += row_tasks  # and above
+        _timed_update(timers, "rows_calibration", device,
+                      lambda: rows.update(s, y, w, task_ids=ids))
+        row_updates += 1
+        keep = (ids >= 0) & (ids < row_tasks)
+        dropped += int((~keep).sum())
+        safe = torch.where(keep, ids, torch.zeros_like(ids))
+        w64 = torch.where(keep, w.double(), torch.zeros_like(w, dtype=torch.float64))
+        orow["ws"].index_add_(0, safe, w64 * s.double())
+        orow["wy"].index_add_(0, safe, w64 * y.double())
+    orow = {k: v.cpu() for k, v in orow.items()}
+    rok, rows_rel = _float_bound(
+        [rows.weighted_input_sum, rows.weighted_target_sum], [orow["ws"], orow["wy"]], batch,
+        row_updates)
+    _check(rok, f"row-form sums past their bound (max relative error {rows_rel})")
+    rows_value, rows_wall = _timed_compute(rows, device)
+    _check(rows_value.shape == (row_tasks,), "row-form calibration is empty: a task has no positive")
+    rows_err = _rel_err(rows_value, orow["ws"] / orow["wy"])
+    _check(rows_err <= 1e-5, f"row-form calibration off float64 by {rows_err}")
+    return {
+        "samples": n, "batch": batch, "panel_updates": updates, "stream_seconds": stream_seconds,
+        "values": {k: float(v) for k, v in values.items()},
+        "value_rel_err_vs_float64": value_err, "counters_exact": exact,
+        "counter_max_err": count_err, "float_state_max_rel_err": float_rel,
+        "tasks": {"samples_per_task": mt_samples, "num_tasks": num_tasks, "updates": mt_updates,
+                  "values": {k: v.tolist() for k, v in mt_values.items()},
+                  "value_rel_err_vs_float64": mt_err, "float_state_max_rel_err": mt_rel,
+                  "compute": mt_computes},
+        "rows": {"rows": rows_n, "num_tasks": row_tasks, "updates": row_updates,
+                 "dropped_ids": dropped, "value_rel_err_vs_float64": rows_err,
+                 "float_state_max_rel_err": rows_rel, "compute_wall_ms": rows_wall * 1e3,
+                 "calibration_range": [float(rows_value.min()), float(rows_value.max())]},
+        "update_ms_median": {k: _median(v) for k, v in timers.items()},
+        "update_ms_first": {k: v[0] for k, v in timers.items()},
+        "panel_update_ms_median": sum(_median(timers[k]) for k in
+                                      ("scores_ne_calibration_auroc", "logits_ne", "ctr")),
+        "stream_peak_bytes": stream_peak, "compute": computes,
+    }
+
+
+def _ncf_batch(gen, users, candidates, device):
+    """One batch of NCF evaluation: each user's N(0, 1) scores for its
+    held-out positive and 999 negatives, the positive raised by 2.6 (a
+    hit rate at 10 near MLPerf NCF's 0.635 target), with planted rows: all
+    tied, NaN scores, NaN at the target, coarse ties, and targets wrapped
+    (in [-C, 0)) or out of range."""
+    scores = torch.randn((users, candidates), generator=gen, device=device)
+    target = torch.randint(0, candidates, (users,), generator=gen, device=device)
+    rows = torch.arange(users, device=device)
+    scores[rows, target] += 2.6
+    if users >= 10:
+        scores[0] = 0.25
+        scores[1, ::7] = float("nan")
+        scores[2, target[2]] = float("nan")
+        scores[3] = torch.round(scores[3] * 2) / 2
+        target[4] = -1
+        target[5] = -candidates
+        target[6] = candidates
+        target[7] = -candidates - 1
+        target[8] = 5 * candidates
+        target[9] = target[9] - candidates  # the same item, wrapped
+    return scores, target
+
+
+def _recsys_ncf(device, users, candidates, batch, k, seed):
+    """MLPerf NCF evaluation on MovieLens-20M: ``HitRate`` and
+    ``ReciprocalRank`` at k over every user's candidates, bitwise against
+    an int64 strictly-greater count."""
+    hr, rr = HitRate(k=k, device=device), ReciprocalRank(k=k, device=device)
+    timers, ranks = {}, []
+    _reset_peak(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for start in range(0, users, batch):
+        scores, target = _ncf_batch(gen, min(batch, users - start), candidates, device)
+        _timed_update(timers, "hit_rate", device, lambda: hr.update(scores, target))
+        _timed_update(timers, "reciprocal_rank", device, lambda: rr.update(scores, target))
+        # oracle: the wrap / out-of-range rule on the host, the count on the card
+        t = target.cpu().numpy()
+        t = np.where(t < 0, t + candidates, t)
+        ok = (t >= 0) & (t < candidates)
+        picked = scores[torch.arange(len(t), device=device),
+                        torch.from_numpy(np.where(ok, t, 0)).to(device)]
+        picked = torch.where(torch.from_numpy(ok).to(device), picked,
+                             torch.full_like(picked, float("nan")))
+        ranks.append((scores > picked[:, None]).sum(-1, dtype=torch.int64).cpu().numpy())
+    stream_peak = _stream_peak(device)
+    rank = np.concatenate(ranks)
+    want_hr = (rank < k).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        want_rr = np.where(rank >= k, np.float32(0),
+                           np.float32(1) / (rank + 1).astype(np.float32)).astype(np.float32)
+    values, computes = _compute_reports({"hit_rate": hr, "reciprocal_rank": rr}, device)
+    got_hr, got_rr = values["hit_rate"].cpu().numpy(), values["reciprocal_rank"].cpu().numpy()
+    _check(got_hr.dtype == np.float32 and got_hr.tobytes() == want_hr.tobytes(),
+           "hit rates != the int64 rank oracle")
+    _check(got_rr.dtype == np.float32 and got_rr.tobytes() == want_rr.tobytes(),
+           "reciprocal ranks != the int64 rank oracle")
+    return {
+        "users": users, "candidates": candidates, "batch": batch, "k": k,
+        "updates": len(ranks), "bitwise": True,
+        "values": {f"hr@{k}": float(want_hr.mean()), f"mrr@{k}": float(want_rr.mean())},
+        "update_ms_median": {k_: _median(v) for k_, v in timers.items()},
+        "update_ms_first": {k_: v[0] for k_, v in timers.items()},
+        "stream_peak_bytes": stream_peak, "compute": computes,
+    }
+
+
+def _marco_run(gen, queries, candidates, device):
+    """An MS MARCO dev-small BM25 run: BM25-like scores for each query's
+    candidates (N(10, 2)), 0 to 3 relevant passages a query
+    (``MARCO_RELEVANT``) raised by 4 (precision at 10 near BM25's on that
+    set); every 50th query scored on a coarse grid (ties across the top
+    10) and one query with NaN scores."""
+    scores = torch.randn((queries, candidates), generator=gen, device=device) * 2 + 10
+    cut = torch.tensor(np.cumsum(MARCO_RELEVANT)[:-1], dtype=torch.float32, device=device)
+    count = torch.bucketize(torch.rand(queries, generator=gen, device=device), cut, right=True)
+    slots = torch.randint(0, candidates, (queries, len(MARCO_RELEVANT) - 1), generator=gen,
+                          device=device)
+    relevant = torch.zeros((queries, candidates), device=device)
+    for j in range(slots.shape[1]):
+        rows = torch.nonzero(count > j)[:, 0]
+        relevant[rows, slots[rows, j]] = 1.0
+    scores += 4.0 * relevant
+    scores[::50] = torch.round(scores[::50])
+    scores[min(7, queries - 1), ::100] = float("nan")
+    return scores, relevant
+
+
+def _precision_oracle(x, rel, k):
+    """Host precision @ k of each row: the relevant count in the top k by
+    ``_topk_oracle``'s stable totalOrder, times the float32 reciprocal of
+    k (as the metric divides); and the top-k scores."""
+    values, order = _topk_oracle(x, k)
+    top_rel = np.take_along_axis(rel, order, -1)
+    return top_rel.sum(-1).astype(np.float32) * (np.float32(1) / np.float32(k)), values
+
+
+def _recsys_marco(device, queries, candidates, batch, k, seed):
+    """MS MARCO passage ranking, dev small: rows of ``batch`` queries at a
+    time, shuffled, with a few rows of indexes outside the query range,
+    into ``RetrievalPrecision`` per query and macro; then the functional
+    form over the whole score matrix. Bitwise against a host oracle."""
+    metrics = {
+        "per_query": RetrievalPrecision(k=k, num_queries=queries, device=device),
+        "macro": RetrievalPrecision(k=k, num_queries=queries, avg="macro", device=device),
+    }
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scores, relevant = _marco_run(gen, queries, candidates, device)
+    host_scores, host_rel = scores.cpu().numpy(), relevant.cpu().numpy()
+    want = np.zeros(queries, np.float32)
+    want_top = np.zeros((queries, min(k, candidates)), np.float32)
+    timers, updates, junk = {}, 0, 0
+    _reset_peak(device)
+    for q0 in range(0, queries, batch):
+        q1 = min(q0 + batch, queries)
+        qs = torch.arange(q0, q1, device=device).repeat_interleave(candidates)
+        cs = torch.arange(candidates, device=device).repeat(q1 - q0)
+        extra = 10  # rows whose index is outside [0, queries): ignored
+        x = torch.cat([scores[qs, cs], torch.rand(extra, generator=gen, device=device)])
+        y = torch.cat([relevant[qs, cs], torch.ones(extra, device=device)])
+        idx = torch.cat([qs, torch.tensor([-1, queries] * (extra // 2), device=device)])
+        perm = torch.randperm(x.shape[0], generator=gen, device=device)
+        x, y, idx = x[perm], y[perm], idx[perm]
+        _timed_update(timers, "retrieval_precision_x2", device,
+                      lambda: toolkit.update_collection(metrics, x, y, idx))
+        updates += 1
+        junk += extra
+        # oracle: each query's rows in the order they were fed
+        host_idx, host_c = idx.cpu().numpy(), torch.cat(
+            [cs, torch.zeros(extra, dtype=cs.dtype, device=device)])[perm].cpu().numpy()
+        real = np.flatnonzero((host_idx >= 0) & (host_idx < queries))
+        real = real[np.argsort(host_idx[real], kind="stable")]
+        fed_q = host_idx[real].reshape(q1 - q0, candidates)
+        fed_c = host_c[real].reshape(q1 - q0, candidates)
+        want[q0:q1], want_top[q0:q1] = _precision_oracle(
+            host_scores[fed_q, fed_c], host_rel[fed_q, fed_c], k)
+    stream_peak = _stream_peak(device)
+    values, computes = _compute_reports(metrics, device)
+    got = values["per_query"].cpu().numpy()
+    _check(got.dtype == np.float32 and got.tobytes() == want.tobytes(),
+           "per-query precision @ k != host oracle")
+    state_top = torch.stack(list(metrics["per_query"].topk)).cpu().numpy()
+    _check(state_top.view(np.int32).tobytes() == want_top.view(np.int32).tobytes(),
+           "per-query top-k buffers != host oracle")
+    macro_err = _rel_err(values["macro"], want.astype(np.float64).mean())
+    _check(macro_err <= 1e-5, f"macro precision off float64 by {macro_err}")
+
+    _sync(device)
+    t0 = time.perf_counter()
+    functional = retrieval_precision(scores, relevant, k=k, num_tasks=queries)
+    _sync(device)
+    functional_ms = (time.perf_counter() - t0) * 1e3
+    want_f, _ = _precision_oracle(host_scores, host_rel, k)
+    got_f = functional.cpu().numpy()
+    _check(got_f.dtype == np.float32 and got_f.tobytes() == want_f.tobytes(),
+           "functional precision @ k != host oracle")
+    cuda = torch.device(device).type == "cuda"
+    return {
+        "queries": queries, "candidates": candidates, "batch_queries": batch, "k": k,
+        "updates": updates, "ignored_rows": junk, "bitwise": True,
+        "relevant_per_query": float(host_rel.sum()) / queries,
+        "values": {f"p@{k}_macro": float(values["macro"]),
+                   f"p@{k}_functional_mean": float(want_f.mean())},
+        "update_ms_median": {k_: _median(v) for k_, v in timers.items()},
+        "update_ms_first": {k_: v[0] for k_, v in timers.items()},
+        "stream_peak_bytes": stream_peak, "compute": computes,
+        "functional_wall_ms_first": functional_ms,
+        "functional_profile": _profile(
+            lambda: retrieval_precision(scores, relevant, k=k, num_tasks=queries), device, 3)
+        if cuda else None,
+    }
+
+
+def _recsys_ids(device, n, features, k, seed):
+    """DLRM sparse ids: one ``n``-sample batch of ``features`` categorical
+    features, ids ``floor(DLRM_TABLE_ROWS * u^4)`` (a heavy head); per
+    feature ``num_collisions`` and ``frequency_at_k`` of each id's
+    in-batch frequency, bitwise against numpy's unique counts."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((features, n), generator=gen, device=device, dtype=torch.float64)
+    ids = torch.floor(DLRM_TABLE_ROWS * u**4).to(torch.int64)
+    host = ids.cpu().numpy()
+    timers, distinct, singletons = {}, [], []
+    for f in range(features):
+        got = {}
+        _timed_update(timers, "num_collisions", device,
+                      lambda: got.update(c=num_collisions(ids[f])))
+        freq = (got["c"] + 1).to(torch.float32) / n
+        _timed_update(timers, "frequency_at_k", device,
+                      lambda: got.update(f=frequency_at_k(freq, k)))
+        _, inverse, counts = np.unique(host[f], return_inverse=True, return_counts=True)
+        want = (counts[inverse] - 1).astype(np.int32)
+        want_freq = (want + 1).astype(np.float32) / np.float32(n)
+        want_fk = (want_freq < np.float32(k)).astype(np.float32)
+        c, fk = got["c"].cpu().numpy(), got["f"].cpu().numpy()
+        _check(c.dtype == np.int32 and c.tobytes() == want.tobytes(),
+               f"feature {f}: num_collisions != numpy unique counts")
+        _check(freq.cpu().numpy().tobytes() == want_freq.tobytes(), f"feature {f}: frequencies differ")
+        _check(fk.dtype == np.float32 and fk.tobytes() == want_fk.tobytes(),
+               f"feature {f}: frequency_at_k != numpy")
+        distinct.append(len(counts))
+        singletons.append(float((want == 0).mean()))
+    return {
+        "samples": n, "features": features, "table_rows": DLRM_TABLE_ROWS, "k": k,
+        "bitwise": True, "distinct_ids_per_feature": [min(distinct), max(distinct)],
+        "singleton_share": [min(singletons), max(singletons)],
+        "update_ms_median": {k_: _median(v) for k_, v in timers.items()},
+    }
+
+
+def phase_recsys(device, ctr_n=CRITEO_EVAL, ctr_batch=CTR_BATCH, mt_samples=1 << 22,
+                 num_tasks=4, rows_n=1 << 22, row_tasks=1000, ncf_users=NCF_USERS,
+                 ncf_candidates=NCF_CANDIDATES, ncf_batch=4096, marco_queries=MARCO_QUERIES,
+                 marco_candidates=MARCO_CANDIDATES, marco_batch=64, id_n=CTR_BATCH,
+                 id_features=DLRM_SPARSE_FEATURES, k=10, seed=8):
+    """The recommendation-eval path at published scales: the DLRM eval
+    panel (normalized entropy on scores and on logits, CTR, calibration,
+    streaming AUROC through K1) over the Criteo 1TB evaluation stream,
+    with a 4-task weighted stream and calibration's row form; MLPerf NCF's
+    hit rate and MRR at 10 over MovieLens-20M; MS MARCO dev-small
+    precision at 10; DLRM id collisions and frequencies. K1 counts are
+    zeroed at the start and read at the end: every launch is a panel
+    update's."""
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    _kernels.reset_launch_counts()
+    criteo = _recsys_criteo(device, ctr_n, ctr_batch, mt_samples, num_tasks, rows_n,
+                            row_tasks, seed)
+    ncf = _recsys_ncf(device, ncf_users, ncf_candidates, ncf_batch, k, seed + 1)
+    marco = _recsys_marco(device, marco_queries, marco_candidates, marco_batch, k, seed + 2)
+    ids = _recsys_ids(device, id_n, id_features, 1e-4, seed + 3)
+    launches = _kernels.LAUNCHES["fused_auc_hist"]
+    if cuda:
+        _check(launches == criteo["panel_updates"],
+               f"K1 launched {launches} times for {criteo['panel_updates']} panel updates")
+    return {"phase": "recsys", "device": str(device), "seconds": time.perf_counter() - t0,
+            "k1_launches": launches, "criteo": criteo, "ncf": ncf, "msmarco": marco,
+            "dlrm_ids": ids}
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -1496,13 +1979,12 @@ def _host_ms(fn, device, reps):
 
 def _device_ms(fn, device, reps, kernel_name="fused_auc_hist_kernel"):
     """Device time per launch of the kernels named ``kernel_name`` from a
-    torch.profiler (CUPTI) trace. A trace that shows none is taken once
-    more (CUPTI has dropped a short window's kernels once in a sweep of
-    hundreds); a second empty trace fails."""
+    torch.profiler (CUPTI) trace. A trace that shows none is taken again,
+    up to ``PROFILE_ATTEMPTS`` traces in all, the last failing."""
     from torch.profiler import ProfilerActivity, profile
 
     seen = []
-    for _ in range(2):
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize(device)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1743,6 +2225,8 @@ def main(argv=None) -> int:
     _emit(counters)
     timing = phase_timing(device, seed=args.seed + 4, full_sweep=args.sweep)
     _emit(timing)
+    recsys = phase_recsys(device, seed=args.seed + 8)
+    _emit(recsys)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -1756,6 +2240,7 @@ def main(argv=None) -> int:
         "launches": ctr["k1_launches"],
         "launches_use_fused": curve["k1_launches"],
         "launches_counters": counters["criteo"]["k1_launches"],
+        "launches_recsys": recsys["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

@@ -138,3 +138,19 @@ def test_eval_loop_slice_matches_jax():
             np.testing.assert_allclose(
                 np.asarray(ours[name]), np.asarray(theirs[name]), atol=1e-6, err_msg=name
             )
+
+
+def test_phase_recsys_small_on_cpu():
+    _kernels.reset_launch_counts()
+    out = chip_smoke.phase_recsys(
+        CPU, ctr_n=150_000, ctr_batch=40_000, mt_samples=1 << 14, rows_n=1 << 15,
+        row_tasks=50, ncf_users=3000, ncf_candidates=100, ncf_batch=1024, marco_queries=300,
+        marco_candidates=100, marco_batch=64, id_n=4096, id_features=3)
+    assert out["k1_launches"] == 0  # CPU tensors take the plain histogram
+    criteo = out["criteo"]
+    assert criteo["panel_updates"] == 4
+    assert max(criteo["value_rel_err_vs_float64"].values()) <= 1e-5
+    assert criteo["rows"]["dropped_ids"] > 0
+    assert out["ncf"]["bitwise"] and out["msmarco"]["bitwise"] and out["dlrm_ids"]["bitwise"]
+    assert out["msmarco"]["ignored_rows"] == 10 * out["msmarco"]["updates"]
+    assert 0.9 < out["msmarco"]["relevant_per_query"] < 1.2

@@ -30,6 +30,9 @@ from torcheval_tpu_torch.metrics.classification.binned_precision_recall_curve im
     MulticlassBinnedPrecisionRecallCurve,
     MultilabelBinnedPrecisionRecallCurve,
 )
+from torcheval_tpu_torch.metrics.classification.binary_normalized_entropy import (
+    BinaryNormalizedEntropy,
+)
 from torcheval_tpu_torch.metrics.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     MulticlassConfusionMatrix,
@@ -69,6 +72,7 @@ __all__ = [
     "BinaryBinnedPrecisionRecallCurve",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
+    "BinaryNormalizedEntropy",
     "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
     "BinaryRecall",

@@ -148,8 +148,9 @@ def numpy_state_dict(metric) -> Dict[str, Any]:
 
 
 def load_numpy_state_dict(metric, state: Dict[str, Any]) -> None:
-    """Load ``{name: np.ndarray | float | int}`` (for example the JAX
-    package's ``state_dict()`` read out as numpy) into ``metric``.
+    """Load ``{name: np.ndarray | list | float | int}`` (for example the
+    JAX package's ``state_dict()`` read out as numpy) into ``metric``; a
+    list state holds numpy arrays.
 
     Array states must arrive with the dtype this metric registered -- the
     two packages share state dtypes, so a mismatch means the payload
@@ -170,6 +171,10 @@ def load_numpy_state_dict(metric, state: Dict[str, Any]) -> None:
                     f"{current.dtype}, got a {arr.dtype} array"
                 )
             converted[name] = t
+        elif isinstance(value, list):
+            # a list state (retrieval precision's per-query buffers): the
+            # elements' dtypes come with the data
+            converted[name] = [torch.from_numpy(np.array(v, copy=True)) for v in value]
         elif isinstance(value, np.generic):
             converted[name] = value.item()
         elif isinstance(value, np.ndarray) and value.ndim == 0:
