@@ -101,6 +101,25 @@ phases, printing one JSON line for each:
    and ``frequency_at_k`` bitwise against numpy. Per stream: update wall
    ms per batch, each compute's wall and device time, peak bytes; K1's
    launches must equal the panel's updates.
+10. ``lm_eval``: the language-model eval path. ``Perplexity(ignore_index=
+   -100)`` at Llama-3-8B width (vocabulary 128,256, windows of 8,192
+   tokens) over a stream of 287,644 targets (WikiText-2 test under the
+   GPT-2 tokenizer, as Hugging Face's fixed-length perplexity page
+   counts it): 36 non-overlapping float32 windows (the last with 924 real
+   targets; -1, V and V + 7 planted in the first), 8 sliding windows at
+   stride 512 (7,680 targets a window ignored), 4 bfloat16 windows, and
+   ``perplexity`` on one window. Logits are N(0, 1) with a margin of
+   ``PPL_MARGIN`` at each target. Each stream's NLL sum is held to a
+   float64 oracle (row chunks) within the bound ``_window_bound`` derives,
+   the token count exactly; the update's wall and device ms, the share of
+   the HBM bound (the logits read once) and peak bytes are reported.
+   ``BLEUScore(n_gram=4)`` over 3,003 WMT14 newstest2014-sized pairs
+   (Zipfian vocabulary of 32,000 words, seeded substitutions and
+   deletions) in batches of 64 and ``bleu_score`` once: counters bitwise
+   against a ``Counter`` oracle, the score within 1e-6 of float64. WER,
+   WIL and WIP over 2,620 LibriSpeech test-clean-sized utterances in
+   batches of 64: counts bitwise against a Python Levenshtein DP, rates
+   bitwise against their float32 quotients. K1 must not launch.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -108,7 +127,7 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7, 9 and 10 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -139,6 +158,7 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     BinaryBinnedAUROC,
     BinaryBinnedPrecisionRecallCurve,
     BinaryNormalizedEntropy,
+    BLEUScore,
     ClickThroughRate,
     HistogramBinnedAUROC,
     HitRate,
@@ -156,6 +176,7 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     MultilabelAccuracy,
     MultilabelBinnedAUPRC,
     MultilabelBinnedPrecisionRecallCurve,
+    Perplexity,
     ReciprocalRank,
     RetrievalPrecision,
     StreamingBinaryAUPRC,
@@ -163,12 +184,20 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     Throughput,
     TopKMultilabelAccuracy,
     WeightedCalibration,
+    WordErrorRate,
+    WordInformationLost,
+    WordInformationPreserved,
 )
 from torcheval_tpu_torch.metrics import toolkit  # noqa: E402
 from torcheval_tpu_torch.metrics.functional import (  # noqa: E402
+    bleu_score,
     frequency_at_k,
     num_collisions,
+    perplexity,
     retrieval_precision,
+    word_error_rate,
+    word_information_lost,
+    word_information_preserved,
 )
 from torcheval_tpu_torch.metrics.functional.classification._curve_kernels import (  # noqa: E402
     _reverse_cummin,
@@ -1951,6 +1980,370 @@ def phase_recsys(device, ctr_n=CRITEO_EVAL, ctr_batch=CTR_BATCH, mt_samples=1 <<
             "dlrm_ids": ids}
 
 
+# ------------------------------------------------------------- lm eval
+
+LLAMA3_VOCAB = 128_256  # Meta-Llama-3-8B config.json: vocab_size
+LLAMA3_CONTEXT = 8192  # and max_position_embeddings
+# WikiText-2 (raw) test set under the GPT-2 tokenizer, as Hugging Face's
+# "Perplexity of fixed-length models" page counts it: a stand-in count
+WIKITEXT2_TEST_TOKENS = 287_644
+SLIDING_STRIDE = 512  # that page's sliding-window stride
+WMT14_NEWSTEST = 3003  # WMT14 En-De newstest2014 sentence pairs
+LIBRISPEECH_TEST_CLEAN = 2620  # LibriSpeech test-clean utterances
+TEXT_VOCAB = 32_000
+IGNORE = -100  # Hugging Face's label ignore index
+# logit margin planted at every real target over N(0, 1) logits: at
+# V = 128,256 the target's probability is about e^10 / (e^10 + V e^0.5),
+# a perplexity near 10
+PPL_MARGIN = 10.0
+U_BF16 = 2.0 ** -8  # bfloat16 unit roundoff
+
+
+def _lm_window(gen, vocab, context, real, margin, dtype, device):
+    """One (1, context, vocab) window of N(0, 1) logits with ``margin``
+    added at each real target; targets uniform over the vocabulary in the
+    positions of the slice ``real``, ``IGNORE`` elsewhere."""
+    x = torch.randn((1, context, vocab), generator=gen, device=device)
+    t = torch.full((1, context), IGNORE, dtype=torch.int64, device=device)
+    rows = torch.arange(context, device=device)[real]
+    t[0, rows] = torch.randint(0, vocab, (rows.numel(),), generator=gen, device=device)
+    x[0, rows, t[0, rows]] += margin
+    return (x if dtype == torch.float32 else x.to(dtype)), t
+
+
+def _clip_index64(t, vocab):
+    """The JAX package's ``take_along_axis(mode="clip")`` index, written
+    apart from the port's: negatives wrap once, then clamp to [0, V-1]."""
+    return torch.where(t < 0, t + vocab, t).clamp(0, vocab - 1)
+
+
+def _nll_oracle(x, t, rows, chunk):
+    """float64 sums over the window's rows ``rows`` (a slice), in chunks
+    of ``chunk`` rows: the NLL, the count of kept targets, and
+    ``sum(|x_t - m| + |log s| + |log p_t|)`` for the bound."""
+    vocab = x.shape[-1]
+    x2, t2 = x.reshape(-1, vocab)[rows], t.reshape(-1)[rows]
+    nll = torch.zeros((), dtype=torch.float64, device=x.device)
+    mags = torch.zeros((), dtype=torch.float64, device=x.device)
+    for lo in range(0, x2.shape[0], chunk):
+        xc, tc = x2[lo:lo + chunk].double(), t2[lo:lo + chunk]
+        keep = tc != IGNORE
+        m = xc.amax(-1, keepdim=True)
+        log_s = torch.log(torch.exp(xc - m).sum(-1))
+        shifted = xc.gather(1, _clip_index64(tc, vocab)[:, None])[:, 0] - m[:, 0]
+        lp = shifted - log_s
+        nll -= torch.where(keep, lp, 0.0).sum()
+        mags += torch.where(keep, shifted.abs() + log_s.abs() + lp.abs(), 0.0).sum()
+        del xc
+    return nll, int((t2 != IGNORE).sum()), mags
+
+
+def _window_bound(mags, nll, kept, vocab, dtype):
+    """What one window's batch sum may be off by. Per token, the log-
+    softmax rounds the shift, the log and the difference (each to within
+    2 u_d of its magnitude, with CUDA's 1-ulp logf), the exps (2 ulps each,
+    6 u_d in all with the rounding of their sum in a half dtype) and sums
+    ``vocab`` positive terms in float32 (``(vocab - 1) u32`` relative,
+    whatever the order): ``2 u_d (|x_t - m| + |log s| + |log p_t|) + 6 u_d
+    + (vocab - 1) u32``. The batch sum adds ``kept`` terms in float32
+    (``(kept - 1) u32`` of the NLL) and, in a half dtype, rounds to it
+    once (``u_d`` of the NLL)."""
+    u_d = U32 if dtype == torch.float32 else U_BF16
+    bound = 2 * u_d * mags + (6 * u_d + (vocab - 1) * U32) * kept + max(kept - 1, 0) * U32 * nll
+    if dtype != torch.float32:
+        bound += u_d * nll
+    return bound
+
+
+def _ppl_float64(nll64, kept, bound):
+    """The float64 perplexity and what the float32 one may be off by: the
+    NLL bound over the count, plus the quotient's and exp's roundings."""
+    ppl64 = math.exp(nll64 / kept)
+    return ppl64, ppl64 * math.expm1(bound / kept + 4 * U32 * max(1.0, nll64 / kept))
+
+
+def _ppl_stream(name, device, gen, windows, make_window, dtype, vocab, chunk, plant=False):
+    """Feed ``windows`` windows to ``Perplexity(ignore_index=IGNORE)``,
+    each update timed from a drained queue and held against the float64
+    oracle; returns the last window and the report."""
+    metric = Perplexity(ignore_index=IGNORE, device=device)
+    timers = {}
+    nll64, kept, bound = 0.0, 0, 0.0
+    _reset_peak(device)
+    for w in range(windows):
+        x, t, real = make_window(w)
+        if plant and w == 0:
+            # out-of-range targets: the run goes on, each read as JAX's gather reads it
+            t[0, real.start:real.start + 3] = torch.tensor([-1, vocab, vocab + 7], device=device)
+        _timed_update(timers, name, device, lambda: metric.update(x, t))
+        n, k, mags = _nll_oracle(x, t, real, chunk)
+        nll64 += float(n)
+        kept += k
+        bound += float(_window_bound(mags, n, k, vocab, dtype))
+    peak = _stream_peak(device)
+    bound += windows * _ulp32(torch.tensor(nll64)).item() / 2  # the state's adds
+    got = float(metric.sum_log_probs)
+    _check(int(metric.num_total) == kept,
+           f"{name}: num_total {int(metric.num_total)} != {kept} kept targets")
+    _check(abs(got - nll64) <= bound, f"{name}: NLL sum {got} vs float64 {nll64}, bound {bound}")
+    ppl64, ppl_bound = _ppl_float64(nll64, kept, bound)
+    ppl = float(metric.compute())
+    _check(abs(ppl - ppl64) <= ppl_bound, f"{name}: perplexity {ppl} vs float64 {ppl64}")
+    report = {
+        "windows": windows, "dtype": str(dtype).split(".")[-1], "targets": kept,
+        "perplexity": ppl, "perplexity_float64": ppl64,
+        "nll_rel_err_vs_float64": abs(got - nll64) / nll64, "nll_rel_bound": bound / nll64,
+        "update_ms_median": _median(timers[name]), "update_ms_first": timers[name][0],
+        "stream_peak_bytes": peak,
+    }
+    return (x, t), report
+
+
+def _update_device(x, t, device):
+    """One window update on the card, on a scratch metric (the measured
+    stream is untouched): its time by CUDA events over back-to-back
+    updates (the card, not the host, paces them), the share of the HBM
+    bound that time reaches (the logits read once at 3.35 TB/s), the
+    profiler's costliest kernels with their launches an update (CUPTI
+    has dropped records of these traces, so its sum may fall short), and
+    the update's peak bytes."""
+    if torch.device(device).type != "cuda":
+        return {}
+    scratch = Perplexity(ignore_index=IGNORE, device=device)
+    _sync(device)
+    before = torch.cuda.memory_allocated(device)
+    _reset_peak(device)
+    scratch.update(x, t)
+    _sync(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    event_ms = _time_ms(lambda: scratch.update(x, t), device, reps=5)
+    prof = _profile(lambda: scratch.update(x, t), device, reps=3)
+    logit_bytes = x.numel() * x.element_size()
+    bound_ms = logit_bytes / HBM_BYTES_PER_S * 1e3
+    return {"event_ms": event_ms, "hbm_bound_ms": bound_ms,
+            "hbm_bound_share": bound_ms / event_ms, "logit_bytes": logit_bytes,
+            "profile_device_ms": prof["device_ms"], "top_kernels": prof["top_kernels"],
+            "update_peak_bytes": peak, "update_extra_bytes": peak - before}
+
+
+def _lm_perplexity(device, vocab, context, tokens, stride, sliding_windows, bf16_windows,
+                   margin, chunk, seed):
+    """Perplexity at Llama-3-8B width: the non-overlapping stream over
+    ``tokens`` targets (the last window short, padded with ``IGNORE``,
+    three targets planted out of range), the sliding-window stream, the
+    bfloat16 stream and the functional form on one window."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    full = math.ceil(tokens / context)
+    last_real = tokens - (full - 1) * context
+
+    def plain(w, dtype=torch.float32):
+        real = slice(0, context if w < full - 1 else last_real)
+        return (*_lm_window(gen, vocab, context, real, margin, dtype, device), real)
+
+    def sliding(w):
+        real = slice(context - stride, context)
+        return (*_lm_window(gen, vocab, context, real, margin, torch.float32, device), real)
+
+    # a stream's last window is freed before the next stream starts, so
+    # each peak holds one window's logits
+    out = {}
+    out["nonoverlapping"] = _ppl_stream(
+        "nonoverlapping", device, gen, full, plain, torch.float32, vocab, chunk, plant=True)[1]
+    _check(out["nonoverlapping"]["targets"] == tokens, "non-overlapping target count")
+    window, out["sliding"] = _ppl_stream(
+        "sliding", device, gen, sliding_windows, sliding, torch.float32, vocab, chunk)
+    _check(out["sliding"]["targets"] == sliding_windows * stride, "sliding target count")
+    out["sliding"]["update_device"] = _update_device(*window, device)
+    del window
+    window, out["bf16"] = _ppl_stream(
+        "bf16", device, gen, bf16_windows, lambda w: plain(0, torch.bfloat16), torch.bfloat16,
+        vocab, chunk)
+    out["bf16"]["update_device"] = _update_device(*window, device)
+    del window
+
+    # the functional form on one full window, beside its oracle
+    x, t, real = plain(0)
+    out["nonoverlapping"]["update_device"] = _update_device(x, t, device)
+    _reset_peak(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    ppl = float(perplexity(x, t, ignore_index=IGNORE))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n, k, mags = _nll_oracle(x, t, real, chunk)
+    ppl64, ppl_bound = _ppl_float64(float(n), k, float(_window_bound(mags, n, k, vocab,
+                                                                     torch.float32)))
+    _check(abs(ppl - ppl64) <= ppl_bound, f"functional perplexity {ppl} vs float64 {ppl64}")
+    out["functional"] = {"perplexity": ppl, "perplexity_float64": ppl64,
+                         "rel_err_vs_float64": abs(ppl - ppl64) / ppl64, "wall_ms": wall_ms,
+                         "peak_bytes": _stream_peak(device)}
+    for name in ("nonoverlapping", "sliding", "bf16"):
+        _check(3.0 <= out[name]["perplexity"] <= 30.0,
+               f"{name}: perplexity {out[name]['perplexity']} outside [3, 30]")
+    return out
+
+
+def _zipf_sentences(rng, n, vocab, sub, dele, lo=5, hi=60):
+    """``n`` reference sentences of ``lo`` to ``hi`` tokens drawn from a
+    Zipfian (s = 1) vocabulary of ``vocab`` words, and for each a
+    hypothesis made from it by substituting each token with probability
+    ``sub`` (a fresh Zipfian draw) and deleting it with probability
+    ``dele``: token lists, both."""
+    p = 1.0 / np.arange(1, vocab + 1)
+    cdf = np.cumsum(p / p.sum())
+    lengths = rng.integers(lo, hi + 1, n)
+    total = int(lengths.sum())
+    draw = np.minimum(np.searchsorted(cdf, rng.random(total)), vocab - 1)
+    fresh = np.minimum(np.searchsorted(cdf, rng.random(total)), vocab - 1)
+    swap, drop = rng.random(total) < sub, rng.random(total) < dele
+    hyp_ids = np.where(swap, fresh, draw)
+    refs, hyps, start = [], [], 0
+    for length in lengths:
+        span = slice(start, start + length)
+        refs.append([f"w{i}" for i in draw[span]])
+        hyps.append([f"w{i}" for i in hyp_ids[span][~drop[span]]])
+        start += length
+    return refs, hyps
+
+
+def _ngram_oracle(hyps, refs, n_gram):
+    """Clipped matches and possible matches per order, and the summed
+    hypothesis and reference lengths, by ``collections.Counter``."""
+    from collections import Counter
+
+    matches, possible = [0] * n_gram, [0] * n_gram
+    for h, r in zip(hyps, refs):
+        for n in range(1, n_gram + 1):
+            hc = Counter(tuple(h[i:i + n]) for i in range(len(h) - n + 1))
+            rc = Counter(tuple(r[i:i + n]) for i in range(len(r) - n + 1))
+            matches[n - 1] += sum(min(c, rc[g]) for g, c in hc.items())
+            possible[n - 1] += max(len(h) - n + 1, 0)
+    return matches, possible, sum(map(len, hyps)), sum(map(len, refs))
+
+
+def _bleu64(matches, possible, hyp_len, ref_len):
+    geo = math.exp(sum(0.25 * math.log(m / p) for m, p in zip(matches, possible)))
+    return geo * (1.0 if hyp_len > ref_len else math.exp(1 - ref_len / hyp_len))
+
+
+def _lm_bleu(device, pairs, vocab, batch, seed):
+    """BLEU at WMT14 En-De newstest2014 scale: ``BLEUScore(n_gram=4)`` in
+    batches of ``batch`` and ``bleu_score`` once over the set; counters
+    bitwise against a ``Counter`` oracle, the score within 1e-6 of
+    float64."""
+    rng = np.random.default_rng(seed)
+    refs, hyps = _zipf_sentences(rng, pairs, vocab, sub=0.3, dele=0.08)
+    hyp_s, ref_s = [" ".join(h) for h in hyps], [[" ".join(r)] for r in refs]
+    metric, timers = BLEUScore(n_gram=4, device=device), {}
+    for lo in range(0, pairs, batch):
+        _timed_update(timers, "bleu", device,
+                      lambda: metric.update(hyp_s[lo:lo + batch], ref_s[lo:lo + batch]))
+    matches, possible, hyp_len, ref_len = _ngram_oracle(hyps, refs, 4)
+    _check(metric.input_len == hyp_len and metric.target_len == ref_len,
+           "BLEU lengths != the Counter oracle")
+    for got, want, what in ((metric.matches_by_order, matches, "matches"),
+                            (metric.possible_matches_by_order, possible, "possible matches")):
+        want = np.asarray(want, dtype=np.float32)
+        _check(got.cpu().numpy().tobytes() == want.tobytes(), f"BLEU {what} != the Counter oracle")
+    score64 = _bleu64(matches, possible, hyp_len, ref_len)
+    values, computes = _compute_reports({"bleu": metric}, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    functional = bleu_score(hyp_s, ref_s, n_gram=4, device=device)
+    _sync(device)
+    functional_ms = (time.perf_counter() - t0) * 1e3
+    for what, got in (("BLEUScore", values["bleu"]), ("bleu_score", functional)):
+        _check(abs(float(got) - score64) <= 1e-6, f"{what} {float(got)} vs float64 {score64}")
+    _check(0.2 <= score64 <= 0.4, f"BLEU {score64} outside [0.2, 0.4]")
+    return {"pairs": pairs, "batch": batch, "vocab": vocab, "hypothesis_tokens": hyp_len,
+            "reference_tokens": ref_len, "bleu": float(values["bleu"]), "bleu_float64": score64,
+            "abs_err_vs_float64": abs(float(values["bleu"]) - score64), "counters_bitwise": True,
+            "update_ms_median": _median(timers["bleu"]), "compute": computes,
+            "functional_ms": functional_ms}
+
+
+def _levenshtein(a, b):
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        cur = [i]
+        for j, y in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (x != y)))
+        prev = cur
+    return prev[-1]
+
+
+def _lm_word_rates(device, utterances, vocab, batch, seed):
+    """WER, WIL and WIP at LibriSpeech test-clean scale, classes in
+    batches of ``batch`` and the functional forms once: counts bitwise
+    against a pure-Python Levenshtein DP, each rate bitwise against the
+    float32 quotients of those counts."""
+    rng = np.random.default_rng(seed)
+    refs, hyps = _zipf_sentences(rng, utterances, vocab, sub=0.1, dele=0.05)
+    hyp_s, ref_s = [" ".join(h) for h in hyps], [" ".join(r) for r in refs]
+    metrics = {"wer": WordErrorRate(device=device), "wil": WordInformationLost(device=device),
+               "wip": WordInformationPreserved(device=device)}
+    timers = {}
+    for lo in range(0, utterances, batch):
+        for name, m in metrics.items():
+            _timed_update(timers, name, device,
+                          lambda: m.update(hyp_s[lo:lo + batch], ref_s[lo:lo + batch]))
+    errors = sum(_levenshtein(h, r) for h, r in zip(hyps, refs))
+    hyp_len, ref_len = sum(map(len, hyps)), sum(map(len, refs))
+    correct = sum(max(len(h), len(r)) for h, r in zip(hyps, refs)) - errors
+    states = {"wer": {"errors": errors, "total": ref_len},
+              "wil": {"correct_total": correct, "target_total": ref_len, "preds_total": hyp_len},
+              "wip": {"correct_total": correct, "target_total": ref_len, "input_total": hyp_len}}
+    for name, want in states.items():
+        for state, value in want.items():
+            _check(getattr(metrics[name], state) == value,
+                   f"{name}.{state} {getattr(metrics[name], state)} != the DP's {value}")
+    f = np.float32
+    c, t, h = f(correct), f(ref_len), f(hyp_len)
+    want = {"wer": f(errors) / t, "wil": f(1) - (c / t) * (c / h), "wip": (c / t) * (c / h)}
+    values, computes = _compute_reports(metrics, device)
+    functional = {}
+    for name, fn in (("wer", word_error_rate), ("wil", word_information_lost),
+                     ("wip", word_information_preserved)):
+        _sync(device)
+        t0 = time.perf_counter()
+        functional[name] = fn(hyp_s, ref_s, device=device)
+        _sync(device)
+        computes[name]["functional_ms"] = (time.perf_counter() - t0) * 1e3
+    for name, w in want.items():
+        for what, got in (("class", values[name]), ("functional", functional[name])):
+            got = got.cpu().numpy()
+            _check(got.dtype == np.float32 and got.tobytes() == np.asarray(w).tobytes(),
+                   f"{name} ({what}) {got} != the float32 quotient {w}")
+    return {"utterances": utterances, "batch": batch, "vocab": vocab, "bitwise": True,
+            "errors": errors, "reference_words": ref_len, "hypothesis_words": hyp_len,
+            "values": {k: float(v) for k, v in want.items()},
+            "update_ms_median": {k: _median(v) for k, v in timers.items()},
+            "compute": computes}
+
+
+def phase_lm_eval(device, vocab=LLAMA3_VOCAB, context=LLAMA3_CONTEXT,
+                  tokens=WIKITEXT2_TEST_TOKENS, stride=SLIDING_STRIDE, sliding_windows=8,
+                  bf16_windows=4, margin=PPL_MARGIN, chunk=1024, pairs=WMT14_NEWSTEST,
+                  utterances=LIBRISPEECH_TEST_CLEAN, text_vocab=TEXT_VOCAB, text_batch=64,
+                  seed=9):
+    """The language-model eval path: ``Perplexity`` at Llama-3-8B width
+    over a WikiText-2-sized stream (non-overlapping and sliding windows,
+    float32 and bfloat16 logits, out-of-range targets planted) and the
+    functional form; BLEU at WMT14 newstest2014 scale; WER, WIL and WIP at
+    LibriSpeech test-clean scale. K1 counts are zeroed at the start and
+    read at the end: none of this launches it."""
+    t0 = time.perf_counter()
+    _kernels.reset_launch_counts()
+    ppl = _lm_perplexity(device, vocab, context, tokens, stride, sliding_windows, bf16_windows,
+                         margin, chunk, seed)
+    bleu = _lm_bleu(device, pairs, text_vocab, text_batch, seed + 1)
+    words = _lm_word_rates(device, utterances, text_vocab, text_batch, seed + 2)
+    launches = _kernels.LAUNCHES["fused_auc_hist"]
+    _check(launches == 0, f"K1 launched {launches} times in lm_eval")
+    return {"phase": "lm_eval", "device": str(device), "seconds": time.perf_counter() - t0,
+            "k1_launches": launches, "vocab": vocab, "context": context, "margin": margin,
+            "perplexity": ppl, "bleu": bleu, "word_rates": words}
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -2227,6 +2620,8 @@ def main(argv=None) -> int:
     _emit(timing)
     recsys = phase_recsys(device, seed=args.seed + 8)
     _emit(recsys)
+    lm_eval = phase_lm_eval(device, seed=args.seed + 9)
+    _emit(lm_eval)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -2241,6 +2636,7 @@ def main(argv=None) -> int:
         "launches_use_fused": curve["k1_launches"],
         "launches_counters": counters["criteo"]["k1_launches"],
         "launches_recsys": recsys["k1_launches"],
+        "launches_lm_eval": lm_eval["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

@@ -436,3 +436,47 @@ def test_phase_counters_small_on_cpu():
     assert criteo["hist_bitwise"] == [True, True]
     assert max(criteo["hist_auroc_err_vs_float64"]) <= 1e-6
     assert openimages["topk_oracle_bitwise"]
+
+
+# ------------------------------------------------------------ empty batches
+
+
+@pytest.mark.parametrize("threshold", [5, 100], ids=["t5", "t100"])
+def test_empty_batch_gives_zero_counters_like_jax(threshold):
+    """An empty batch: all-zero counters, AUPRC 0, precision 1 and recall
+    NaN over the threshold grid, as in the JAX package."""
+    e = np.zeros(0, np.float32)
+    _bitwise(TF.binary_binned_precision_recall_curve(e, e, threshold=threshold, device=CPU),
+             JF.binary_binned_precision_recall_curve(e, e, threshold=threshold))
+    _bitwise(TF.binary_binned_auprc(e, e, threshold=threshold, device=CPU),
+             JF.binary_binned_auprc(e, e, threshold=threshold))
+    assert float(TF.binary_binned_auprc(e, e, threshold=threshold, device=CPU)[0]) == 0.0
+    e2 = np.zeros((2, 0), np.float32)
+    _bitwise(TF.binary_binned_auprc(e2, e2, num_tasks=2, threshold=threshold, device=CPU),
+             JF.binary_binned_auprc(e2, e2, num_tasks=2, threshold=threshold))
+
+
+@pytest.mark.parametrize("name", ["prc", "auprc", "auprc_tasks"])
+def test_empty_batch_mid_stream_passes_through_like_jax(name):
+    """Class updates with an empty batch, first and in the middle of a
+    stream, leave the counters as the JAX classes leave theirs."""
+    rng = np.random.default_rng(31)
+    tasks = 2 if name == "auprc_tasks" else 1
+    shape = (tasks, 40) if tasks > 1 else (40,)
+    empty = np.zeros((tasks, 0) if tasks > 1 else (0,), np.float32)
+    make = {
+        "prc": lambda P, **kw: P.BinaryBinnedPrecisionRecallCurve(threshold=7, **kw),
+        "auprc": lambda P, **kw: P.BinaryBinnedAUPRC(threshold=7, **kw),
+        "auprc_tasks": lambda P, **kw: P.BinaryBinnedAUPRC(num_tasks=2, threshold=7, **kw),
+    }[name]
+    tm, jm = make(TM, device=CPU), make(JM)
+    batches = [(empty, empty)]
+    for _ in range(2):
+        s = _scores(rng, shape)
+        batches += [(s, (rng.random(shape) < 0.4).astype(np.float32)), (empty, empty)]
+    for x, y in batches:
+        tm.update(x, y)
+        jm.update(x, y)
+        for state in tm._state_name_to_default:
+            _bitwise(getattr(tm, state), np.asarray(getattr(jm, state)))
+    _close(tm.compute(), jm.compute())  # the area: float sums in another order

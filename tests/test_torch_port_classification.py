@@ -237,3 +237,33 @@ def test_merge_state_matches_jax():
     t[0].merge_state(t[1:])
     j[0].merge_state(j[1:])
     _same_counters(t[0], j[0], ("num_correct", "num_total"))
+
+
+@pytest.mark.parametrize("weight", [1.0, 2, "tensor"])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=["f16", "bf16"])
+@pytest.mark.parametrize("name", ["Sum", "Mean"])
+def test_half_precision_aggregation_matches_jax(name, dtype, weight):
+    """float16/bfloat16 input: ``sum`` and ``Sum`` promote it against the
+    float32 weight as JAX does (3,000 values of 30.0 sum to 90,000, past
+    float16's range, not to inf); ``mean``/``Mean`` agree with JAX as
+    they stand, inf included."""
+    rng = np.random.default_rng(13)
+    batches = [torch.full((3000,), 30.0, dtype=dtype),
+               torch.from_numpy(rng.standard_normal(257).astype(np.float32)).to(dtype)]
+    tm, jm = getattr(TM, name)(device=CPU), getattr(JM, name)()
+    for b in batches:
+        w = torch.rand(b.shape, generator=torch.Generator().manual_seed(3)) \
+            if weight == "tensor" else weight
+        got = getattr(TF, name.lower())(b, w, device=CPU)
+        want = np.asarray(getattr(JF, name.lower())(b, w))
+        assert _np(got).dtype == want.dtype
+        np.testing.assert_allclose(_np(got), want, rtol=1e-6)
+        tm.update(b, weight=w)
+        jm.update(b, weight=w)
+        for state in tm._state_name_to_default:
+            t_state, j_state = _np(getattr(tm, state)), np.asarray(getattr(jm, state))
+            assert t_state.dtype == j_state.dtype == np.float32
+            np.testing.assert_allclose(t_state, j_state, rtol=1e-6)
+    np.testing.assert_allclose(_np(tm.compute()), np.asarray(jm.compute()), rtol=1e-6)
+    if name == "Sum":
+        assert np.isfinite(_np(tm.compute()))

@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+import torcheval_tpu.metrics as JM
 import torcheval_tpu.metrics.functional as JF
 from torcheval_tpu.metrics.functional.classification import _curve_kernels as jck
+import torcheval_tpu_torch.metrics as TM
 import torcheval_tpu_torch.metrics.functional as TF
 from torcheval_tpu_torch.metrics.functional.classification import _curve_kernels as tck
 
@@ -294,3 +296,34 @@ def test_float64_and_int64_inputs_compute_in_32_bits():
     a = TF.binary_auroc(s64, torch.from_numpy(t))
     b = TF.binary_auroc(torch.from_numpy(s), torch.from_numpy(t).to(torch.int32))
     assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_recall_at_fixed_precision_on_integer_scores_matches_jax(dtype):
+    """Integer scores: the functional forms return the JAX values, the
+    threshold promoted to float32. The JAX classes raise OverflowError on
+    them (their buffer's -inf fill meets an integer dtype); the port's
+    classes follow the functional form instead."""
+    s = np.array([0, 2, 1, 3, 1], dtype)
+    t = np.array([0, 1, 0, 1, 1])
+    want = JF.binary_recall_at_fixed_precision(s, t, min_precision=0.4)
+    got = TF.binary_recall_at_fixed_precision(s, t, min_precision=0.4, device=CPU)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.numpy().tobytes() == np.asarray(w).tobytes()
+    assert [float(g) for g in got] == [1.0, 1.0]
+    rng = np.random.default_rng(5)
+    sl = rng.integers(-4, 9, (60, 3)).astype(dtype)
+    tl = rng.integers(0, 2, (60, 3))
+    want = JF.multilabel_recall_at_fixed_precision(sl, tl, num_labels=3, min_precision=0.5)
+    got = TF.multilabel_recall_at_fixed_precision(sl, tl, num_labels=3, min_precision=0.5,
+                                                  device=CPU)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert g.dtype == torch.float32 and g.numpy().tobytes() == np.asarray(w).tobytes()
+    with pytest.raises(OverflowError):
+        JM.BinaryRecallAtFixedPrecision(min_precision=0.4).update(s, t)
+    cls = TM.BinaryRecallAtFixedPrecision(min_precision=0.4, device=CPU)
+    cls.update(s[:2], t[:2]).update(s[2:], t[2:])
+    assert [float(g) for g in cls.compute()] == [1.0, 1.0]
+    ml = TM.MultilabelRecallAtFixedPrecision(num_labels=3, min_precision=0.5, device=CPU)
+    for g, w in zip(sum(ml.update(sl, tl).compute(), []), got[0] + got[1]):
+        assert torch.equal(g, w)

@@ -154,3 +154,33 @@ def test_phase_recsys_small_on_cpu():
     assert out["ncf"]["bitwise"] and out["msmarco"]["bitwise"] and out["dlrm_ids"]["bitwise"]
     assert out["msmarco"]["ignored_rows"] == 10 * out["msmarco"]["updates"]
     assert 0.9 < out["msmarco"]["relevant_per_query"] < 1.2
+
+
+def test_phase_lm_eval_small_on_cpu():
+    _kernels.reset_launch_counts()
+    out = chip_smoke.phase_lm_eval(
+        CPU, vocab=1000, context=64, tokens=340, stride=8, sliding_windows=3, bf16_windows=2,
+        margin=5.0, chunk=16, pairs=150, utterances=130, text_vocab=2000)
+    assert out["k1_launches"] == 0
+    ppl = out["perplexity"]
+    assert ppl["nonoverlapping"]["windows"] == 6 and ppl["nonoverlapping"]["targets"] == 340
+    assert ppl["sliding"]["targets"] == 3 * 8 and ppl["bf16"]["dtype"] == "bfloat16"
+    for name in ("nonoverlapping", "sliding", "bf16"):
+        assert ppl[name]["nll_rel_err_vs_float64"] <= ppl[name]["nll_rel_bound"]
+        assert 3.0 <= ppl[name]["perplexity"] <= 30.0
+    assert ppl["nonoverlapping"]["nll_rel_err_vs_float64"] <= 1e-6
+    assert out["bleu"]["counters_bitwise"] and out["bleu"]["abs_err_vs_float64"] <= 1e-6
+    assert out["word_rates"]["bitwise"] and out["word_rates"]["errors"] > 0
+
+
+def test_lm_oracle_reads_out_of_range_targets_as_jax_does():
+    """The smoke's float64 perplexity oracle against the JAX package, with
+    targets -1, V and V + 7 planted and ``-100`` ignored."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 12, 50)).astype(np.float32)
+    t = rng.integers(0, 50, (1, 12))
+    t[0, :4] = [-1, 50, 57, chip_smoke.IGNORE]
+    nll, kept, _ = chip_smoke._nll_oracle(torch.from_numpy(x), torch.from_numpy(t), slice(0, 12), 5)
+    jm = JM.Perplexity(ignore_index=chip_smoke.IGNORE).update(x, t)
+    assert kept == int(jm.num_total) == 11
+    np.testing.assert_allclose(float(nll), float(jm.sum_log_probs), rtol=1e-6)

@@ -22,6 +22,14 @@ from torcheval_tpu_torch.metrics.functional.classification.recall_at_fixed_preci
 from torcheval_tpu_torch.utils.convert import DeviceLike
 
 
+def _float_scores(input: torch.Tensor) -> torch.Tensor:
+    """Integer scores as float32, the dtype the functional form's threshold
+    takes on them. The JAX class raises on integer scores (its buffer's
+    -inf fill meets an integer dtype); this class follows the functional
+    form instead."""
+    return input if input.is_floating_point() else input.to(torch.float32)
+
+
 class BinaryRecallAtFixedPrecision(_BufferedPairMetric):
     """Max recall such that precision >= ``min_precision``; ``compute``
     returns ``(recall, threshold)``.
@@ -43,7 +51,7 @@ class BinaryRecallAtFixedPrecision(_BufferedPairMetric):
         self.min_precision = min_precision
 
     def update(self, input, target) -> "BinaryRecallAtFixedPrecision":
-        input, target = self._input(input), self._input(target)
+        input, target = _float_scores(self._input(input)), self._input(target)
         _binary_recall_at_fixed_precision_update_input_check(
             input, target, self.min_precision
         )
@@ -79,7 +87,7 @@ class MultilabelRecallAtFixedPrecision(_BufferedPairMetric):
         self.min_precision = min_precision
 
     def update(self, input, target) -> "MultilabelRecallAtFixedPrecision":
-        input, target = self._input(input), self._input(target)
+        input, target = _float_scores(self._input(input)), self._input(target)
         _multilabel_precision_recall_curve_update_input_check(input, target, self.num_labels)
         self._append(input, target)
         return self

@@ -16,7 +16,10 @@ from torcheval_tpu_torch.utils.convert import (
 
 
 def _weighted_total(input: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    return torch.sum(input * weight)
+    # JAX promotes a float16/bfloat16 input against the float32 weight even
+    # when the weight is 0-d; torch's promotion would ignore a 0-d operand
+    dtype = torch.promote_types(input.dtype, weight.dtype)
+    return torch.sum(input.to(dtype) * weight)
 
 
 def sum(

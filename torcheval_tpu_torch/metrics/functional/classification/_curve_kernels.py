@@ -213,6 +213,9 @@ def recall_at_precision_from_arrays(
     # the threshold step filters by recall only; ineligible slots are
     # -inf, not the -1 terminal, which would shadow negative thresholds
     eligible = is_end & (recall == max_recall[..., None])
+    if not threshold.is_floating_point():
+        # integer scores: JAX promotes them to float32 against the -inf fill
+        threshold = threshold.to(torch.float32)
     candidate = _max_last(
         torch.where(eligible, threshold, torch.full_like(threshold, float("-inf"))),
         float("-inf"),

@@ -26,6 +26,7 @@ float32, the width the JAX package holds them in.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -80,9 +81,11 @@ def _binary_binned_update_jit(
     JAX package maps the 1-D kernel over the rows): shape ``input.shape[:-1]
     + (T,)``."""
     num_t = threshold.shape[0]
-    n = input.shape[-1]
-    rows = input.reshape(-1, n)
-    tgt = target.reshape(-1, n)
+    # the row count comes from the leading axes: ``reshape(-1, 0)`` cannot
+    # infer it when the batch is empty
+    n_rows = math.prod(input.shape[:-1])
+    rows = input.reshape(n_rows, input.shape[-1])
+    tgt = target.reshape(n_rows, input.shape[-1])
     idx = _bin_index(rows, threshold)
     fused = torch.clamp(2 * idx + tgt.to(torch.int32), 0, 2 * num_t - 1)
     fused = fused + 2 * num_t * torch.arange(rows.shape[0], device=rows.device)[:, None]

@@ -300,7 +300,9 @@ class Metric(Generic[TComputeReturn], ABC):
         for name in self._state_name_to_default:
             setattr(self, name, self._place_state(getattr(self, name), target))
         for name in self._extra_device_attrs:
-            setattr(self, name, getattr(self, name).to(target))
+            value = getattr(self, name)
+            if value is not None:  # an optional tensor left unset
+                setattr(self, name, value.to(target))
         self._device = target
         return self
 
