@@ -120,6 +120,33 @@ phases, printing one JSON line for each:
    WIL and WIP over 2,620 LibriSpeech test-clean-sized utterances in
    batches of 64: counts bitwise against a Python Levenshtein DP, rates
    bitwise against their float32 quotients. K1 must not launch.
+11. ``image``: the image-eval path (BASELINE config 5), convolutions at
+   PyTorch's default precision (cuDNN TF32). ``FrechetInceptionDistance``
+   over ``FIDInceptionV3`` -- the port's InceptionV3 at full width with
+   random weights from ``--seed`` -- fed 10,000 real and 10,000 generated
+   3x32x32 images (CIFAR-10 test-set size, FID-10k: a cut from the
+   50,000-image protocol) resized to 299x299, in batches of 250, and the
+   real stream fed as both sides to a second metric (FID near 0); FID at
+   ViT-L width (1,024 features) through a fixed random ViT-L/16 patch
+   embedding, mean-pooled, over 10,000 + 10,000 224x224 images. The
+   states are held to float64 sums of the same activations within the
+   float32 summation bound, each FID to a float64 host computation of the
+   same formula within a bound derived from the eigensolvers' backward
+   error, and four images' features to a float64 forward of the same
+   module within the conv precision's tolerance (``_feature_tol``, under
+   TF32 and under float32 convs). Reported: images a second through each
+   extractor and the share of the dense peak (conv FLOPs counted from the
+   architecture) at TF32 and at float32 convs, the accumulate's device ms
+   a batch against its bound, each compute's wall and device ms with
+   ``eigh``/``eigvalsh`` split out, peak bytes. ``PeakSignalNoiseRatio``
+   (auto range and ``data_range=1.0``) and ``peak_signal_noise_ratio``
+   over 100 DIV2K-validation-sized pairs (3x1356x2040), and
+   ``MeanSquaredError`` (weighted by a valid-depth mask and not),
+   ``R2Score``, an 8-output stream (``raw_values``, ``variance_weighted``,
+   adjusted R2), ``Max``, ``Min`` and ``Cat`` over 654 NYU Depth v2 test
+   maps of 480x640, each within 1e-5 of float64 (``Cat`` bitwise against
+   a host concatenation); ``AUC(reorder=True)`` and ``auc`` over the
+   per-image PSNR. K1 must not launch.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -127,12 +154,13 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7, 9 and 10 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 11 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import importlib
 import json
 import math
@@ -152,6 +180,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torcheval_tpu_torch.distributed import LocalReplicaGroup, MultiHostGroup  # noqa: E402
 from torcheval_tpu_torch.metrics import (  # noqa: E402
+    AUC,
     BinaryAUPRC,
     BinaryAUROC,
     BinaryBinnedAUPRC,
@@ -159,10 +188,15 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     BinaryBinnedPrecisionRecallCurve,
     BinaryNormalizedEntropy,
     BLEUScore,
+    Cat,
     ClickThroughRate,
+    FrechetInceptionDistance,
     HistogramBinnedAUROC,
     HitRate,
+    Max,
     Mean,
+    MeanSquaredError,
+    Min,
     MulticlassAccuracy,
     MulticlassAUPRC,
     MulticlassAUROC,
@@ -176,7 +210,9 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     MultilabelAccuracy,
     MultilabelBinnedAUPRC,
     MultilabelBinnedPrecisionRecallCurve,
+    PeakSignalNoiseRatio,
     Perplexity,
+    R2Score,
     ReciprocalRank,
     RetrievalPrecision,
     StreamingBinaryAUPRC,
@@ -190,9 +226,11 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
 )
 from torcheval_tpu_torch.metrics import toolkit  # noqa: E402
 from torcheval_tpu_torch.metrics.functional import (  # noqa: E402
+    auc,
     bleu_score,
     frequency_at_k,
     num_collisions,
+    peak_signal_noise_ratio,
     perplexity,
     retrieval_precision,
     word_error_rate,
@@ -208,6 +246,14 @@ from torcheval_tpu_torch.metrics.functional.classification.auprc import (  # noq
 from torcheval_tpu_torch.metrics.functional.classification.auroc import (  # noqa: E402
     _multiclass_auroc_compute,
 )
+from torcheval_tpu_torch.metrics.image.fid import (  # noqa: E402
+    FIDInceptionV3,
+    _covariance,
+    _fid_accumulate,
+    _frechet_distance,
+    _resize_299,
+)
+from torcheval_tpu_torch.models.inception import FEATURE_DIM, init_inception_params  # noqa: E402
 from torcheval_tpu_torch.ops import _kernels, topk  # noqa: E402
 fa = importlib.import_module("torcheval_tpu_torch.ops.fused_auc")  # the module, not ops.fused_auc
 from torcheval_tpu_torch.ops.fused_auc import (  # noqa: E402
@@ -740,11 +786,13 @@ def _exact_oracle(scores, labels):
     return torch.where(bad, nan, auroc), torch.where(bad, nan, ap)
 
 
-def _profile(fn, device, reps=1):
+def _profile(fn, device, reps=1, ops=()):
     """Device time of one call of ``fn`` (every CUDA kernel's self time
-    in a torch.profiler trace of ``reps`` calls, over ``reps``) and its
-    five costliest kernels. A trace that shows no kernel is taken again,
-    up to ``PROFILE_ATTEMPTS`` traces in all, the last failing."""
+    in a torch.profiler trace of ``reps`` calls, over ``reps``), its five
+    costliest kernels and, in ``op_ms``, the device time under each aten
+    op named in ``ops``. A trace that shows no kernel, or no device time
+    under one of ``ops``, is taken again, up to ``PROFILE_ATTEMPTS``
+    traces in all, the last failing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -754,18 +802,24 @@ def _profile(fn, device, reps=1):
             for _ in range(reps):
                 fn()
             _sync(device)
-        kernels = []
+        kernels, op_ms = [], dict.fromkeys(ops, 0.0)
         for evt in prof.key_averages():
             if evt.device_type == DeviceType.CUDA:
                 us = getattr(evt, "self_device_time_total", None)
                 if us is None:
                     us = evt.self_cuda_time_total
                 kernels.append((us / 1e3 / reps, evt.count / reps, evt.key))
+            elif evt.key in op_ms:
+                us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+                op_ms[evt.key] += us / 1e3 / reps
         kernels.sort(reverse=True)
-        if kernels and kernels[0][0] > 0:
-            return {"device_ms": sum(k[0] for k in kernels),
-                    "top_kernels": [[k[2][:80], k[0], k[1]] for k in kernels[:5]]}
-    raise AssertionError("profiler shows no device time")
+        if kernels and kernels[0][0] > 0 and all(v > 0 for v in op_ms.values()):
+            out = {"device_ms": sum(k[0] for k in kernels),
+                   "top_kernels": [[k[2][:80], k[0], k[1]] for k in kernels[:5]]}
+            if ops:
+                out["op_ms"] = op_ms
+            return out
+    raise AssertionError(f"profiler shows no device time (ops {list(ops)})")
 
 
 def _timed_compute(metric, device):
@@ -2344,6 +2398,575 @@ def phase_lm_eval(device, vocab=LLAMA3_VOCAB, context=LLAMA3_CONTEXT,
             "perplexity": ppl, "bleu": bleu, "word_rates": words}
 
 
+# ------------------------------------------------------------- image eval
+
+CIFAR10_TEST = 10_000  # CIFAR-10 test images: FID-10k against as many generated
+CIFAR10_SIZE = 32
+FID_BATCH = 250
+VIT_L_WIDTH = 1024  # ViT-L/16 hidden width
+VIT_SIZE = 224
+VIT_PATCH = 16
+DIV2K_VALID = 100  # DIV2K validation pairs
+DIV2K_HW = (1356, 2040)  # DIV2K's 2K frame (2040 wide)
+NYU_TEST = 654  # NYU Depth v2 test split (Eigen et al.)
+NYU_HW = (480, 640)
+PSNR_NOISE = 0.05
+DEPTH_ERROR = 0.3  # metres, the depth predictions' seeded error
+INVALID_DEPTH = 0.05  # share of pixels without a depth reading
+IMAGE_TOL = 1e-5  # PSNR, regression and AUC values against float64, relative
+# Limits on the float32 FID's distance from two of ``_fid_witnesses``,
+# and on the FID of one stream fed twice, relative to tr S1 + tr S2: set
+# from the image phase's readings on an NVIDIA H100 80GB HBM3 (700 W),
+# where InceptionV3 reads 5.1e-3 and 5.6e-3 (float64 compute), 5.8e-3 and
+# 6.3e-3 (CPU float32) and 4.3e-3 (twice), and the ViT-L stand-in 2.7e-5
+# and 1.4e-5. Each limit is at least twice the largest reading, on the
+# card at full size or on the CPU at the tests' small sizes (there the
+# twice-fed stream reads 9.9e-3 and ViT-L 1.5e-4), and at least 50 times
+# under the trace.
+FID_LIMITS = {
+    "inception": {"float64_compute_of_float32_states": 2e-2, "cpu_float32": 2e-2, "twice": 2e-2},
+    "vit_l": {"float64_compute_of_float32_states": 5e-4, "cpu_float32": 5e-4},
+}
+# the longest chain of convolutions through InceptionV3 (stem 5, Mixed_5*
+# 3 each, Mixed_6a 3, Mixed_6b-e 5 each, Mixed_7a 4, Mixed_7b-c 3 each)
+INCEPTION_CONV_DEPTH = 47
+# H100 SXM dense peaks (NVIDIA data sheet): TF32 tensor cores, float32
+PEAK_FLOPS = {"tf32": 495e12, "float32": 67e12}
+# operand rounding of a convolution's products: TF32 keeps 10 mantissa
+# bits (2^-11 for each of the two operands)
+CONV_INPUT_U = {"tf32": 2.0 ** -10, "float32": 0.0}
+
+
+def _conv_precision(device):
+    cuda = torch.device(device).type == "cuda"
+    return "tf32" if cuda and torch.backends.cudnn.allow_tf32 else "float32"
+
+
+def _feature_tol(precision, depth, k_max):
+    """What pooled features may be off from a float64 forward, relative to
+    their largest magnitude: each conv rounds its operands (TF32: 2^-10 a
+    product) and sums ``k`` products in float32 (about ``sqrt(k) u``); the
+    errors of ``depth`` convs in a chain add as a random walk, and a
+    factor 10 covers the largest of the features against the typical one
+    and the layers' gains."""
+    return 10 * math.sqrt(depth) * (CONV_INPUT_U[precision] + math.sqrt(k_max) * U32)
+
+
+class _PatchEmbedMean(torch.nn.Module):
+    """ViT-L/16's patch embedding -- a 16x16 stride-16 conv from 3 to 1,024
+    channels at 224x224 -- mean-pooled over the 196 patches: a fixed random
+    stand-in for ViT-L features (no ViT-L runs)."""
+
+    def __init__(self, width, gen):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(3, width, VIT_PATCH, stride=VIT_PATCH)
+        fan_in = 3 * VIT_PATCH * VIT_PATCH
+        with torch.no_grad():
+            self.conv.weight.copy_(torch.randn(self.conv.weight.shape, generator=gen) / fan_in ** 0.5)
+            self.conv.bias.copy_(torch.randn(self.conv.bias.shape, generator=gen) * 0.02)
+
+    def forward(self, x):
+        return self.conv(x).mean(dim=(2, 3))
+
+
+_FID_STATES = ("real_sum", "real_cov_sum", "num_real_images", "fake_sum", "fake_cov_sum",
+               "num_fake_images")
+
+
+class _Tap:
+    """A forward hook on the extractor: float64 sums of every batch of
+    float32 activations it hands the metric -- the sum, A^T A, and their
+    magnitudes' (|A| sums, |A|^T |A|) for the bound -- under the current
+    ``key`` (None: not recorded)."""
+
+    def __init__(self, module):
+        self.key, self.sums, self.last = None, {}, None
+        self._handle = module.register_forward_hook(self._hook)
+
+    def _hook(self, module, inputs, output):
+        self.last = output
+        if self.key is None:
+            return
+        a = output.detach().double()
+        m = a.abs()
+        s = self.sums.setdefault(self.key, [0, 0.0, 0.0, 0.0, 0.0])
+        s[0] += a.shape[0]
+        s[1] = s[1] + a.sum(0)
+        s[2] = s[2] + a.T @ a
+        s[3] = s[3] + m.sum(0)
+        s[4] = s[4] + m.T @ m
+
+    def remove(self):
+        self._handle.remove()
+
+
+def _fid_state_check(metric, tap, keys, batch):
+    """Each float32 state against the float64 sum of the same activations:
+    a batch's delta is a float32 sum of ``batch`` products (within
+    ``(batch - 1) u`` of the sum of their magnitudes, whatever the order),
+    and each of the ``updates`` adds into the state rounds once more:
+    ``|error| <= (batch - 1 + updates) u sum|terms|``. Returns (ok, max
+    error relative to the magnitudes)."""
+    ok, worst = True, 0.0
+    for side, key in zip(("real", "fake"), keys):
+        n, s64, c64, abs_s, abs_c = tap.sums[key]
+        updates = -(-n // batch)
+        count = int(getattr(metric, f"num_{side}_images"))
+        ok &= count == n
+        for state, want, mag in ((getattr(metric, f"{side}_sum"), s64, abs_s),
+                                 (getattr(metric, f"{side}_cov_sum"), c64, abs_c)):
+            err = (state.double() - want).abs()
+            ok &= bool((err <= (batch - 1 + updates) * U32 * mag).all())
+            worst = max(worst, float((err / mag.clamp(min=1e-300)).max()))
+    return ok, worst
+
+
+def _fid_of_moments64(m1, s1, m2, s2):
+    """FID in float64 numpy from two means and covariances, by the
+    real-symmetric formula of ``_frechet_distance``; with the eigenvalues
+    of ``sqrt(S1) S2 sqrt(S1)``."""
+    w, v = np.linalg.eigh((s1 + s1.T) / 2)
+    root = (v * np.sqrt(np.clip(w, 0, None))) @ v.T
+    inner = root @ s2 @ root
+    lam = np.linalg.eigvalsh((inner + inner.T) / 2)
+    fid = (float(np.sum((m1 - m2) ** 2)) + float(np.trace(s1) + np.trace(s2))
+           - 2 * float(np.sum(np.sqrt(np.clip(lam, 0, None)))))
+    return fid, lam
+
+
+def _fid64(real, fake):
+    """FID from float64 sufficient statistics, on the host in numpy, by the
+    same real-symmetric formula; with ``tr S1 + tr S2`` and a worst-case
+    bound on the float32 value's error, reported beside the checks that
+    hold it (``FID_LIMITS``). The bound: every float32 step (the
+    covariances, sqrt(S1), the product, each eigensolver) is backward
+    stable to ``d u`` of the second moments' spectral norms, so each
+    eigenvalue of ``sqrt(S1) S2 sqrt(S1)`` moves by at most ``delta = 4 d u
+    |E1| |E2|``
+    (Weyl), and its square root by at most ``sqrt(l + delta) -
+    sqrt(l - delta)``; the traces and the mean term move by ``4 d u`` of
+    the second moments' traces. On mean-dominated features ``|E1| |E2|``
+    is huge and the bound exceeds the trace."""
+    stats = []
+    for n, s, c, _, _ in (real, fake):
+        s, c = s.cpu().numpy(), c.cpu().numpy()
+        mean = s / n
+        stats.append((mean, (c - n * np.outer(mean, mean)) / (n - 1), c / n))
+    (m1, s1, e1), (m2, s2, e2) = stats
+    d = m1.shape[0]
+    fid, lam = _fid_of_moments64(m1, s1, m2, s2)
+    mean_sq = float(np.sum((m1 - m2) ** 2))
+    trace = float(np.trace(s1) + np.trace(s2))
+    moments = float(np.trace(e1) + np.trace(e2))
+    norms = float(np.linalg.eigvalsh(e1)[-1]) * float(np.linalg.eigvalsh(e2)[-1])
+
+    def bound(c):
+        delta = c * U32 * norms
+        spread = np.sqrt(lam.clip(0) + delta) - np.sqrt(np.clip(lam - delta, 0, None))
+        return 2 * float(spread.sum()) + c * U32 * (moments + mean_sq)
+
+    # p(d) = 4 d is the worst case; LAPACK's users' guide estimates its
+    # eigensolvers' errors with p(d) = 1
+    return fid, trace, bound(4 * d), {"second_moments_over_trace": moments / trace,
+                                      "approx_bound_rel_trace": bound(4) / trace}
+
+
+def _fid_witnesses(states):
+    """The FID of the float32 ``states`` by three other routes, which place
+    the error of the float32 compute: ``float64_compute_of_float32_states``
+    (the same function in float64: what the states' rounding alone
+    costs), ``float32_covariances_float64_rest`` (the function's own
+    float32 covariances, where ``E - mu mu^T`` cancels, and the rest in
+    float64 on the host) and ``cpu_float32`` (the same float32 function
+    on the CPU, where the JAX package computes it)."""
+    real_sum, real_cov_sum, num_real, fake_sum, fake_cov_sum, num_fake = states
+    moments = (*_covariance(real_sum, real_cov_sum, num_real.to(torch.float32)),
+               *_covariance(fake_sum, fake_cov_sum, num_fake.to(torch.float32)))
+    return {
+        "float64_compute_of_float32_states": float(_frechet_distance(*(t.double() for t in states))),
+        "float32_covariances_float64_rest": _fid_of_moments64(
+            *(t.double().cpu().numpy() for t in moments))[0],
+        "cpu_float32": float(_frechet_distance(*(t.cpu() for t in states))),
+    }
+
+
+def _feature_check(extractor, forward64, images, depth, k_max, device):
+    """A few images' features against a float64 forward of the same module
+    on the same device, under the card's default conv precision and under
+    float32 convs; each within ``_feature_tol`` of its precision."""
+    with torch.no_grad():
+        want = forward64(images.double())
+    out = {}
+    for precision, allow in (("default", True), ("float32", False)):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=allow):
+            used = _conv_precision(device)
+            with torch.no_grad():
+                got = extractor(images).double()
+        err = float((got - want).abs().max() / want.abs().max())
+        tol = _feature_tol(used, depth, k_max)
+        _check(err <= tol, f"features under {used} convs off by {err} of their scale, tol {tol}")
+        out[precision] = {"conv_precision": used, "rel_err_vs_float64": err, "tol": tol}
+    return out
+
+
+def _conv_flops(module, images):
+    """FLOPs of one forward counted from the architecture: every conv's
+    2 * C_in/groups * k_h * k_w multiply-adds an output element (batch
+    norm, pooling and the resize are not counted)."""
+    flops = [0]
+
+    def hook(m, inputs, output):
+        kh, kw = m.kernel_size
+        flops[0] += 2 * output.numel() * (m.in_channels // m.groups) * kh * kw
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            module(images)
+    finally:
+        for h in handles:
+            h.remove()
+    return flops[0]
+
+
+def _extractor_rate(extractor, images, device):
+    """Images a second through the extractor (CUDA events over a batch)
+    and the share of the dense peak its conv FLOPs reach, under the
+    default conv precision and under float32 convs. Card only."""
+    if torch.device(device).type != "cuda":
+        return None
+    flops = _conv_flops(extractor, images)
+    out = {"flops_per_image": flops / images.shape[0]}
+    for precision, allow in (("default", True), ("float32", False)):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=allow):
+            used = _conv_precision(device)
+            ms = _time_ms(lambda: extractor(images), device, reps=5)
+        out[precision] = {"conv_precision": used, "batch_ms": ms,
+                          "images_per_s": images.shape[0] / ms * 1e3,
+                          "peak_share": flops / (ms * 1e-3) / PEAK_FLOPS[used]}
+    return out
+
+
+def _accumulate_timing(acts, device):
+    """Device ms of one batch's accumulate (sum, A^T A and count into the
+    states) on a scratch metric, its bound (the activations read once, the
+    states read and written once, or the float32 matmul at the dense
+    peak) and ``torch.addmm`` into the covariance as the library call.
+    Card only."""
+    if torch.device(device).type != "cuda":
+        return None
+    b, d = acts.shape
+    scratch = FrechetInceptionDistance(model=torch.nn.Identity(), feature_dim=d, device=device)
+    plan = (_fid_accumulate, ("real_sum", "real_cov_sum", "num_real_images"), (acts,), ())
+    ms = _time_ms(lambda: scratch._apply_update_plan(plan), device, reps=20)
+    cov = torch.zeros((d, d), device=device)
+    library_ms = _time_ms(lambda: torch.addmm(cov, acts.T, acts, out=cov), device, reps=20)
+    bytes_ms = (4 * b * d + 2 * 4 * (d * d + d)) / HBM_BYTES_PER_S * 1e3
+    flops_ms = 2 * b * d * d / PEAK_FLOPS["float32"] * 1e3
+    return {"device_ms": ms, "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "operations" if flops_ms > bytes_ms else "bytes",
+            "library_ms_addmm": library_ms}
+
+
+def _compute_timing(metric, device):
+    """One compute's wall ms (first and warm, from a drained queue) and,
+    on the card, its device ms by CUDA events and, from one profiler
+    trace, its device time split into ``linalg_eigh``, ``linalg_eigvalsh``
+    and the rest, with the peak bytes it allocates."""
+    _reset_peak(device)
+    value, first = _timed_compute(metric, device)
+    out = {"wall_ms_first": first * 1e3, "wall_ms_warm": _timed_compute(metric, device)[1] * 1e3,
+           "peak_bytes": _stream_peak(device)}
+    if torch.device(device).type != "cuda":
+        return value, out
+    out["event_ms"] = _time_ms(metric.compute, device, reps=3)
+    prof = _profile(metric.compute, device, ops=("aten::linalg_eigh", "aten::linalg_eigvalsh"))
+    out["profile"] = prof["device_ms"]
+    out["eigh_ms"] = prof["op_ms"]["aten::linalg_eigh"]
+    out["eigvalsh_ms"] = prof["op_ms"]["aten::linalg_eigvalsh"]
+    out["rest_ms"] = out["profile"] - out["eigh_ms"] - out["eigvalsh_ms"]
+    return value, out
+
+
+def _fid_stream(name, device, metric, extractor, make_batch, n, batch, limits, twice=False):
+    """Feed ``n`` real and ``n`` generated images in batches of ``batch``
+    (``make_batch(real, size)``) to ``metric``, and, with ``twice``, the
+    real stream as both sides to a second metric on the same extractor;
+    float64 sums of the activations ride along. Checks the states and the
+    FID values against float64 and against ``_fid_witnesses`` within
+    ``limits`` (relative to ``tr S1 + tr S2``), and returns the report."""
+    tap = _Tap(extractor)
+    other = (FrechetInceptionDistance(model=metric.model, feature_dim=metric.real_sum.numel(),
+                                      device=device) if twice else None)
+    _reset_peak(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for lo in range(0, n, batch):
+        size = min(batch, n - lo)
+        real, fake = make_batch(True, size), make_batch(False, size)
+        tap.key = "real"
+        metric.update(real, is_real=True)
+        tap.key = "fake"
+        metric.update(fake, is_real=False)
+        if other is not None:
+            tap.key = "twice_real"
+            other.update(real, is_real=True)
+            tap.key = "twice_fake"
+            other.update(real, is_real=False)
+    tap.key = None
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    stream_peak = _stream_peak(device)
+    acts = tap.last
+    tap.remove()
+    report = {"images": n, "batch": batch, "stream_seconds": seconds,
+              "stream_images_per_s": (4 if twice else 2) * n / seconds,
+              "stream_peak_bytes": stream_peak}
+    for label, m, keys in (("fid", metric, ("real", "fake")),
+                           ("twice", other, ("twice_real", "twice_fake"))):
+        if m is None:
+            continue
+        ok, state_err = _fid_state_check(m, tap, keys, batch)
+        _check(ok, f"{name} {label}: FID states off their float64 sums beyond the float32 bound")
+        fid64, trace, bound, extra = _fid64(tap.sums[keys[0]], tap.sums[keys[1]])
+        value, timing = _compute_timing(m, device)
+        fid = float(value)
+        err = abs(fid - fid64)
+        _check(math.isfinite(fid) and value.shape == (), f"{name} {label}: FID {value}")
+        _check(err <= bound, f"{name} {label}: FID {fid} vs float64 {fid64}, bound {bound}")
+        witnesses = _fid_witnesses(tuple(getattr(m, a) for a in _FID_STATES))
+        off = {k: abs(fid - v) / trace for k, v in witnesses.items()}
+        for key in ("float64_compute_of_float32_states", "cpu_float32"):
+            _check(off[key] <= limits[key], f"{name} {label}: FID {fid} vs {key} {witnesses[key]}: "
+                   f"{off[key]} of the trace, limit {limits[key]}")
+        report[label] = {"value": fid, "float64": fid64, "trace_sum": trace,
+                         "err_rel_trace": err / trace, "bound_rel_trace": bound / trace,
+                         **witnesses, "off_rel_trace": off,
+                         "states_err_rel_trace": abs(witnesses[
+                             "float64_compute_of_float32_states"] - fid64) / trace,
+                         "state_err_rel": state_err, "compute": timing, **extra}
+    _check(report["fid"]["value"] > 1e-3 * report["fid"]["trace_sum"],
+           f"{name}: the two image sets' FID {report['fid']['value']} is not far from 0")
+    if twice:
+        twice_rel = abs(report["twice"]["value"]) / report["twice"]["trace_sum"]
+        _check(twice_rel <= limits["twice"],
+               f"{name}: one stream twice, FID {twice_rel} of the trace, limit {limits['twice']}")
+    report["accumulate"] = _accumulate_timing(acts.detach().clone(), device)
+    return report
+
+
+def _image_fid(device, n, batch, size, vit_n, vit_batch, vit_size, vit_width, feature_images,
+               seed):
+    """FID on the default architecture (InceptionV3 at random seeded
+    weights behind ``FIDInceptionV3``) over CIFAR-10-sized images, and at
+    ViT-L width through a caller-supplied extractor."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    weights = init_inception_params(torch.Generator().manual_seed(seed))
+    extractor = FIDInceptionV3(weights)
+    metric = FrechetInceptionDistance(model=extractor, feature_dim=FEATURE_DIM, device=device)
+    _check(not extractor.training and not any(m.training for m in extractor.modules()),
+           "FIDInceptionV3 left training mode on")
+
+    def cifar(real, count):
+        x = torch.rand((count, 3, size, size), generator=gen, device=device)
+        return x if real else x * x  # generated: a darker, skewed distribution
+
+    report = {"conv_precision": _conv_precision(device),
+              "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+              "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    inception = _fid_stream("inception", device, metric, extractor, cifar, n, batch,
+                            FID_LIMITS["inception"], twice=True)
+    sample = cifar(True, feature_images)
+    k_max = max(m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                for m in extractor.modules() if isinstance(m, torch.nn.Conv2d))
+    model64 = copy.deepcopy(extractor.model).double()
+    inception["features"] = _feature_check(
+        extractor, lambda x: model64(_resize_299(x)), sample, INCEPTION_CONV_DEPTH, k_max, device)
+    del model64
+    inception["extractor"] = _extractor_rate(extractor, cifar(True, batch), device)
+    report["inception"] = inception
+
+    vit = _PatchEmbedMean(vit_width, torch.Generator().manual_seed(seed + 1)).to(device)
+    vit_metric = FrechetInceptionDistance(model=vit, feature_dim=vit_width, device=device)
+
+    def frames(real, count):
+        x = torch.rand((count, 3, vit_size, vit_size), generator=gen, device=device)
+        return x if real else 0.25 + 0.5 * x  # generated: a narrower range
+
+    report["vit_l"] = _fid_stream("vit_l", device, vit_metric, vit, frames, vit_n, vit_batch,
+                                  FID_LIMITS["vit_l"])
+    vit64 = copy.deepcopy(vit).double()
+    report["vit_l"]["features"] = _feature_check(
+        vit, vit64, frames(True, feature_images), 1, 3 * VIT_PATCH * VIT_PATCH, device)
+    report["vit_l"]["extractor"] = _extractor_rate(vit, frames(True, vit_batch), device)
+    return report
+
+
+def _image_psnr(device, pairs, hw, seed):
+    """PSNR at DIV2K validation scale: ``pairs`` (1, 3, H, W) targets in
+    [0, 1] and restorations with seeded N(0, PSNR_NOISE^2) noise, into
+    ``PeakSignalNoiseRatio`` with the auto range and with ``data_range=1.0``,
+    and ``peak_signal_noise_ratio`` on the last pair; each held to float64.
+    Returns the report and the per-image float64 PSNR at range 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    auto = PeakSignalNoiseRatio(device=device)
+    fixed = PeakSignalNoiseRatio(data_range=1.0, device=device)
+    timers = {}
+    sse64, n, lo, hi, per_image = 0.0, 0, math.inf, -math.inf, []
+    for _ in range(pairs):
+        target = torch.rand((1, 3) + hw, generator=gen, device=device)
+        restored = target + PSNR_NOISE * torch.randn((1, 3) + hw, generator=gen, device=device)
+        _timed_update(timers, "auto", device, lambda: auto.update(restored, target))
+        _timed_update(timers, "fixed", device, lambda: fixed.update(restored, target))
+        sse = float(((restored.double() - target.double()) ** 2).sum())
+        sse64 += sse
+        n += target.numel()
+        lo, hi = min(lo, float(target.min())), max(hi, float(target.max()))
+        per_image.append(10 * math.log10(target.numel() / sse))
+    one = float(peak_signal_noise_ratio(restored, target))
+    want_one = 10 * math.log10((float(target.max()) - float(target.min())) ** 2 / (sse / target.numel()))
+    want_auto = 10 * math.log10((hi - lo) ** 2 / (sse64 / n))
+    want_fixed = 10 * math.log10(1.0 / (sse64 / n))
+    ok, count_err, _ = _within_bound([auto.num_observations], [torch.tensor(float(n))], pairs)
+    _check(ok, f"psnr: num_observations off {n} by {count_err}")
+    errs = {"auto": _rel_err(auto.compute(), want_auto), "fixed": _rel_err(fixed.compute(), want_fixed),
+            "functional": _rel_err(one, want_one)}
+    _check(max(errs.values()) <= IMAGE_TOL, f"psnr: relative errors {errs}")
+    _check(float(auto.data_range) == hi - lo, "psnr: auto data_range is not max - min of the targets")
+    report = {"pairs": pairs, "shape": [1, 3, *hw], "auto": float(auto.compute()),
+              "fixed": float(fixed.compute()), "functional": one, "rel_err_vs_float64": errs,
+              "update_ms_median": {k: _median(v) for k, v in timers.items()}}
+    return report, per_image
+
+
+def _image_depth(device, maps, hw, outputs, seed):
+    """Regression at NYU Depth v2 test scale: ``maps`` depth maps (metres
+    in [0.5, 10), ``INVALID_DEPTH`` of the pixels without a reading) and
+    predictions off by seeded N(0, DEPTH_ERROR^2) error, flattened to
+    pixels: ``MeanSquaredError`` weighted by the valid mask and unweighted,
+    ``R2Score``; a second stream of ``outputs`` outputs (each map's pixels
+    in rows of ``outputs``) into ``MeanSquaredError`` and ``R2Score`` with
+    ``raw_values``, ``R2Score`` with ``variance_weighted`` and adjusted R2;
+    ``Max``, ``Min`` and ``Cat`` over the depth. Each held to float64 (Cat
+    bitwise to a host concatenation)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    regressors = 4
+    m = {
+        "mse_weighted": MeanSquaredError(device=device),
+        "mse": MeanSquaredError(device=device),
+        "r2": R2Score(device=device),
+        "mse_raw": MeanSquaredError(multioutput="raw_values", device=device),
+        "r2_raw": R2Score(multioutput="raw_values", device=device),
+        "r2_variance_adjusted": R2Score(multioutput="variance_weighted",
+                                        num_regressors=regressors, device=device),
+    }
+    mx, mn, cat = Max(device=device), Min(device=device), Cat(device=device)
+    z = lambda *s: torch.zeros(s, dtype=torch.float64, device=device)  # noqa: E731
+    o = {"w_sse": z(), "w": z(), "sse": z(), "y": z(), "yy": z(),
+         "col_sse": z(outputs), "col_y": z(outputs), "col_yy": z(outputs)}
+    timers, host, pixels = {}, [], hw[0] * hw[1]
+    for _ in range(maps):
+        depth = 0.5 + 9.5 * torch.rand(pixels, generator=gen, device=device)
+        valid = torch.rand(pixels, generator=gen, device=device) >= INVALID_DEPTH
+        depth = torch.where(valid, depth, torch.zeros_like(depth))
+        pred = depth + DEPTH_ERROR * torch.randn(pixels, generator=gen, device=device)
+        w = valid.to(torch.float32)
+        rows, rows_t = pred.reshape(-1, outputs), depth.reshape(-1, outputs)
+        _timed_update(timers, "mse_weighted", device,
+                      lambda: m["mse_weighted"].update(pred, depth, sample_weight=w))
+        _timed_update(timers, "mse", device, lambda: m["mse"].update(pred, depth))
+        _timed_update(timers, "r2", device, lambda: m["r2"].update(pred, depth))
+        for name in ("mse_raw", "r2_raw", "r2_variance_adjusted"):
+            _timed_update(timers, name, device, lambda k=name: m[k].update(rows, rows_t))
+        _timed_update(timers, "max", device, lambda: mx.update(depth))
+        _timed_update(timers, "min", device, lambda: mn.update(depth))
+        _timed_update(timers, "cat", device, lambda: cat.update(depth))
+        d64, p64 = depth.double(), pred.double()
+        e2 = (d64 - p64) ** 2
+        o["w_sse"] += (e2 * w.double()).sum()
+        o["w"] += w.double().sum()
+        o["sse"] += e2.sum()
+        o["y"] += d64.sum()
+        o["yy"] += (d64 * d64).sum()
+        o["col_sse"] += e2.reshape(-1, outputs).sum(0)
+        o["col_y"] += d64.reshape(-1, outputs).sum(0)
+        o["col_yy"] += (d64 * d64).reshape(-1, outputs).sum(0)
+        host.append(depth.cpu().numpy())
+    o = {k: v.cpu() for k, v in o.items()}
+    n, rows_n = float(maps * pixels), float(maps * pixels // outputs)
+    tss = o["yy"] - o["y"] ** 2 / n
+    col_tss = o["col_yy"] - o["col_y"] ** 2 / rows_n
+    col_r2 = 1 - o["col_sse"] / col_tss
+    vw = (col_r2 * col_tss).sum() / col_tss.sum()
+    want = {
+        "mse_weighted": o["w_sse"] / o["w"], "mse": o["sse"] / n, "r2": 1 - o["sse"] / tss,
+        "mse_raw": o["col_sse"] / rows_n, "r2_raw": col_r2,
+        "r2_variance_adjusted": 1 - (1 - vw) * (rows_n - 1) / (rows_n - regressors - 1),
+    }
+    values = {k: metric.compute() for k, metric in m.items()}
+    errs = {k: _rel_err(values[k], want[k]) for k in m}
+    _check(max(errs.values()) <= IMAGE_TOL, f"depth: relative errors {errs}")
+    ok, count_err, _ = _within_bound([m["r2"].num_obs, m["r2_raw"].num_obs],
+                                     [torch.tensor(n), torch.tensor(rows_n)], maps)
+    _check(ok, f"depth: R2 num_obs off by {count_err}")
+    flat = np.concatenate(host)
+    _check(float(mx.compute()) == float(flat.max()) and float(mn.compute()) == float(flat.min()),
+           "depth: Max/Min differ from the host's")
+    _check(np.array_equal(cat.compute().cpu().numpy(), flat), "depth: Cat differs from np.concatenate")
+    return {"maps": maps, "shape": list(hw), "outputs": outputs, "pixels": int(n),
+            "values": {k: (v.tolist() if v.ndim else float(v)) for k, v in values.items()},
+            "rel_err_vs_float64": errs, "num_obs_err": count_err,
+            "max": float(mx.compute()), "min": float(mn.compute()),
+            "cat_bytes": cat.inputs.numel() * cat.inputs.element_size(), "cat_bitwise": True,
+            "update_ms_median": {k: _median(v) for k, v in timers.items()}}
+
+
+def _image_auc(device, per_image, seed):
+    """``AUC(reorder=True)`` over four updates and ``auc`` once, both
+    integrating the per-image PSNR against a seeded x, held to a float64
+    trapezoid over the stable ascending order of x."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    y = torch.tensor(per_image, dtype=torch.float32, device=device)
+    x = torch.rand(y.shape, generator=gen, device=device)
+    metric = AUC(device=device)
+    for part in torch.arange(y.numel(), device=device).chunk(4):
+        metric.update(x[part], y[part])
+    xs, ys = x.double().cpu().numpy(), y.double().cpu().numpy()
+    order = np.argsort(xs, kind="stable")
+    want = float(np.sum(np.diff(xs[order]) * (ys[order][1:] + ys[order][:-1]) / 2))
+    got = {"class": float(metric.compute()[0]), "functional": float(auc(x, y, reorder=True)[0])}
+    errs = {k: _rel_err(v, want) for k, v in got.items()}
+    _check(max(errs.values()) <= IMAGE_TOL, f"auc: relative errors {errs}")
+    return {"points": y.numel(), "values": got, "float64": want, "rel_err_vs_float64": errs}
+
+
+def phase_image(device, fid_images=CIFAR10_TEST, fid_batch=FID_BATCH, cifar_size=CIFAR10_SIZE,
+                vit_images=CIFAR10_TEST, vit_batch=FID_BATCH, vit_size=VIT_SIZE,
+                vit_width=VIT_L_WIDTH, feature_images=4, psnr_pairs=DIV2K_VALID, psnr_hw=DIV2K_HW,
+                depth_maps=NYU_TEST, depth_hw=NYU_HW, depth_outputs=8, seed=10):
+    """The image-eval path (BASELINE config 5): FID on InceptionV3 at full
+    width over CIFAR-10-test-sized sets (10,000 real against 10,000
+    generated, a cut from the 50,000-image protocol), FID at ViT-L width
+    through a patch-embedding extractor, PSNR at DIV2K validation scale,
+    regression at NYU Depth v2 test scale, and the aggregation metrics on
+    those streams. Conv precision is PyTorch's default (cuDNN TF32 on a
+    card), set here through ``torch.backends.cudnn.flags``. K1 counts are
+    zeroed at the start and read at the end: none of this launches it."""
+    t0 = time.perf_counter()
+    _kernels.reset_launch_counts()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        fid = _image_fid(device, fid_images, fid_batch, cifar_size, vit_images, vit_batch,
+                         vit_size, vit_width, feature_images, seed)
+    psnr, per_image = _image_psnr(device, psnr_pairs, tuple(psnr_hw), seed + 1)
+    depth = _image_depth(device, depth_maps, tuple(depth_hw), depth_outputs, seed + 2)
+    area = _image_auc(device, per_image, seed + 3)
+    launches = _kernels.LAUNCHES["fused_auc_hist"]
+    _check(launches == 0, f"K1 launched {launches} times in image")
+    return {"phase": "image", "device": str(device), "seconds": time.perf_counter() - t0,
+            "k1_launches": launches, "fid": fid, "psnr": psnr, "depth": depth, "auc": area}
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -2596,7 +3219,6 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     built = _kernels.build_all()
@@ -2622,6 +3244,8 @@ def main(argv=None) -> int:
     _emit(recsys)
     lm_eval = phase_lm_eval(device, seed=args.seed + 9)
     _emit(lm_eval)
+    image = phase_image(device, seed=args.seed + 10)
+    _emit(image)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -2637,6 +3261,7 @@ def main(argv=None) -> int:
         "launches_counters": counters["criteo"]["k1_launches"],
         "launches_recsys": recsys["k1_launches"],
         "launches_lm_eval": lm_eval["k1_launches"],
+        "launches_image": image["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

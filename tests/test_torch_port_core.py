@@ -60,7 +60,7 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     for mod in _imported_modules(path):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "torcheval_tpu"), (path, mod)
+        assert root not in ("jax", "jaxlib", "flax", "torcheval_tpu"), (path, mod)
 
 
 def test_fused_auc_imports_without_nvcc(tmp_path):

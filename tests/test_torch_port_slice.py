@@ -184,3 +184,73 @@ def test_lm_oracle_reads_out_of_range_targets_as_jax_does():
     jm = JM.Perplexity(ignore_index=chip_smoke.IGNORE).update(x, t)
     assert kept == int(jm.num_total) == 11
     np.testing.assert_allclose(float(nll), float(jm.sum_log_probs), rtol=1e-6)
+
+
+def test_phase_image_small_on_cpu():
+    _kernels.reset_launch_counts()
+    out = chip_smoke.phase_image(
+        CPU, fid_images=16, fid_batch=8, vit_images=24, vit_batch=8, vit_size=32, vit_width=64,
+        feature_images=2, psnr_pairs=5, psnr_hw=(24, 36), depth_maps=6, depth_hw=(16, 24),
+        depth_outputs=8)
+    assert out["k1_launches"] == 0
+    fid = out["fid"]
+    assert fid["conv_precision"] == "float32"  # no TF32 off the card
+    for stream in ("inception", "vit_l"):
+        report = fid[stream]
+        assert report["fid"]["value"] > 0.1 * report["fid"]["trace_sum"]
+        assert report["fid"]["err_rel_trace"] <= report["fid"]["bound_rel_trace"]
+        assert report["fid"]["state_err_rel"] <= 1e-6
+        off = report["fid"]["off_rel_trace"]
+        assert off["cpu_float32"] == 0.0  # the "card" is the CPU here
+        limit = chip_smoke.FID_LIMITS[stream]["float64_compute_of_float32_states"]
+        assert 0.0 < off["float64_compute_of_float32_states"] <= limit
+        for check in report["features"].values():
+            assert check["rel_err_vs_float64"] <= check["tol"]
+    assert abs(fid["inception"]["twice"]["float64"]) <= 1e-6 * fid["inception"]["twice"]["trace_sum"]
+    assert max(out["psnr"]["rel_err_vs_float64"].values()) <= chip_smoke.IMAGE_TOL
+    depth = out["depth"]
+    assert depth["cat_bitwise"] and depth["pixels"] == 6 * 16 * 24
+    assert max(depth["rel_err_vs_float64"].values()) <= chip_smoke.IMAGE_TOL
+    assert len(depth["values"]["r2_raw"]) == 8 and 0.9 < depth["values"]["r2"] < 1.0
+    assert out["auc"]["points"] == 5 and max(out["auc"]["rel_err_vs_float64"].values()) <= 1e-5
+
+
+def test_fid_oracle_matches_the_jax_frechet_distance():
+    """The smoke's float64 FID (numpy, from float64 sums) against the JAX
+    package's ``_frechet_distance`` on the float32 states of the same
+    activations."""
+    from torcheval_tpu.metrics.image.fid import _frechet_distance
+
+    rng = np.random.default_rng(8)
+    sides, states = [], []
+    for shift in (0.0, 0.3):
+        a = np.abs(rng.standard_normal((300, 24)) + shift)
+        a64 = torch.from_numpy(a.astype(np.float32)).double()
+        sides.append([a.shape[0], a64.sum(0), a64.T @ a64, None, None])
+        a32 = a.astype(np.float32)
+        states += [a32.sum(0), a32.T @ a32, np.int32(a.shape[0])]
+    fid64, trace, bound, extra = chip_smoke._fid64(*sides)
+    want = float(_frechet_distance(*(jax.numpy.asarray(s) for s in states)))
+    assert abs(fid64 - want) <= 1e-4 * trace and 0 < bound < trace
+    assert 0 < extra["approx_bound_rel_trace"] * trace < bound
+    # each witness of the float32 states against the JAX package's value
+    witnesses = chip_smoke._fid_witnesses(tuple(torch.from_numpy(np.asarray(s)) for s in states))
+    for value in witnesses.values():
+        assert abs(value - want) <= 1e-4 * trace
+
+
+def test_fid_stream_limits_can_fail():
+    """The smoke's FID checks against the witnesses are live: at a limit
+    of 0 the float32 value, which the float64 compute of its own states
+    moves, is refused."""
+    gen = torch.Generator().manual_seed(3)
+    extractor = chip_smoke._PatchEmbedMean(8, torch.Generator().manual_seed(4))
+    metric = TM.FrechetInceptionDistance(model=extractor, feature_dim=8, device=CPU)
+
+    def frames(real, count):
+        x = torch.rand((count, 3, 32, 32), generator=gen)
+        return x if real else x * x
+
+    limits = {"float64_compute_of_float32_states": 0.0, "cpu_float32": 0.0}
+    with pytest.raises(AssertionError, match="float64_compute_of_float32_states"):
+        chip_smoke._fid_stream("small", CPU, metric, extractor, frames, 64, 16, limits)

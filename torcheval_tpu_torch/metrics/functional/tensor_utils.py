@@ -79,6 +79,14 @@ def riemann_integral(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return -torch.sum((x[..., 1:] - x[..., :-1]) * y[..., :-1], dim=-1)
 
 
+def xla_mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean`` as XLA compiles it: the sum times the float32
+    reciprocal of the element count (it rewrites a divide by a constant),
+    which can differ from torch's ``mean`` in the last bit."""
+    n = np.float32(x.numel())
+    return torch.sum(x) * float(np.float32(1) / n if n else np.float32(np.inf))
+
+
 def trapezoid(y: torch.Tensor, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Trapezoidal rule along ``dim``, as the JAX package writes it:
     ``sum(dx * (y[1:] + y[:-1]) / 2)``."""

@@ -74,7 +74,8 @@ def to_torch(
             arr = arr.astype(np.float32)
         elif arr.dtype == object:
             raise TypeError(f"cannot convert {type(x).__name__} to a tensor")
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        # ascontiguousarray would turn a 0-d array into shape (1,)
+        t = torch.from_numpy(arr if arr.flags.c_contiguous else np.ascontiguousarray(arr))
     return t.to(device=device, dtype=dtype)
 
 
