@@ -147,6 +147,35 @@ phases, printing one JSON line for each:
    maps of 480x640, each within 1e-5 of float64 (``Cat`` bitwise against
    a host concatenation); ``AUC(reorder=True)`` and ``auc`` over the
    per-image PSNR. K1 must not launch.
+12. ``window``: the windowed metrics over the Criteo stream of phase 2
+   (1,361 batches of 65,536), through ``toolkit.update_collection`` under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a windowed update that
+   synchronizes the host fails: ``WindowedBinaryNormalizedEntropy`` on
+   scores and on logits, ``WindowedClickThroughRate``,
+   ``WindowedWeightedCalibration`` and ``WindowedMeanSquaredError`` on
+   (score, click) (the windowed Brier score), each with the reference's
+   100-update window and a lifetime, beside their non-windowed twins; and
+   ``WindowedBinaryAUROC`` at 2^20 samples (every update wraps the ring)
+   and at 32,768 (every full batch overwrites it). Each windowed value is
+   held within 1e-5 relative of float64 (the last 100 batches' counters;
+   Mann-Whitney over the window's samples for AUROC), each ring column to
+   its batch's float64 counters within ``_float_bound``, and each lifetime
+   value bitwise to its twin. Four replicas, each fed a contiguous quarter,
+   are synced over a ``LocalReplicaGroup``: the values against float64 over
+   the union of their live columns, the states bitwise against
+   ``merge_state``. The 4-task weighted stream of 2^22 samples goes
+   through 4-task NE, CTR and calibration windows and a 4-task AUROC
+   window of 2^18 samples (held to a weighted float64 oracle). Reported:
+   update wall ms per batch beside each twin, the device time of an AUROC
+   insert and of its compute over 2^20 samples, peak bytes; then the debug
+   tier on the card (out-of-range targets for ``MulticlassAccuracy``,
+   ``MulticlassConfusionMatrix``, ``HitRate`` and ``Perplexity``, a score
+   past 1 for ``BinaryNormalizedEntropy``, an image past 1 for
+   ``FrechetInceptionDistance`` must raise under ``config.debug_validation``
+   and clean batches pass; a NaN batch must raise under
+   ``config.validate_inputs("raise")``) and the update wall ms of
+   ``MulticlassAccuracy`` and ``BinaryNormalizedEntropy`` with each knob
+   off and on, updates back to back. K1 must not launch.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -154,7 +183,7 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 11 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 12 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -178,6 +207,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from torcheval_tpu_torch import config  # noqa: E402
 from torcheval_tpu_torch.distributed import LocalReplicaGroup, MultiHostGroup  # noqa: E402
 from torcheval_tpu_torch.metrics import (  # noqa: E402
     AUC,
@@ -220,6 +250,11 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     Throughput,
     TopKMultilabelAccuracy,
     WeightedCalibration,
+    WindowedBinaryAUROC,
+    WindowedBinaryNormalizedEntropy,
+    WindowedClickThroughRate,
+    WindowedMeanSquaredError,
+    WindowedWeightedCalibration,
     WordErrorRate,
     WordInformationLost,
     WordInformationPreserved,
@@ -663,9 +698,11 @@ def phase_kernel_vs_plain(device, seed=2):
     }
 
 
-def _sync_collection(device, num_classes, exact=False):
+def _sync_collection(device, num_classes, exact=False, windowed=False):
     """The sync phases' collection; ``exact`` adds the buffered
-    ``BinaryAUROC``/``BinaryAUPRC`` over the click stream."""
+    ``BinaryAUROC``/``BinaryAUPRC`` over the click stream, ``windowed`` a
+    ``WindowedBinaryAUROC`` (which ships its filled prefix) and a
+    ``WindowedBinaryNormalizedEntropy``."""
     coll = {
         "acc": MulticlassAccuracy(device=device),
         "acc_macro": MulticlassAccuracy(average="macro", num_classes=num_classes, device=device),
@@ -677,7 +714,13 @@ def _sync_collection(device, num_classes, exact=False):
     if exact:
         coll["exact_auroc"] = BinaryAUROC(device=device)
         coll["exact_auprc"] = BinaryAUPRC(device=device)
+    if windowed:
+        coll["window_auroc"] = WindowedBinaryAUROC(max_num_samples=1 << 22, device=device)
+        coll["window_ne"] = WindowedBinaryNormalizedEntropy(device=device)
     return coll
+
+
+_WINDOWED_SYNC = ("window_auroc", "window_ne")
 
 
 _CLASSIFY_NAMES = ("acc", "acc_macro", "f1_macro")
@@ -701,7 +744,8 @@ def _feed_sync_stream(colls, device, seed, classify_n, num_classes, batch, ctr_n
     for i, start in enumerate(range(0, ctr_n, ctr_batch)):
         s, y = _clicks(gen, (min(ctr_batch, ctr_n - start),), device)
         for coll in colls(i):
-            names = [k for k in ("auroc", "auprc", "exact_auroc", "exact_auprc") if k in coll]
+            names = [k for k in ("auroc", "auprc", "exact_auroc", "exact_auprc") + _WINDOWED_SYNC
+                     if k in coll]
             toolkit.update_collection({k: coll[k] for k in names}, s, y)
         clicks += 1
     return clicks
@@ -1008,7 +1052,19 @@ def _cpu_states(state_dicts):
             for name, sd in state_dicts.items()}
 
 
+def _cpu_value(v):
+    """A computed value on the host; a windowed metric's (lifetime,
+    windowed) pair stays a tuple."""
+    return tuple(t.cpu() for t in v) if isinstance(v, tuple) else v.cpu()
+
+
+def _float_value(v):
+    return [float(t) for t in v] if isinstance(v, tuple) else float(v)
+
+
 def _same_state(a, b) -> bool:
+    if isinstance(a, tuple):
+        return isinstance(b, tuple) and len(a) == len(b) and all(map(_same_state, a, b))
     if isinstance(a, torch.Tensor):
         return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
     return type(a) is type(b) and a == b
@@ -1023,7 +1079,7 @@ def _mp_rank(rank, world, device, out_dir, sizes, seed):
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out_dir, "store"), world),
                             rank=rank, world_size=world)
     try:
-        coll = _sync_collection(device, sizes["num_classes"], exact=True)
+        coll = _sync_collection(device, sizes["num_classes"], exact=True, windowed=True)
         _kernels.reset_launch_counts()
         clicks = _feed_sync_stream(
             lambda i: (coll,) if i % world == rank else (), device, seed, sizes["classify_n"],
@@ -1047,7 +1103,7 @@ def _mp_rank(rank, world, device, out_dir, sizes, seed):
             _same_state(v, getattr(coll[name], k))
             for name, sd in before.items() for k, v in sd.items())
         torch.save({
-            "values": {k: v.cpu() for k, v in values.items()},
+            "values": {k: _cpu_value(v) for k, v in values.items()},
             "state_dicts": _cpu_states(state_dicts), "seconds": seconds,
             "launches": launches, "clicks": (clicks - rank + world - 1) // world,
             "sub_member": sub.is_member, "sub_untouched": untouched,
@@ -1061,10 +1117,12 @@ def phase_mp_sync(device, classify_n=8192, num_classes=1000, batch=1024,
     """``world`` spawned ranks, one process each, joined by gloo over a
     ``FileStore``; metric state on ``device``. Each rank feeds its share
     (batch ``i`` to rank ``i % world``) of the ``sync`` phase's stream to
-    that phase's collection plus exact ``BinaryAUROC``/``BinaryAUPRC``,
-    then syncs over a ``MultiHostGroup``. Every rank's synced values and
-    state must equal one process's stream bitwise (the loss mean within
-    1e-6); a subgroup of rank 1 must leave rank 0 untouched."""
+    that phase's collection plus exact ``BinaryAUROC``/``BinaryAUPRC`` and
+    two windowed metrics, then syncs over a ``MultiHostGroup``. Every
+    rank's synced values and state must equal one process's stream bitwise
+    (the loss mean within 1e-6), and the windowed ones a one-process
+    ``merge_state`` of per-rank metrics; a subgroup of rank 1 must leave
+    rank 0 untouched."""
     cuda = torch.device(device).type == "cuda"
     sizes = {"classify_n": classify_n, "num_classes": num_classes, "batch": batch,
              "ctr_n": ctr_n, "ctr_batch": ctr_batch}
@@ -1086,19 +1144,26 @@ def phase_mp_sync(device, classify_n=8192, num_classes=1000, batch=1024,
     expected = {name: m.compute() for name, m in single.items()}
     merged_order = {k: _sync_collection(device, num_classes, exact=True)[k]
                     for k in ("exact_auroc", "exact_auprc")}
+    per_rank = [{k: _sync_collection(device, num_classes, windowed=True)[k] for k in _WINDOWED_SYNC}
+                for _ in range(world)]
     for owner in range(world):
-        _feed_sync_stream(lambda i: (merged_order,) if i % world == owner else (), device,
-                          seed, classify_n, num_classes, batch, ctr_n, ctr_batch)
+        _feed_sync_stream(lambda i: (merged_order, per_rank[owner]) if i % world == owner else (),
+                          device, seed, classify_n, num_classes, batch, ctr_n, ctr_batch)
+    windowed = per_rank[0]
+    for k in _WINDOWED_SYNC:
+        windowed[k].merge_state([ranked[k] for ranked in per_rank[1:]])
+        expected[k] = windowed[k].compute()
     states = _cpu_states({name: m.state_dict() for name, m in single.items()})
     states.update(_cpu_states({k: m.state_dict() for k, m in merged_order.items()}))
+    states.update(_cpu_states({k: m.state_dict() for k, m in windowed.items()}))
     loss_err = 0.0
     for r, got in enumerate(ranks):
         for name, value in got["values"].items():
-            want = expected[name].cpu()
+            want = _cpu_value(expected[name])
             if name == "loss":
                 loss_err = max(loss_err, float((value - want).abs()))
             else:
-                _check(torch.equal(value, want), f"rank {r}: synced {name} != single stream")
+                _check(_same_state(value, want), f"rank {r}: synced {name} != single stream")
             for k, v in got["state_dicts"][name].items():
                 _check(name == "loss" or _same_state(v, states[name][k]),
                        f"rank {r}: synced state {name}.{k} != single stream")
@@ -1112,8 +1177,9 @@ def phase_mp_sync(device, classify_n=8192, num_classes=1000, batch=1024,
     return {
         "phase": "mp_sync", "device": str(device), "world": world, "backend": "gloo",
         "classify_samples": classify_n, "ctr_samples": ctr_n,
-        "values": {k: float(v) for k, v in ranks[0]["values"].items()},
+        "values": {k: _float_value(v) for k, v in ranks[0]["values"].items()},
         "bitwise": sorted(k for k in expected if k != "loss"), "loss_abs_err": loss_err,
+        "windowed_vs": "one-process merge_state of per-rank metrics",
         "sync_seconds": seconds, "sync_seconds_runs": [got["seconds"] for got in ranks],
         "k1_launches": [got["launches"] for got in ranks], "spawn_seconds": spawn_seconds,
     }
@@ -2967,6 +3033,457 @@ def phase_image(device, fid_images=CIFAR10_TEST, fid_batch=FID_BATCH, cifar_size
             "k1_launches": launches, "fid": fid, "psnr": psnr, "depth": depth, "auc": area}
 
 
+# ------------------------------------------------------------------ windows
+
+WINDOW_UPDATES = 100  # the reference's max_num_updates default
+WINDOW_TOL = 1e-5  # windowed values against float64, relative
+# NE, NE on logits, CTR, calibration and the Brier score: the counter
+# windows and their non-windowed twins, by name
+_WINDOW_TWINS = (("ne", "BinaryNormalizedEntropy"), ("ne_logits", "BinaryNormalizedEntropy"),
+                 ("ctr", "ClickThroughRate"), ("calibration", "WeightedCalibration"),
+                 ("brier", "MeanSquaredError"))
+# per-batch float64 counters: ce, ce on logits, clicks, samples, scores, squared errors
+_W_CE, _W_CE_LOGITS, _W_POS, _W_N, _W_S, _W_SQ = range(6)
+
+
+def _counter_windows(device, window, lifetime=True, tasks=1):
+    kw = dict(num_tasks=tasks, max_num_updates=window, enable_lifetime=lifetime, device=device)
+    out = {"ne": WindowedBinaryNormalizedEntropy(**kw),
+           "ctr": WindowedClickThroughRate(**kw),
+           "calibration": WindowedWeightedCalibration(**kw)}
+    if tasks == 1:
+        out["ne_logits"] = WindowedBinaryNormalizedEntropy(from_logits=True, **kw)
+        out["brier"] = WindowedMeanSquaredError(**kw)
+    return out
+
+
+def _window_updates(colls, x, s, y):
+    """Each collection's members, through ``toolkit.update_collection``
+    on the arguments their class takes: (scores, clicks), (logits,
+    clicks) or clicks alone."""
+    for coll in colls:
+        on_scores = {k: m for k, m in coll.items() if k not in ("ne_logits", "ctr")}
+        toolkit.update_collection(on_scores, s, y)
+        if "ne_logits" in coll:
+            toolkit.update_collection({"ne_logits": coll["ne_logits"]}, x, y)
+        if "ctr" in coll:
+            toolkit.update_collection({"ctr": coll["ctr"]}, y)
+
+
+def _batch_counters(x, s, y):
+    """float64 counters of one batch, in ``_W_*`` order."""
+    return torch.stack([_ce64(s, y, False).sum(), _ce64(x, y, True).sum(), y.double().sum(),
+                        torch.full((), float(y.numel()), dtype=torch.float64, device=y.device),
+                        s.double().sum(), (s.double() - y.double()).square().sum()])
+
+
+def _window_values64(c):
+    """float64 NE (scores, logits), CTR, calibration and Brier of summed
+    counters ``c`` (``_W_*`` order)."""
+    n, pos = c[_W_N], c[_W_POS]
+    h = _entropy64(pos, n)
+    return {"ne": c[_W_CE] / n / h, "ne_logits": c[_W_CE_LOGITS] / n / h, "ctr": pos / n,
+            "calibration": c[_W_S] / pos, "brier": c[_W_SQ] / n}
+
+
+def _rings_vs_counters(windows, counters, updates, batch):
+    """Every ring column against the float64 counters of the batch it
+    holds (column ``i % window`` holds batch ``i``), within
+    ``_float_bound``; the window covers the last ``window`` batches."""
+    window = windows["ne"].max_num_updates
+    first = max(0, updates - window)
+    cols = torch.arange(first, updates) % window
+    c = counters[first:updates].T.cpu()  # (6, live columns)
+    pairs = [("ne", "total_entropy", _W_CE), ("ne", "num_examples", _W_N),
+             ("ne", "num_positive", _W_POS), ("ne_logits", "total_entropy", _W_CE_LOGITS),
+             ("ctr", "click_total", _W_POS), ("ctr", "weight_total", _W_N),
+             ("calibration", "weighted_input_sum", _W_S),
+             ("calibration", "weighted_target_sum", _W_POS),
+             ("brier", "sum_squared_error", _W_SQ), ("brier", "sum_weight", _W_N)]
+    states = [getattr(windows[k], f"windowed_{name}")[0, cols.to(windows[k].device)]
+              for k, name, _ in pairs]
+    return _float_bound(states, [c[i] for _, _, i in pairs], batch, 1)
+
+
+def _weighted_auroc64(scores, labels, weights):
+    """float64 exact AUROC of each row of (R, n) weighted samples, apart
+    from the metrics' cumsum/trapezoid chain: each tie group's positive
+    weight times the negative weight below it plus half its own, over the
+    product of the row's positive and negative weights."""
+    rows, n = scores.shape
+    s, order = torch.sort(scores, dim=-1)
+    y = torch.gather(labels.double(), 1, order)
+    w = torch.gather(weights.double(), 1, order)
+    new = torch.ones_like(s, dtype=torch.bool)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    new = new.reshape(-1)
+    gid = torch.cumsum(new, 0) - 1
+    groups = int(gid[-1]) + 1
+    gp = torch.zeros(groups, dtype=torch.float64, device=s.device).index_add_(
+        0, gid, (w * y).reshape(-1))
+    gn = torch.zeros(groups, dtype=torch.float64, device=s.device).index_add_(
+        0, gid, (w * (1 - y)).reshape(-1))
+    row = torch.arange(rows, device=s.device).repeat_interleave(n)[new]
+    first_gid = gid[torch.arange(rows, device=s.device) * n]
+    below = torch.cumsum(gn, 0) - gn
+    below = below - below[first_gid][row]
+    num = torch.zeros(rows, dtype=torch.float64, device=s.device).index_add_(
+        0, row, gp * (below + gn / 2))
+    wpos = (w * y).sum(-1)
+    wneg = (w * (1 - y)).sum(-1)
+    return num / (wpos * wneg)
+
+
+def _tail(batches, k):
+    """The last ``k`` samples of a list of (tasks, n) batches."""
+    return torch.cat(batches, dim=-1)[..., -k:]
+
+
+def _keep_tail(batches, k):
+    """Drop the oldest batches that the last ``k`` samples do not reach."""
+    while len(batches) > 1 and sum(b.shape[-1] for b in batches[1:]) >= k:
+        batches.pop(0)
+
+
+def _window_stream(device, n, batch, window, wrap_cap, over_cap, world, seed):
+    """The Criteo stream through the counter windows, two AUROC windows,
+    their non-windowed twins and ``world`` replicas of the windows, each
+    fed a contiguous share of the batches. The windowed updates run under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host synchronization
+    in them raises."""
+    cuda = torch.device(device).type == "cuda"
+    windows = _counter_windows(device, window)
+    windows["auroc_wrap"] = WindowedBinaryAUROC(max_num_samples=wrap_cap, device=device)
+    windows["auroc_over"] = WindowedBinaryAUROC(max_num_samples=over_cap, device=device)
+    twins = {"ne": BinaryNormalizedEntropy(device=device),
+             "ne_logits": BinaryNormalizedEntropy(from_logits=True, device=device),
+             "ctr": ClickThroughRate(device=device),
+             "calibration": WeightedCalibration(device=device),
+             "brier": MeanSquaredError(device=device)}
+    replicas = []
+    for _ in range(world):
+        rep = _counter_windows(device, window)
+        rep["auroc_wrap"] = WindowedBinaryAUROC(max_num_samples=wrap_cap, device=device)
+        replicas.append(rep)
+    updates = -(-n // batch)
+    owner = [i * world // updates for i in range(updates)]
+    counters = torch.zeros((updates, 6), dtype=torch.float64, device=device)
+    recent_s, recent_y, replica_tail = [], [], [None] * world
+    mine_s, mine_y = [], []  # the current replica's latest samples
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cuda:  # the debug mode must catch a readback here, or its silence proves nothing
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bool(counters.sum() > 0)
+            caught = False
+        except RuntimeError:
+            caught = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _check(caught, "sync debug mode let a readback through")
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    for i, start in enumerate(range(0, n, batch)):
+        x, s, y = _click_logits(gen, (min(batch, n - start),), device)
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            _window_updates((windows, replicas[owner[i]]), x, s, y)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        _window_updates((twins,), x, s, y)
+        counters[i] = _batch_counters(x, s, y)
+        for kept, v in ((recent_s, s), (recent_y, y), (mine_s, s), (mine_y, y)):
+            kept.append(v[None])
+            _keep_tail(kept, wrap_cap)
+        if i + 1 == updates or owner[i + 1] != owner[i]:
+            replica_tail[owner[i]] = (_tail(mine_s, wrap_cap), _tail(mine_y, wrap_cap))
+            mine_s, mine_y = [], []
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    return {"windows": windows, "twins": twins, "replicas": replicas, "owner": owner,
+            "counters": counters, "updates": updates, "seconds": seconds,
+            "peak_bytes": _stream_peak(device), "tail": (_tail(recent_s, wrap_cap),
+                                                         _tail(recent_y, wrap_cap)),
+            "replica_tail": replica_tail}
+
+
+def _window_checks(st, batch, window, wrap_cap, over_cap):
+    """The stream's windowed values against float64 oracles, the rings
+    against their batches' counters and the lifetimes against their twins."""
+    windows, twins, counters, updates = st["windows"], st["twins"], st["counters"], st["updates"]
+    live = counters[max(0, updates - window):updates].sum(0).cpu()
+    want = _window_values64(live)
+    lifetime_want = _window_values64(counters.sum(0).cpu())
+    values, err, lifetime_err, lifetime_bitwise = {}, {}, {}, {}
+    for name, _ in _WINDOW_TWINS:
+        lifetime, windowed = windows[name].compute()
+        values[name] = float(windowed)
+        err[name] = _rel_err(windowed, want[name])
+        lifetime_err[name] = _rel_err(lifetime, lifetime_want[name])
+        twin = twins[name].compute()
+        lifetime_bitwise[name] = bool(torch.equal(lifetime.reshape(twin.shape), twin))
+        _check(lifetime_bitwise[name], f"lifetime {name} {lifetime} != its twin {twin}")
+    ok, ring_rel = _rings_vs_counters(windows, counters, updates, batch)
+    _check(ok, f"ring columns past their float32 bound (max relative error {ring_rel})")
+    s, y = st["tail"]
+    for name, cap in (("auroc_wrap", wrap_cap), ("auroc_over", over_cap)):
+        got = windows[name].compute()
+        oracle = _exact_oracle(s[:, -cap:], y[:, -cap:])[0][0]
+        values[name] = float(got)
+        err[name] = _rel_err(got, oracle)
+    _check(max(err.values()) <= WINDOW_TOL, f"windowed values off float64 by {err}")
+    _check(max(lifetime_err.values()) <= WINDOW_TOL, f"lifetime values off float64 by {lifetime_err}")
+    return {"values": values, "value_rel_err_vs_float64": err,
+            "lifetime_rel_err_vs_float64": lifetime_err, "lifetime_bitwise_vs_twin": lifetime_bitwise,
+            "ring_column_max_rel_err": ring_rel}
+
+
+def _window_replica_sync(st, device, window, wrap_cap):
+    """``sync_and_compute`` over the replicas on a ``LocalReplicaGroup``:
+    the values against float64 over the union of the replicas' live
+    columns (and live samples), the states bitwise against ``merge_state``
+    on the same metrics."""
+    replicas, counters, owner = st["replicas"], st["counters"], st["owner"]
+    world = len(replicas)
+    group = LocalReplicaGroup([torch.device(device)] * world)
+    t0 = time.perf_counter()
+    values = toolkit.sync_and_compute_collection(replicas, group)
+    _sync(device)
+    sync_seconds = time.perf_counter() - t0
+    synced = toolkit.get_synced_metric_collection(replicas, group)
+    live = torch.zeros(6, dtype=torch.float64)
+    for r in range(world):
+        mine = [i for i, o in enumerate(owner) if o == r][-window:]
+        live += counters[mine].sum(0).cpu()
+    want = _window_values64(live)
+    scores = torch.cat([t[0] for t in st["replica_tail"]], dim=-1)
+    labels = torch.cat([t[1] for t in st["replica_tail"]], dim=-1)
+    want["auroc_wrap"] = _exact_oracle(scores, labels)[0][0]
+    err, states_bitwise = {}, True
+    for name, m in synced.items():
+        merged = copy.deepcopy(replicas[0][name]).merge_state([rep[name] for rep in replicas[1:]])
+        for k, v in merged.state_dict().items():
+            states_bitwise &= _same_state(m.state_dict()[k], v)
+        value = values[name][1] if isinstance(values[name], tuple) else values[name]
+        err[name] = _rel_err(value, want[name])
+    _check(states_bitwise, "synced window states != merge_state of the replicas")
+    _check(max(err.values()) <= WINDOW_TOL, f"synced windows off float64 by {err}")
+    return {"world": world, "value_rel_err_vs_float64": err, "states_bitwise_vs_merge": True,
+            "sync_seconds": sync_seconds,
+            "merged_columns": synced["ne"].windowed_total_entropy.shape[1],
+            "merged_samples": synced["auroc_wrap"].inputs.shape[1]}
+
+
+def _window_tasks(device, mt_samples, num_tasks, batch, window, cap, seed):
+    """The 4-task weighted stream through the NE, CTR and calibration
+    windows and a 4-task AUROC window, against float64."""
+    windows = _counter_windows(device, window, tasks=num_tasks)
+    auroc = WindowedBinaryAUROC(num_tasks=num_tasks, max_num_samples=cap, device=device)
+    mt_batch = min(batch, mt_samples)
+    om = {k: torch.zeros(num_tasks, dtype=torch.float64, device=device)
+          for k in ("ce", "wy", "w", "ws")}
+    seen = ([], [], [])  # the latest scores, labels and weights
+    gen = torch.Generator(device=device).manual_seed(seed)
+    updates = 0
+    for _ in range(0, mt_samples, mt_batch):
+        _, s, y = _click_logits(gen, (num_tasks, mt_batch), device)
+        w = torch.rand((num_tasks, mt_batch), generator=gen, device=device)
+        windows["ne"].update(s, y, weight=w)
+        windows["ctr"].update(y, w)
+        windows["calibration"].update(s, y, w)
+        auroc.update(s, y, w)
+        updates += 1
+        if updates > mt_samples // mt_batch - window:  # the window's batches
+            w64 = w.double()
+            om["ce"] += (w64 * _ce64(s, y, False)).sum(-1)
+            om["wy"] += (w64 * y.double()).sum(-1)
+            om["w"] += w64.sum(-1)
+            om["ws"] += (w64 * s.double()).sum(-1)
+        for kept, v in zip(seen, (s, y, w)):
+            kept.append(v)
+            _keep_tail(kept, cap)
+    om = {k: v.cpu() for k, v in om.items()}
+    want = {"ne": om["ce"] / om["w"] / _entropy64(om["wy"], om["w"]),
+            "ctr": om["wy"] / om["w"], "calibration": om["ws"] / om["wy"]}
+    err = {k: _rel_err(windows[k].compute()[1], v) for k, v in want.items()}
+    s, y, w = (_tail(kept, cap) for kept in seen)
+    err["auroc"] = _rel_err(auroc.compute(), _weighted_auroc64(s, y, w))
+    _check(max(err.values()) <= WINDOW_TOL, f"4-task windows off float64 by {err}")
+    return {"num_tasks": num_tasks, "samples_per_task": mt_samples, "updates": updates,
+            "auroc_capacity": cap, "value_rel_err_vs_float64": err}
+
+
+def _update_ms(make, args, device, reps):
+    """Median wall ms of ``reps`` updates of a fresh ``make()`` on
+    ``args``, each from a drained queue."""
+    m, timers = make(), {}
+    m.update(*args)  # first call apart
+    for _ in range(reps):
+        _timed_update(timers, "u", device, lambda: m.update(*args))
+    return _median(timers["u"])
+
+
+def _pipelined_ms(make, args, device, reps):
+    """Wall ms an update over ``reps`` back-to-back updates of a fresh
+    ``make()`` with one synchronize at the end, as an eval loop enqueues
+    them: a readback inside an update stalls the host until the card has
+    caught up, which a drained queue would hide."""
+    m = make()
+    m.update(*args)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        m.update(*args)
+    _sync(device)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _window_timing(device, batch, window, wrap_cap, over_cap, reps, seed):
+    """Update wall ms per Criteo batch of each windowed class beside its
+    twin, and the device time of a ``WindowedBinaryAUROC`` insert and of
+    its compute over ``wrap_cap`` samples."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x, s, y = _click_logits(gen, (batch,), device)
+    make = {
+        "ne": (lambda: WindowedBinaryNormalizedEntropy(max_num_updates=window, device=device),
+               lambda: BinaryNormalizedEntropy(device=device), (s, y)),
+        "ne_logits": (lambda: WindowedBinaryNormalizedEntropy(
+            from_logits=True, max_num_updates=window, device=device),
+            lambda: BinaryNormalizedEntropy(from_logits=True, device=device), (x, y)),
+        "ctr": (lambda: WindowedClickThroughRate(max_num_updates=window, device=device),
+                lambda: ClickThroughRate(device=device), (y,)),
+        "calibration": (lambda: WindowedWeightedCalibration(max_num_updates=window, device=device),
+                        lambda: WeightedCalibration(device=device), (s, y)),
+        "brier": (lambda: WindowedMeanSquaredError(max_num_updates=window, device=device),
+                  lambda: MeanSquaredError(device=device), (s, y)),
+        "auroc_wrap": (lambda: WindowedBinaryAUROC(max_num_samples=wrap_cap, device=device),
+                       None, (s, y)),
+        "auroc_over": (lambda: WindowedBinaryAUROC(max_num_samples=over_cap, device=device),
+                       None, (s, y)),
+    }
+    update_ms = {}
+    for name, (windowed, twin, args) in make.items():
+        update_ms[name] = {"windowed": _update_ms(windowed, args, device, reps),
+                           "twin": None if twin is None else _update_ms(twin, args, device, reps)}
+    report = {"update_ms_median": update_ms, "reps": reps}
+    if torch.device(device).type == "cuda":
+        full = WindowedBinaryAUROC(max_num_samples=wrap_cap, device=device)
+        while full.total_samples < wrap_cap:
+            full.update(s, y)
+        report["auroc_insert"] = _profile(lambda: full.update(s, y), device, reps=10)
+        report["auroc_compute"] = _profile(full.compute, device, reps=3)
+        report["auroc_compute_samples"] = wrap_cap
+    return report
+
+
+def _debug_tier(device, num_classes, batch, ctr_batch, vocab, tokens, fid_images, reps, seed):
+    """Under ``config.debug_validation()`` each ported value check raises
+    on a planted bad batch on ``device`` and passes a clean one; under
+    ``config.validate_inputs("raise")`` a NaN batch raises. Then the price
+    of the readbacks: update wall ms with the knobs off and on, updates
+    back to back."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    logits, labels = _classify_batch(gen, batch, num_classes, device)
+    bad_labels = labels.clone()
+    bad_labels[batch // 2] = num_classes
+    _, s, y = _click_logits(gen, (ctr_batch,), device)
+    bad_s = s.clone()
+    bad_s[ctr_batch // 3] = 1.5
+    nan_s = s.clone()
+    nan_s[ctr_batch // 4] = float("nan")
+    ppl_x = torch.randn((1, tokens, vocab), generator=gen, device=device)
+    ppl_t = torch.randint(0, vocab, (1, tokens), generator=gen, device=device)
+    bad_t = ppl_t.clone()
+    bad_t[0, tokens // 2] = vocab
+    images = torch.rand((fid_images, 3, 32, 32), generator=gen, device=device)
+    bad_images = images.clone()
+    bad_images[0, 1, 2, 3] = 1.5
+    extractor = FIDInceptionV3(weights=init_inception_params(torch.Generator().manual_seed(seed)))
+    cases = {
+        "MulticlassAccuracy": (lambda t: MulticlassAccuracy(
+            num_classes=num_classes, average="macro", device=device).update(logits, t),
+            labels, bad_labels),
+        "MulticlassConfusionMatrix": (lambda t: MulticlassConfusionMatrix(
+            num_classes, device=device).update(logits, t), labels, bad_labels),
+        "HitRate": (lambda t: HitRate(k=10, device=device).update(logits, t), labels, bad_labels),
+        "Perplexity": (lambda t: Perplexity(ignore_index=IGNORE, device=device).update(ppl_x, t),
+                       ppl_t, bad_t),
+        "BinaryNormalizedEntropy": (lambda v: BinaryNormalizedEntropy(device=device).update(v, y),
+                                    s, bad_s),
+        "FrechetInceptionDistance": (lambda v: FrechetInceptionDistance(
+            model=extractor, device=device).update(v, True), images, bad_images),
+    }
+    raised = {}
+    with config.debug_validation():
+        for name, (fn, clean, bad) in cases.items():
+            fn(clean)
+            try:
+                fn(bad)
+                raised[name] = False
+            except ValueError:
+                raised[name] = True
+    _check(all(raised.values()), f"debug tier did not raise on the card: {raised}")
+    with config.validate_inputs("raise"):
+        BinaryNormalizedEntropy(device=device).update(s, y)
+        WindowedBinaryNormalizedEntropy(device=device).update(s, y)
+        for make in (BinaryNormalizedEntropy, WindowedBinaryNormalizedEntropy):
+            try:
+                make(device=device).update(nan_s, y)
+                raised[f"nan_{make.__name__}"] = False
+            except ValueError:
+                raised[f"nan_{make.__name__}"] = True
+    _check(all(raised.values()), f"validate_inputs did not raise on the card: {raised}")
+    knobs = {"off": lambda: config.debug_validation(False),
+             "debug_validation": config.debug_validation,
+             "validate_inputs_raise": lambda: config.validate_inputs("raise")}
+    makes = {"MulticlassAccuracy": (lambda: MulticlassAccuracy(
+                 num_classes=num_classes, average="macro", device=device), (logits, labels)),
+             "BinaryNormalizedEntropy": (lambda: BinaryNormalizedEntropy(device=device), (s, y))}
+    # each knob twice, in the order A B C C B A: a drift over the
+    # measurement falls on every knob alike
+    price = {knob: {name: [] for name in makes} for knob in knobs}
+    for knob in list(knobs) + list(knobs)[::-1]:
+        with knobs[knob]():
+            for name, (make, args) in makes.items():
+                price[knob][name].append(_pipelined_ms(make, args, device, reps))
+    return {"raised": raised, "update_ms_pipelined": price, "reps": reps,
+            "shapes": {"MulticlassAccuracy": [batch, num_classes],
+                       "BinaryNormalizedEntropy": [ctr_batch],
+                       "Perplexity": [1, tokens, vocab], "FrechetInceptionDistance": [
+                           fid_images, 3, 32, 32]}}
+
+
+def phase_window(device, n=CRITEO_EVAL, batch=CTR_BATCH, window=WINDOW_UPDATES, wrap_cap=1 << 20,
+                 over_cap=32768, world=4, mt_samples=1 << 22, num_tasks=4, mt_cap=1 << 18,
+                 num_classes=1000, cls_batch=1024, vocab=LLAMA3_VOCAB, tokens=1024,
+                 fid_images=2, reps=30, seed=12):
+    """The windowed metrics at Criteo 1TB scale (see the module
+    docstring), the debug tier on the card and the price of its
+    readbacks. K1 counts are zeroed at the start and read at the end:
+    none of this launches it."""
+    t0 = time.perf_counter()
+    _kernels.reset_launch_counts()
+    st = _window_stream(device, n, batch, window, wrap_cap, over_cap, world, seed)
+    checks = _window_checks(st, batch, window, wrap_cap, over_cap)
+    sync = _window_replica_sync(st, device, window, wrap_cap)
+    stream_seconds, stream_peak = st["seconds"], st["peak_bytes"]
+    del st
+    tasks = _window_tasks(device, mt_samples, num_tasks, batch, window, mt_cap, seed + 1)
+    timing = _window_timing(device, batch, window, wrap_cap, over_cap, reps, seed + 2)
+    debug = _debug_tier(device, num_classes, cls_batch, batch, vocab, tokens, fid_images, reps,
+                        seed + 3)
+    launches = _kernels.LAUNCHES["fused_auc_hist"]
+    _check(launches == 0, f"K1 launched {launches} times in window")
+    return {"phase": "window", "device": str(device), "seconds": time.perf_counter() - t0,
+            "k1_launches": launches, "samples": n, "batch": batch, "window_updates": window,
+            "auroc_capacity": {"wrap": wrap_cap, "over": over_cap},
+            "stream_seconds": stream_seconds, "stream_peak_bytes": stream_peak,
+            "criteo": checks, "replica_sync": sync, "tasks": tasks, "timing": timing,
+            "debug_tier": debug}
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -3246,6 +3763,8 @@ def main(argv=None) -> int:
     _emit(lm_eval)
     image = phase_image(device, seed=args.seed + 10)
     _emit(image)
+    window = phase_window(device, seed=args.seed + 11)
+    _emit(window)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -3262,6 +3781,7 @@ def main(argv=None) -> int:
         "launches_recsys": recsys["k1_launches"],
         "launches_lm_eval": lm_eval["k1_launches"],
         "launches_image": image["k1_launches"],
+        "launches_window": window["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

@@ -194,6 +194,31 @@ def test_max_min_match_jax_bitwise(name, dtype):
     _same(tm.compute(), jm.compute())
 
 
+_EMPTY = np.zeros((0,), np.float32)
+_EMPTY_CALLS = {
+    "Max": (lambda: TM.Max(device=CPU).update(_EMPTY), lambda: JM.Max().update(_EMPTY)),
+    "Min": (lambda: TM.Min(device=CPU).update(_EMPTY), lambda: JM.Min().update(_EMPTY)),
+    "PeakSignalNoiseRatio": (
+        lambda: TM.PeakSignalNoiseRatio(device=CPU).update(_EMPTY, _EMPTY),
+        lambda: JM.PeakSignalNoiseRatio().update(_EMPTY, _EMPTY)),
+    "peak_signal_noise_ratio": (
+        lambda: TF.peak_signal_noise_ratio(_EMPTY, _EMPTY, device=CPU),
+        lambda: JF.peak_signal_noise_ratio(_EMPTY, _EMPTY)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_EMPTY_CALLS))
+def test_empty_input_raises_like_jax(name):
+    """An empty input has no max or min: ValueError, with numpy's message,
+    in both packages (torch's own reductions raise RuntimeError)."""
+    ours, theirs = _EMPTY_CALLS[name]
+    with pytest.raises(ValueError) as jerr:
+        theirs()
+    with pytest.raises(ValueError) as terr:
+        ours()
+    assert str(terr.value) == str(jerr.value)
+
+
 @pytest.mark.parametrize("name", ["Max", "Min"])
 def test_max_min_before_an_update_match_jax(name):
     _same(getattr(TM, name)(device=CPU).compute(), getattr(JM, name)().compute())
@@ -203,7 +228,7 @@ def test_max_min_before_an_update_match_jax(name):
 def test_max_min_reject_empty_input_like_jax(name):
     with pytest.raises(ValueError):
         getattr(JM, name)().update(np.zeros(0, np.float32))
-    with pytest.raises(RuntimeError):
+    with pytest.raises(ValueError):
         getattr(TM, name)(device=CPU).update(torch.zeros(0))
 
 

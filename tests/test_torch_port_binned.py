@@ -398,7 +398,7 @@ def test_histogram_auroc_equals_dense_counters_at_a_million_bins():
 
 
 def test_histogram_auroc_shard_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item A6"):
         TM.HistogramBinnedAUROC(threshold=4, device=CPU, shard=object())
 
 

@@ -392,5 +392,5 @@ def test_classes_default_to_cuda(make):
 
 
 def test_sharded_confusion_matrix_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item A6"):
         TM.MulticlassConfusionMatrix(3, device=CPU, shard=object())

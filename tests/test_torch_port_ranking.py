@@ -508,7 +508,7 @@ def test_calibration_rows_drop_out_of_range_ids():
 
 
 def test_sharded_calibration_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item A6"):
         TM.WeightedCalibration(num_tasks=4, device=CPU, shard=object())
 
 

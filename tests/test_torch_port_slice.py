@@ -254,3 +254,39 @@ def test_fid_stream_limits_can_fail():
     limits = {"float64_compute_of_float32_states": 0.0, "cpu_float32": 0.0}
     with pytest.raises(AssertionError, match="float64_compute_of_float32_states"):
         chip_smoke._fid_stream("small", CPU, metric, extractor, frames, 64, 16, limits)
+
+
+def test_phase_window_small_on_cpu():
+    """The window phase at a small size: every check of the card run
+    passes (values within WINDOW_TOL of float64, lifetimes bitwise to
+    their twins, the replica sync equal to merge_state) and K1 stays
+    idle."""
+    out = chip_smoke.phase_window(
+        CPU, n=60_000, batch=4096, window=5, wrap_cap=8192, over_cap=2048, world=4,
+        mt_samples=1 << 12, num_tasks=4, mt_cap=1 << 10, num_classes=20, cls_batch=64,
+        vocab=100, tokens=16, fid_images=1, reps=2)
+    assert out["k1_launches"] == 0
+    criteo = out["criteo"]
+    assert max(criteo["value_rel_err_vs_float64"].values()) <= chip_smoke.WINDOW_TOL
+    assert all(criteo["lifetime_bitwise_vs_twin"].values())
+    sync = out["replica_sync"]
+    assert sync["states_bitwise_vs_merge"] and sync["merged_samples"] == 4 * 8192
+    assert max(out["tasks"]["value_rel_err_vs_float64"].values()) <= chip_smoke.WINDOW_TOL
+    assert all(out["debug_tier"]["raised"].values()) and len(out["debug_tier"]["raised"]) == 8
+
+
+def test_window_oracles_match_the_jax_metrics():
+    """The smoke's float64 AUROC oracles agree with the JAX package's
+    exact AUROC on weighted and tied samples."""
+    rng = np.random.default_rng(4)
+    s = np.round(rng.random((3, 400)), 2).astype(np.float32)
+    y = (rng.random((3, 400)) < 0.4).astype(np.float32)
+    w = rng.random((3, 400)).astype(np.float32)
+    want = np.asarray(JM.BinaryAUROC(num_tasks=3).update(s, y, weight=w).compute())
+    got = chip_smoke._weighted_auroc64(torch.from_numpy(s), torch.from_numpy(y),
+                                       torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    ones = torch.ones(3, 400)
+    np.testing.assert_allclose(
+        chip_smoke._weighted_auroc64(torch.from_numpy(s), torch.from_numpy(y), ones).numpy(),
+        chip_smoke._exact_oracle(torch.from_numpy(s), torch.from_numpy(y))[0].numpy(), rtol=1e-12)

@@ -7,6 +7,7 @@ from typing import TypeVar
 
 import torch
 
+from torcheval_tpu_torch.metrics.functional.tensor_utils import check_reducible
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
 
@@ -35,9 +36,9 @@ class Max(Metric[torch.Tensor]):
         return self._apply_update_plan(self._update_plan(input))
 
     def _update_plan(self, input):
-        return UpdatePlan(
-            _max_transform, ("max",), (self._input_float(input),), transform=True
-        )
+        input = self._input_float(input)
+        check_reducible(input, "max")
+        return UpdatePlan(_max_transform, ("max",), (input,), transform=True)
 
     def compute(self) -> torch.Tensor:
         return self.max

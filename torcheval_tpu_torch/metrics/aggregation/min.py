@@ -7,6 +7,7 @@ from typing import TypeVar
 
 import torch
 
+from torcheval_tpu_torch.metrics.functional.tensor_utils import check_reducible
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
 
@@ -35,9 +36,9 @@ class Min(Metric[torch.Tensor]):
         return self._apply_update_plan(self._update_plan(input))
 
     def _update_plan(self, input):
-        return UpdatePlan(
-            _min_transform, ("min",), (self._input_float(input),), transform=True
-        )
+        input = self._input_float(input)
+        check_reducible(input, "min")
+        return UpdatePlan(_min_transform, ("min",), (input,), transform=True)
 
     def compute(self) -> torch.Tensor:
         return self.min

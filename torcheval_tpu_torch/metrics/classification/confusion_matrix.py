@@ -26,11 +26,11 @@ TMulticlassConfusionMatrix = TypeVar(
 
 
 def _no_shard(shard, name: str) -> None:
-    """Sharded state is not ported yet (ROADMAP Queue A item 12)."""
+    """Sharded state is not ported yet (ROADMAP Queue A, item A6)."""
     if shard is not None:
         raise NotImplementedError(
             f"{name}(shard=...) needs sharded metric state, which "
-            "torcheval_tpu_torch does not have yet (ROADMAP Queue A item 12); "
+            "torcheval_tpu_torch does not have yet (ROADMAP Queue A, item A6); "
             "pass shard=None."
         )
 

@@ -11,7 +11,7 @@ import torch
 from torcheval_tpu_torch.metrics.functional.classification.f1_score import (
     _binary_f1_score_update_input_check,
     _binary_f1_score_update_jit,
-    _f1_score_compute_jit,
+    _f1_score_compute,
     _f1_score_param_check,
     _f1_score_update_input_check,
     _f1_score_update_jit,
@@ -63,7 +63,7 @@ class MulticlassF1Score(Metric[torch.Tensor]):
         return self._apply_update_plan(self._update_plan(input, target))
 
     def compute(self) -> torch.Tensor:
-        return _f1_score_compute_jit(
+        return _f1_score_compute(
             self.num_tp, self.num_label, self.num_prediction, self.average
         )
 

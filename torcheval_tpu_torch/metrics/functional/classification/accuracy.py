@@ -18,12 +18,28 @@ from typing import Optional, Tuple
 
 import torch
 
+from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.metrics.functional.tensor_utils import (
     correct_mask,
     segment_sum,
 )
 from torcheval_tpu_torch.ops.topk import topk
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
+
+
+
+def _debug_check_target_range(target: torch.Tensor, num_classes: Optional[int]) -> None:
+    """Value-level label check: it reads the targets back to the host, so
+    it runs only under ``config.debug_validation``."""
+    if not debug_validation_enabled() or num_classes is None:
+        return
+    lo, hi = int(torch.min(target)), int(torch.max(target))
+    if lo < 0 or hi >= num_classes:
+        raise ValueError(
+            f"target values must be in [0, {num_classes}), got range "
+            f"[{lo}, {hi}]."
+        )
+
 
 # ---------------------------------------------------------------- multiclass
 
@@ -132,6 +148,7 @@ def _accuracy_update_input_check(
             "input should have shape of (num_sample,) or (num_sample, num_classes), "
             f"got {tuple(input.shape)}."
         )
+    _debug_check_target_range(target, num_classes)
 
 
 def multiclass_accuracy(

@@ -7,10 +7,10 @@ and the baseline clamps the positive rate by the float64 epsilon through
 the ``r <-> 1 - r`` symmetry of its entropy (``_baseline_update``), so the
 all-positive and all-negative tails stay finite and match.
 
-The JAX package's value-level range check on probabilities
-(``config.debug_validation_enabled``) is not ported: it is off by
-default there, and the ``[0, 1]`` clip in ``_ne_ce_rows`` keeps an
-out-of-range probability from producing NaN either way.
+Probabilities outside ``[0, 1]`` raise only under
+``config.debug_validation`` (the check reads the input back to the host);
+otherwise the ``[0, 1]`` clip in ``_ne_ce_rows`` keeps them from producing
+NaN.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.utils.convert import (
     DeviceLike,
     functional_device,
@@ -117,6 +118,12 @@ def _ne_input_check(
             f"`num_tasks = {num_tasks}`, `input`'s shape is expected to be "
             f"({num_tasks}, num_samples), but got shape ({input.shape})."
         )
+    if not from_logits and debug_validation_enabled():
+        if bool(torch.any((input < 0) | (input > 1))):
+            raise ValueError(
+                "`input` should be probability when from_logits=False, got "
+                "values outside [0, 1]."
+            )
 
 
 def _ne_deltas(

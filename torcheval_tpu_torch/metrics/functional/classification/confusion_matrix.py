@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.metrics.functional.tensor_utils import argmax_last
 from torcheval_tpu_torch.ops.segment import segment_count
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
@@ -86,6 +87,13 @@ def _confusion_matrix_update_input_check(
             "input should have shape of (num_sample,) or "
             f"(num_sample, num_classes), got {tuple(input.shape)}."
         )
+    if debug_validation_enabled():
+        # a host readback: the reference checks max() on every update
+        hi = int(torch.max(target))
+        if hi >= num_classes:
+            raise ValueError(
+                f"target values must be in [0, {num_classes}), got max {hi}."
+            )
 
 
 def _binary_confusion_matrix_update_input_check(

@@ -9,16 +9,20 @@ are dropped as the JAX package drops them.
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Tuple
 
 import torch
 
+from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.metrics.functional.tensor_utils import (
     argmax_last,
     nan_safe_divide,
     segment_sum,
 )
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
+
+_logger: logging.Logger = logging.getLogger(__name__)
 
 
 def _f1_score_update_jit(
@@ -60,6 +64,22 @@ def _f1_score_compute_jit(
     if average == "weighted":
         return torch.sum(f1 * (num_label / torch.sum(num_label)))
     return f1
+
+
+def _f1_score_compute(
+    num_tp: torch.Tensor,
+    num_label: torch.Tensor,
+    num_prediction: torch.Tensor,
+    average: Optional[str],
+) -> torch.Tensor:
+    """``_f1_score_compute_jit`` behind the debug-tier notice about
+    classes absent from the target."""
+    if average != "micro" and debug_validation_enabled() and bool(torch.any(num_label == 0)):
+        _logger.warning(
+            "Warning: Some classes do not exist in the target. F1 scores for "
+            "these classes will be cast to zeros."
+        )
+    return _f1_score_compute_jit(num_tp, num_label, num_prediction, average)
 
 
 def _f1_score_param_check(num_classes: Optional[int], average: Optional[str]) -> None:
@@ -120,7 +140,7 @@ def multiclass_f1_score(
     num_tp, num_label, num_prediction = _f1_score_update_jit(
         input, target, num_classes, average
     )
-    return _f1_score_compute_jit(num_tp, num_label, num_prediction, average)
+    return _f1_score_compute(num_tp, num_label, num_prediction, average)
 
 
 def _binary_f1_score_update_jit(

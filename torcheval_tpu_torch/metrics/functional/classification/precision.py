@@ -10,16 +10,20 @@ prediction has precision 0.
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Tuple
 
 import torch
 
+from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.metrics.functional.tensor_utils import (
     argmax_last,
     nan_safe_divide,
     segment_sum,
 )
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
+
+_logger: logging.Logger = logging.getLogger(__name__)
 
 
 def _precision_update_jit(
@@ -49,6 +53,13 @@ def _precision_compute(
     average: Optional[str],
 ) -> torch.Tensor:
     denom = num_tp + num_fp
+    if average in (None, "None"):
+        if debug_validation_enabled() and bool(torch.any((denom == 0) & (num_label == 0))):
+            _logger.warning(
+                "One or more classes have zero instances in both the "
+                "predictions and the ground truth labels. Precision is "
+                "still logged as zero."
+            )
     precision = torch.nan_to_num(nan_safe_divide(num_tp, denom))
     if average == "micro":
         return precision

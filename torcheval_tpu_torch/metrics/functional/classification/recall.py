@@ -8,16 +8,20 @@ the classes seen in the labels or the predictions.
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Tuple
 
 import torch
 
+from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.metrics.functional.tensor_utils import (
     argmax_last,
     nan_safe_divide,
     segment_sum,
 )
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
+
+_logger: logging.Logger = logging.getLogger(__name__)
 
 
 def _recall_update_jit(
@@ -46,6 +50,13 @@ def _recall_compute(
     num_predictions: torch.Tensor,
     average: Optional[str],
 ) -> torch.Tensor:
+    if average in (None, "None") and debug_validation_enabled() and bool(
+        torch.any(num_labels == 0)
+    ):
+        _logger.warning(
+            "One or more classes have zero instances in the ground truth "
+            "labels. Recall is still logged as zero."
+        )
     recall = torch.nan_to_num(nan_safe_divide(num_tp, num_labels))
     if average == "micro":
         return recall

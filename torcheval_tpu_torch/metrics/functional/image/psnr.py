@@ -9,6 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from torcheval_tpu_torch.metrics.functional.tensor_utils import check_reducible
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch_float
 
 
@@ -72,6 +73,7 @@ def peak_signal_noise_ratio(
     _psnr_input_check(input, target)
     sse, n = _psnr_update(input, target)
     if data_range is None:
+        check_reducible(target, "max")
         dr = torch.amax(target) - torch.amin(target)
     else:
         dr = torch.tensor(data_range, dtype=torch.float32, device=dev)

@@ -9,9 +9,9 @@ which wraps a negative target in ``[-C, 0)`` and fills a target outside
 integers, its maximum for unsigned ones, ``True`` for bools). No score is
 greater than NaN, so such a row ranks 0. ``_target_scores`` gives the same
 values without handing ``torch.gather`` an out-of-range index, which
-raises on the CPU and trips a device assert on CUDA. The JAX package's
-debug-tier range check on targets (``config.debug_validation_enabled``,
-off by default) is not ported.
+raises on the CPU and trips a device assert on CUDA. Under
+``config.debug_validation`` a target outside ``[0, C)`` raises instead
+(the check reads the targets back to the host).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.utils.convert import (
     DeviceLike,
     functional_device,
@@ -36,6 +37,18 @@ def _fill_value(dtype: torch.dtype):
         return True
     info = torch.iinfo(dtype)
     return info.max if info.min == 0 else info.min
+
+
+def _debug_check_target_range(input: torch.Tensor, target: torch.Tensor) -> None:
+    """Value-level label check (a host readback, so debug-tier only)."""
+    if not debug_validation_enabled():
+        return
+    lo, hi = int(torch.min(target)), int(torch.max(target))
+    if lo < 0 or hi >= input.shape[-1]:
+        raise ValueError(
+            f"target values must be in [0, {input.shape[-1]}), got range "
+            f"[{lo}, {hi}]."
+        )
 
 
 def _target_scores(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -95,6 +108,7 @@ def hit_rate(
     input = narrow_64(to_torch(input, device=dev))
     target = to_torch(target, device=dev)
     _hit_rate_input_check(input, target, k)
+    _debug_check_target_range(input, target)
     if k is None or k >= input.shape[-1]:
         return torch.ones(target.shape, dtype=torch.float32, device=dev)
     return (_target_rank(input, target) < k).to(torch.float32)

@@ -12,7 +12,10 @@ from typing import Optional
 
 import torch
 
-from torcheval_tpu_torch.metrics.functional.ranking.hit_rate import _target_rank
+from torcheval_tpu_torch.metrics.functional.ranking.hit_rate import (
+    _debug_check_target_range,
+    _target_rank,
+)
 from torcheval_tpu_torch.utils.convert import (
     DeviceLike,
     functional_device,
@@ -65,4 +68,5 @@ def reciprocal_rank(
     input = narrow_64(to_torch(input, device=dev))
     target = to_torch(target, device=dev)
     _reciprocal_rank_input_check(input, target)
+    _debug_check_target_range(input, target)
     return _reciprocal_rank_compute(input, target, k)

@@ -24,7 +24,8 @@ def _update_unweighted(
     input: torch.Tensor, target: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     squared_error = torch.square(target - input)
-    n = torch.tensor(float(target.shape[0]), dtype=torch.float32, device=target.device)
+    # a fill, not a host-to-device copy: the update never synchronizes
+    n = torch.full((), float(target.shape[0]), dtype=torch.float32, device=target.device)
     return torch.sum(squared_error, dim=0), n
 
 

@@ -79,6 +79,14 @@ def riemann_integral(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return -torch.sum((x[..., 1:] - x[..., :-1]) * y[..., :-1], dim=-1)
 
 
+def check_reducible(x: torch.Tensor, op: str) -> None:
+    """Raise as numpy and the JAX package do when ``op`` ("max" or "min")
+    would reduce an empty tensor, which has no identity (torch raises a
+    RuntimeError instead). Reads only the shape."""
+    if x.numel() == 0:
+        raise ValueError(f"zero-size array to reduction operation {op} which has no identity")
+
+
 def xla_mean(x: torch.Tensor) -> torch.Tensor:
     """``jnp.mean`` as XLA compiles it: the sum times the float32
     reciprocal of the element count (it rewrites a divide by a constant),

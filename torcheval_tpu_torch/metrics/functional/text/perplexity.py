@@ -20,9 +20,10 @@ target's log-probability and a masked sum: linear memory, no host sync.
   ``jnp.sum`` does for them). The batch sum stays in the input dtype;
   divided by the int32 count it gives a float32 perplexity.
 
-Not ported: the mask-aware twin (shape bucketing), the native CPU
-cross-entropy kernel (torch ops take its place), and the debug-tier
-range check on targets (``config.debug_validation_enabled``).
+Under ``config.debug_validation`` a target past the vocabulary raises
+(the check reads the targets back to the host). Not ported: the
+mask-aware twin (shape bucketing) and the native CPU cross-entropy kernel
+(torch ops take its place).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.utils.convert import (
     DeviceLike,
     functional_device,
@@ -87,7 +89,9 @@ def _perplexity_compute(
     return torch.exp(sum_log_probs / num_total.to(torch.float32))
 
 
-def _perplexity_input_check(input: torch.Tensor, target: torch.Tensor) -> None:
+def _perplexity_input_check(
+    input: torch.Tensor, target: torch.Tensor, ignore_index: Optional[int] = None
+) -> None:
     if target.ndim != 2:
         raise ValueError(
             f"target should be a two-dimensional tensor, got shape "
@@ -110,6 +114,18 @@ def _perplexity_input_check(input: torch.Tensor, target: torch.Tensor) -> None:
             f"(i.e., sequence length), got shapes {tuple(input.shape)} and "
             f"{tuple(target.shape)} instead."
         )
+    if debug_validation_enabled():
+        # a host readback, debug-tier only (the reference checks eagerly)
+        checked = target
+        if ignore_index is not None:
+            checked = torch.where(target == ignore_index, 0, target)
+        max_label = int(torch.max(checked))
+        if input.shape[2] <= max_label:
+            raise ValueError(
+                "Class labels in `target` tensor cannot be larger than "
+                f"vocab_size minus one, got vocab size of {input.shape[2]} "
+                f"and target label of {max_label}."
+            )
 
 
 def _perplexity_inputs(input, target, device: torch.device):
@@ -146,6 +162,6 @@ def perplexity(
     input, target = _perplexity_inputs(
         input, target, functional_device(device, input, target)
     )
-    _perplexity_input_check(input, target)
+    _perplexity_input_check(input, target, ignore_index)
     sum_log_probs, num_total = _perplexity_update_jit(input, target, ignore_index)
     return _perplexity_compute(sum_log_probs, num_total)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric
 from torcheval_tpu_torch.utils.convert import DeviceLike
 
@@ -242,11 +243,20 @@ class FrechetInceptionDistance(Metric[torch.Tensor]):
             raise ValueError(
                 f"Expected 'real' to be of type bool but got {type(is_real)}.",
             )
-        if isinstance(self.model, FIDInceptionV3) and images.dtype != torch.float32:
-            raise ValueError(
-                "When default inception-v3 model is used, images expected "
-                f"to be `float32`, but got {images.dtype}."
-            )
+        if isinstance(self.model, FIDInceptionV3):
+            if images.dtype != torch.float32:
+                raise ValueError(
+                    "When default inception-v3 model is used, images expected "
+                    f"to be `float32`, but got {images.dtype}."
+                )
+            # a host readback, debug-tier only (the reference checks eagerly)
+            if debug_validation_enabled() and (
+                float(torch.min(images)) < 0 or float(torch.max(images)) > 1
+            ):
+                raise ValueError(
+                    "When default inception-v3 model is used, images are "
+                    "expected to be in the [0, 1] interval"
+                )
 
     def to(
         self: TFrechetInceptionDistance,

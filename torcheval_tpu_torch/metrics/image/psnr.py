@@ -17,6 +17,7 @@ from torcheval_tpu_torch.metrics.functional.image.psnr import (
     _psnr_param_check,
     _psnr_update,
 )
+from torcheval_tpu_torch.metrics.functional.tensor_utils import check_reducible
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
 
@@ -68,6 +69,7 @@ class PeakSignalNoiseRatio(Metric[torch.Tensor]):
         target = self._input_float(target)
         _psnr_input_check(input, target)
         if self.auto_range:
+            check_reducible(target, "min")
             return UpdatePlan(
                 _psnr_auto_transform,
                 ("sum_squared_error", "num_observations", "min_target", "max_target",

@@ -13,7 +13,12 @@ declarative merge kinds -- in eager PyTorch:
   ``states = kernel(states, *dynamic, *config)``. There is no jit and no
   plan cache. A transform kernel may update a state tensor in place;
   ``state_dict()`` therefore hands out copies and ``load_state_dict``
-  copies what it takes.
+  copies what it takes. A plan's ``finalize`` (host-side, optional) runs
+  after its states are set: a windowed metric advances its ring cursor
+  there.
+- Under ``config.validate_inputs`` every float input of ``update`` is
+  checked for NaN/Inf (``_guard_finite``); off by default, since the check
+  reads the input back to the host.
 
 Left for later slices: shard bookkeeping, routing outboxes, donation,
 shape bucketing, mesh shardings and the observability wrappers.
@@ -23,11 +28,13 @@ from __future__ import annotations
 
 import copy
 import enum
+import warnings
 from abc import ABC, abstractmethod
 from typing import Any, Dict, Generic, Iterable, List, NamedTuple, TypeVar, Union
 
 import torch
 
+from torcheval_tpu_torch import config
 from torcheval_tpu_torch.utils.convert import (
     DeviceLike,
     canonicalize_device,
@@ -46,6 +53,7 @@ class UpdatePlan(NamedTuple):
 
     ``transform=False``: ``states += kernel(*dynamic, *config)``.
     ``transform=True``: ``states = kernel(states, *dynamic, *config)``.
+    ``finalize`` (host-side, optional) runs after the new states are set.
     """
 
     kernel: Any
@@ -53,6 +61,7 @@ class UpdatePlan(NamedTuple):
     dynamic: tuple
     config: tuple = ()
     transform: bool = False
+    finalize: Any = None
 
 
 class MergeKind(enum.Enum):
@@ -171,11 +180,33 @@ class Metric(Generic[TComputeReturn], ABC):
 
     def _input(self, x: Any, *, dtype: Any = None) -> torch.Tensor:
         """Coerce an ``update()`` argument onto ``self.device`` (the
-        reference's ``input.to(self.device)``)."""
-        return to_torch(x, dtype=dtype, device=self._device)
+        reference's ``input.to(self.device)``), through the NaN/Inf guard."""
+        return self._guard_finite(to_torch(x, dtype=dtype, device=self._device))
 
     def _input_float(self, x: Any) -> torch.Tensor:
-        return to_torch_float(x, device=self._device)
+        return self._guard_finite(to_torch_float(x, device=self._device))
+
+    def _guard_finite(self, x: torch.Tensor) -> torch.Tensor:
+        """NaN/Inf guard (``config.validate_inputs``: off/warn/raise).
+
+        The check reads the input back to the host, a stream
+        synchronization on a card, which is why it is a knob that defaults
+        to off; under ``"off"`` nothing is read. Integer and bool inputs
+        pass untouched.
+        """
+        policy = config.validate_inputs_policy()
+        if policy == "off" or not (x.is_floating_point() or x.is_complex()):
+            return x
+        if not bool(torch.all(torch.isfinite(x))):
+            message = (
+                f"{type(self).__name__}.update received non-finite values "
+                "(NaN/Inf) in a float input "
+                "(config.validate_inputs guardrail)"
+            )
+            if policy == "raise":
+                raise ValueError(message)
+            warnings.warn(message, RuntimeWarning, stacklevel=4)
+        return x
 
     # ------------------------------------------------------- abstract surface
 
@@ -193,11 +224,14 @@ class Metric(Generic[TComputeReturn], ABC):
         return None
 
     def _apply_update_plan(self: TSelf, plan) -> TSelf:
-        """Run one update plan against this metric's states."""
+        """Run one update plan against this metric's states, then its
+        ``finalize``."""
         names = plan.state_names if isinstance(plan, UpdatePlan) else plan[1]
         states = tuple(getattr(self, n) for n in names)
         for name, value in zip(names, _run_plan(plan, states)):
             setattr(self, name, value)
+        if isinstance(plan, UpdatePlan) and plan.finalize is not None:
+            plan.finalize()
         return self
 
     @abstractmethod

@@ -49,8 +49,10 @@ class Perplexity(Metric[torch.Tensor]):
         )
 
     def _update_plan(self, input, target):
-        input, target = _perplexity_inputs(input, target, self.device)
-        _perplexity_input_check(input, target)
+        input, target = _perplexity_inputs(
+            self._input_float(input), self._input(target), self.device
+        )
+        _perplexity_input_check(input, target, self.ignore_index)
         return UpdatePlan(
             _perplexity_update_jit,
             ("sum_log_probs", "num_total"),
