@@ -176,6 +176,32 @@ phases, printing one JSON line for each:
    ``config.validate_inputs("raise")``) and the update wall ms of
    ``MulticlassAccuracy`` and ``BinaryNormalizedEntropy`` with each knob
    off and on, updates back to back. K1 must not launch.
+13. ``bucket``: shape bucketing, donated in-place updates and bucketed
+   panels as CUDA-graph replays, each sub-run beside the same stream fed
+   eagerly and unbucketed. The ImageNet-1k panel (micro and macro
+   ``MulticlassAccuracy``, macro ``MulticlassPrecision``,
+   ``MulticlassRecall`` and ``MulticlassF1Score``,
+   ``MulticlassConfusionMatrix(1000)``) through ``update_collection``
+   under ``config.shape_bucketing()``: 50,000 x 1,000 in batches of
+   1,024 (a tail of 848), then bench.py's ``variable_batch`` schedule
+   shuffled from ``--seed``, twice, the second pass under
+   ``set_sync_debug_mode("error")``: states bitwise equal to the eager
+   panel after every update, at most ``bucket_bound(1024)`` = 8 graph
+   captures and none on the second pass, buckets replayed with two or
+   more valid counts; host and device ms of a panel update, graphed
+   against eager. The Criteo stream of phase 2 with its tail of 8,359:
+   ``BinaryNormalizedEntropy`` and ``StreamingBinaryAUROC`` (the plain
+   group, K1 once an update: 1,361), the calibration row form over 1,000
+   task ids (bucketed, graphed), ``ClickThroughRate``; counters bitwise,
+   calibration sums within ``_float_bound`` of float64. ``Perplexity`` at
+   Llama-3-8B width over 16 batches of 8 sequences of lengths up to 1,024
+   (both axes bucket): within the ``lm_eval`` bound of float64 and rtol
+   1e-6 of the eager stream, captures at most the distinct buckets, peak
+   bytes and the graph pool's reserved bytes. Every other masked twin
+   (binary, multilabel and top-k accuracy, binary P/R/F1/CM, the five
+   binned curves, MSE weighted and not, R2) graphed against eager at
+   small shapes; two ``MulticlassAccuracy`` metrics on two streams with
+   graphs of their own; a ``reset()`` that keeps its graphs.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -183,12 +209,13 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 12 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 13 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import importlib
 import json
@@ -211,12 +238,17 @@ from torcheval_tpu_torch import config  # noqa: E402
 from torcheval_tpu_torch.distributed import LocalReplicaGroup, MultiHostGroup  # noqa: E402
 from torcheval_tpu_torch.metrics import (  # noqa: E402
     AUC,
+    BinaryAccuracy,
     BinaryAUPRC,
     BinaryAUROC,
     BinaryBinnedAUPRC,
     BinaryBinnedAUROC,
     BinaryBinnedPrecisionRecallCurve,
+    BinaryConfusionMatrix,
+    BinaryF1Score,
     BinaryNormalizedEntropy,
+    BinaryPrecision,
+    BinaryRecall,
     BLEUScore,
     Cat,
     ClickThroughRate,
@@ -259,7 +291,8 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     WordInformationLost,
     WordInformationPreserved,
 )
-from torcheval_tpu_torch.metrics import toolkit  # noqa: E402
+from torcheval_tpu_torch.metrics import _fuse, toolkit  # noqa: E402
+from torcheval_tpu_torch.metrics._bucket import bucket_bound, bucket_length  # noqa: E402
 from torcheval_tpu_torch.metrics.functional import (  # noqa: E402
     auc,
     bleu_score,
@@ -3484,6 +3517,465 @@ def phase_window(device, n=CRITEO_EVAL, batch=CTR_BATCH, window=WINDOW_UPDATES, 
             "debug_tier": debug}
 
 
+# ------------------------------------------------------------ bucket (A3b)
+
+# bench.py's variable_batch schedule (a ragged stream at ImageNet width)
+VARIABLE_BATCH = (1024,) * 4 + (1000, 737, 512, 499, 100, 64, 33, 17, 7, 3)
+PPL_SEQS = 8  # sequences a variable-length perplexity batch
+PPL_MAX_LEN = 1024
+PPL_BATCHES = 16
+TWIN_SIZES = (4096, 3000, 17, 4096, 1, 2049)
+
+
+@contextlib.contextmanager
+def _no_host_sync(on):
+    """Raise on any host synchronization inside (CUDA only)."""
+    if on:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        if on:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def _captures():
+    return _fuse.graph_stats()["captures"]
+
+
+def _same_states(a, b):
+    """Every state of metric ``a`` bitwise equal to ``b``'s."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def _pool_reserved_bytes():
+    """Bytes the captured graphs' memory pools hold, from a memory
+    snapshot's segments (``None`` where the snapshot names no pool)."""
+    if not torch.cuda.is_available():
+        return None
+    pools = {tuple(h) for h in _fuse.graph_pools()}
+    total, named = 0, False
+    for seg in torch.cuda.memory_snapshot():
+        pid = seg.get("segment_pool_id")
+        if pid is None:
+            continue
+        named = True
+        if tuple(pid) in pools:
+            total += seg["total_size"]
+    return total if named else None
+
+
+def _panel_timing(make, args, device, reps):
+    """One panel update graphed (bucketed) against eager (unbucketed), on
+    fresh panels: host ms an update enqueued back to back (no synchronize
+    in the loop) and device ms an update (CUDA events)."""
+    if torch.device(device).type != "cuda":
+        return None
+    out = {}
+    for name, bucketed in (("eager", False), ("graphed", True), ("eager_again", False)):
+        panel = make()
+        with config.shape_bucketing(bucketed):
+            fn = lambda: toolkit.update_collection(panel, *args)  # noqa: E731
+            fn()
+            out[name] = {"host_ms": _host_ms(fn, device, reps), "device_ms": _time_ms(fn, device, reps)}
+    return out
+
+
+def _classify_panel(device, num_classes):
+    return {
+        "acc": MulticlassAccuracy(device=device),
+        "acc_macro": MulticlassAccuracy(average="macro", num_classes=num_classes, device=device),
+        "precision": MulticlassPrecision(num_classes=num_classes, average="macro", device=device),
+        "recall": MulticlassRecall(num_classes=num_classes, average="macro", device=device),
+        "f1": MulticlassF1Score(num_classes=num_classes, average="macro", device=device),
+        "cm": MulticlassConfusionMatrix(num_classes, device=device),
+    }
+
+
+def _bucket_classify(device, n, num_classes, batch, variable, reps, seed):
+    """The ImageNet-1k panel through ``update_collection`` under
+    ``config.shape_bucketing()`` (one CUDA-graph replay an update), beside
+    the same panel fed the same batches eagerly and unbucketed: the
+    validation stream (full batches and its short tail), then the
+    ``variable_batch`` schedule shuffled from ``seed`` twice, states
+    compared after every update of the schedule, the second pass under
+    ``set_sync_debug_mode("error")``."""
+    cuda = torch.device(device).type == "cuda"
+    graphed, eager = _classify_panel(device, num_classes), _classify_panel(device, num_classes)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    schedule = [int(v) for v in np.random.default_rng(seed).permutation(variable)]
+    timers = {}
+
+    def feed(m, check_sync=False):
+        x, y = _classify_batch(gen, m, num_classes, device)
+        with config.shape_bucketing(), _no_host_sync(cuda and check_sync):
+            if check_sync:
+                toolkit.update_collection(graphed, x, y)
+            else:
+                _timed_update(timers, "graphed", device,
+                              lambda: toolkit.update_collection(graphed, x, y))
+        _timed_update(timers, "eager", device, lambda: toolkit.update_collection(eager, x, y))
+        return all(_same_states(graphed[k], eager[k]) for k in graphed)
+
+    _kernels.reset_launch_counts()
+    c0 = _captures()
+    for start in range(0, n, batch):
+        feed(min(batch, n - start))
+    stream_bitwise = all(_same_states(graphed[k], eager[k]) for k in graphed)
+    first = [feed(m) for m in schedule]
+    captures_first = _captures() - c0
+    c1 = _captures()
+    second = [feed(m, check_sync=True) for m in schedule]
+    captures_second = _captures() - c1
+    launches = _kernels.LAUNCHES["fused_auc_hist"]
+    # buckets that saw two valid counts, each update of them bitwise right
+    by_bucket = {}
+    for m, ok in zip(schedule + schedule, first + second):
+        by_bucket.setdefault(bucket_length(m), set()).add((m, ok))
+    two_counts = {b: sorted(m for m, _ in v) for b, v in by_bucket.items()
+                  if len({m for m, _ in v}) >= 2}
+    _check(stream_bitwise, "bucketed classify stream differs from the eager stream")
+    _check(all(first) and all(second), "a bucketed update differs from its eager twin")
+    _check(two_counts, "no bucket was replayed with two valid counts")
+    bound = bucket_bound(batch)
+    if cuda:
+        _check(0 < captures_first <= bound, f"{captures_first} captures for the panel (bound {bound})")
+        _check(captures_second == 0, f"the second pass captured {captures_second} graphs")
+    else:
+        _check(captures_first == captures_second == 0, "a CPU panel captured a graph")
+    _check(launches == 0, f"K1 launched {launches} times in the classify panel")
+    ragged = next(v for v in variable if v != batch)
+    timing = {
+        "full_batch": _panel_timing(lambda: _classify_panel(device, num_classes),
+                                    _classify_batch(gen, batch, num_classes, device), device, reps),
+        "ragged_batch": _panel_timing(lambda: _classify_panel(device, num_classes),
+                                      _classify_batch(gen, ragged, num_classes, device),
+                                      device, reps),
+        "ragged_size": ragged,
+    }
+    return {"samples": n, "batch": batch, "schedule": schedule, "stream_bitwise": stream_bitwise,
+            "schedule_updates_bitwise": all(first) and all(second),
+            "buckets_with_two_counts": {str(k): v for k, v in two_counts.items()},
+            "captures_first_pass": captures_first, "captures_second_pass": captures_second,
+            "capture_bound": bound, "second_pass_sync_checked": cuda, "k1_launches": launches,
+            "update_ms_median": {k: _median(v) for k, v in timers.items()}, "timing": timing}
+
+
+def _bucket_criteo(device, n, batch, row_tasks, seed):
+    """The DLRM panel over the Criteo 1TB evaluation stream with its real
+    tail: ``BinaryNormalizedEntropy`` and ``StreamingBinaryAUROC`` (K1)
+    in one ``update_collection`` (no masked twin: the plain group, eager),
+    the calibration row form over ``row_tasks`` ids in another (bucketed:
+    one graph replay an update), ``ClickThroughRate`` alone, beside the
+    same metrics fed unbucketed."""
+    cuda = torch.device(device).type == "cuda"
+
+    def make():
+        return ({"ne": BinaryNormalizedEntropy(device=device),
+                 "auroc": StreamingBinaryAUROC(num_bins=NUM_BINS, device=device)},
+                {"calibration": WeightedCalibration(num_tasks=row_tasks, device=device)},
+                ClickThroughRate(device=device))
+
+    (plain_g, rows_g, ctr_g), (plain_e, rows_e, ctr_e) = make(), make()
+    o = {k: torch.zeros(row_tasks, dtype=torch.float64, device=device) for k in ("ws", "wy")}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    _kernels.reset_launch_counts()
+    k1, updates, c0, timers = 0, 0, _captures(), {}
+    for start in range(0, n, batch):
+        m = min(batch, n - start)
+        _, s, y = _click_logits(gen, (m,), device)
+        w = torch.rand((m,), generator=gen, device=device) + 0.5
+        # 1,000 tasks and ids past them, which every update drops
+        ids = torch.randint(0, row_tasks + row_tasks // 50, (m,), generator=gen, device=device)
+        before = _kernels.LAUNCHES["fused_auc_hist"]
+        # odd full batches replay under the sync check; even ones are timed
+        checked = cuda and updates % 2 == 1 and m == batch
+        with config.shape_bucketing(), _no_host_sync(checked):
+            toolkit.update_collection(plain_g, s, y)
+            if checked:
+                toolkit.update_collection(rows_g, s, y, w, task_ids=ids)
+            else:
+                _timed_update(timers, "rows_graphed", device,
+                              lambda: toolkit.update_collection(rows_g, s, y, w, task_ids=ids))
+            ctr_g.update(y)
+        k1 += _kernels.LAUNCHES["fused_auc_hist"] - before
+        toolkit.update_collection(plain_e, s, y)
+        _timed_update(timers, "rows_eager", device,
+                      lambda: toolkit.update_collection(rows_e, s, y, w, task_ids=ids))
+        ctr_e.update(y)
+        keep = ids < row_tasks
+        o["ws"].index_add_(0, ids[keep], (w * s)[keep].double())
+        o["wy"].index_add_(0, ids[keep], (w * y)[keep].double())
+        updates += 1
+    captures = _captures() - c0
+    counters_bitwise = (all(_same_states(plain_g[k], plain_e[k]) for k in plain_g)
+                        and _same_states(ctr_g, ctr_e))
+    cal_g, cal_e = rows_g["calibration"], rows_e["calibration"]
+    sums = ("weighted_input_sum", "weighted_target_sum")
+    ok_g, err_g = _float_bound([getattr(cal_g, k) for k in sums], [o["ws"], o["wy"]], batch, updates)
+    ok_e, err_e = _float_bound([getattr(cal_e, k) for k in sums], [o["ws"], o["wy"]], batch, updates)
+    rel = max(_rel_err(getattr(cal_g, k), getattr(cal_e, k)) for k in sums)
+    _check(counters_bitwise, "NE / AUROC / CTR states differ from the unbucketed run")
+    _check(ok_g and ok_e, f"calibration sums past the float32 bound ({err_g}, {err_e})")
+    _check(k1 == (updates if cuda else 0), f"K1 launched {k1} times for {updates} panel updates")
+    if cuda:
+        _check(0 < captures <= 2, f"{captures} captures for the calibration rows (two buckets)")
+    return {"samples": n, "batch": batch, "tail": n - (updates - 1) * batch, "updates": updates,
+            "row_tasks": row_tasks, "k1_launches": k1, "captures": captures,
+            "counters_bitwise": counters_bitwise, "calibration_rel_err_vs_float64": err_g,
+            "calibration_rel_err_eager_vs_float64": err_e,
+            "calibration_graphed_vs_eager_rel": rel,
+            "rows_update_ms_median": {k: _median(v) for k, v in timers.items()}}
+
+
+def _bucket_perplexity(device, vocab, seqs, max_len, batches, chunk, reps, seed):
+    """``Perplexity`` at Llama-3-8B width over variable-length batches of
+    ``seqs`` sequences, each padded with ``IGNORE`` to the batch's
+    longest (from ``seed``: the batch's longest uniform in [1, max_len],
+    the others uniform up to it; the last batch three sequences short):
+    both the batch and the sequence axis bucket.
+    Held to the float64 oracle within the bound of the ``lm_eval`` phase
+    and to the same stream fed eagerly within rtol 1e-6."""
+    cuda = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    graphed = Perplexity(ignore_index=IGNORE, device=device)
+    eager = Perplexity(ignore_index=IGNORE, device=device)
+    nll64, kept, bound, buckets, timers = 0.0, 0, 0.0, set(), {}
+    c0 = _captures()
+    reserved0 = torch.cuda.memory_reserved(device) if cuda else None
+    _reset_peak(device)
+    for b in range(batches):
+        rows = seqs if b < batches - 1 else max(1, seqs - 3)
+        s = int(rng.integers(1, max_len + 1))
+        lengths = np.append(s, rng.integers(1, s + 1, rows - 1))
+        x = torch.randn((rows, s, vocab), generator=gen, device=device)
+        t = torch.full((rows, s), IGNORE, dtype=torch.int64, device=device)
+        for i, length in enumerate(lengths.tolist()):
+            t[i, :length] = torch.randint(0, vocab, (length,), generator=gen, device=device)
+            x[i, torch.arange(length, device=device), t[i, :length]] += PPL_MARGIN
+        buckets.add((bucket_length(rows), bucket_length(s)))
+        with config.shape_bucketing():
+            _timed_update(timers, "graphed", device, lambda: graphed.update(x, t))
+        _timed_update(timers, "eager", device, lambda: eager.update(x, t))
+        n_, k_, mags = _nll_oracle(x, t, slice(None), chunk)
+        nll64 += float(n_)
+        kept += k_
+        bound += float(_window_bound(mags, n_, k_, vocab, torch.float32))
+        del x, t
+    peak = _stream_peak(device)
+    pool_bytes = _pool_reserved_bytes() if cuda else None
+    reserved = torch.cuda.memory_reserved(device) - reserved0 if cuda else None
+    captures = _captures() - c0
+    bound += batches * _ulp32(torch.tensor(nll64)).item() / 2
+    got, got_e = float(graphed.sum_log_probs), float(eager.sum_log_probs)
+    _check(int(graphed.num_total) == int(eager.num_total) == kept, "perplexity token counts")
+    _check(abs(got - nll64) <= bound, f"graphed NLL {got} vs float64 {nll64}, bound {bound}")
+    ppl64, ppl_bound = _ppl_float64(nll64, kept, bound)
+    ppl, ppl_e = float(graphed.compute()), float(eager.compute())
+    _check(abs(ppl - ppl64) <= ppl_bound, f"graphed perplexity {ppl} vs float64 {ppl64}")
+    _check(abs(ppl - ppl_e) <= 1e-6 * abs(ppl_e), f"graphed perplexity {ppl} vs eager {ppl_e}")
+    if cuda:
+        _check(0 < captures <= len(buckets), f"{captures} captures for {len(buckets)} buckets")
+    timing = None
+    if cuda:  # one full-length batch, graphed against eager, on fresh metrics
+        x = torch.randn((seqs, max_len, vocab), generator=gen, device=device)
+        t = torch.randint(0, vocab, (seqs, max_len), generator=gen, device=device)
+        timing = {}
+        for name, bucketed in (("eager", False), ("graphed", True)):
+            m = Perplexity(ignore_index=IGNORE, device=device)
+            with config.shape_bucketing(bucketed):
+                m.update(x, t)
+                timing[name] = {"device_ms": _time_ms(lambda: m.update(x, t), device, reps),
+                                "host_ms": _host_ms(lambda: m.update(x, t), device, reps)}
+            del m
+        del x, t
+    return {"batches": batches, "seqs": seqs, "max_len": max_len, "vocab": vocab,
+            "targets": kept, "perplexity": ppl, "perplexity_eager": ppl_e,
+            "perplexity_float64": ppl64, "rel_err_vs_float64": abs(ppl - ppl64) / ppl64,
+            "rel_bound_vs_float64": ppl_bound / ppl64, "rel_err_vs_eager": abs(ppl - ppl_e) / ppl_e,
+            "buckets": sorted(buckets), "captures": captures, "stream_peak_bytes": peak,
+            "graph_pool_reserved_bytes": pool_bytes, "reserved_growth_bytes": reserved,
+            "update_ms_median": {k: _median(v) for k, v in timers.items()},
+            "full_batch_timing": timing}
+
+
+def _bucket_streams(device, num_classes, batch, sizes, seed):
+    """Two ``MulticlassAccuracy`` metrics updated on two streams with
+    batches of the same buckets: each gets graphs of its own (a graph is
+    keyed on its live states), each matches its eager twin bitwise, and a
+    ``reset()`` under donation keeps the states, so its graphs replay
+    without a new capture."""
+    if torch.device(device).type != "cuda":
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed)
+    streams = [torch.cuda.Stream(device), torch.cuda.Stream(device)]
+    make = lambda: MulticlassAccuracy(average="macro", num_classes=num_classes,  # noqa: E731
+                                      device=device)
+    graphed, eager = [make(), make()], [make(), make()]
+    c0 = _captures()
+    for m in sizes:
+        for i, stream in enumerate(streams):
+            x, y = _classify_batch(gen, m, num_classes, device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream), config.shape_bucketing():
+                graphed[i].update(x, y)
+            torch.cuda.current_stream(device).wait_stream(stream)
+            eager[i].update(x, y)
+    torch.cuda.synchronize(device)
+    captures = _captures() - c0
+    buckets = len({bucket_length(m) for m in sizes})
+    own = all(_same_states(g, e) for g, e in zip(graphed, eager))
+    apart = not torch.equal(graphed[0].num_correct, graphed[1].num_correct)
+    ids = id(graphed[0].num_correct)
+    graphed[0].reset()
+    eager[0].reset()
+    c1 = _captures()
+    x, y = _classify_batch(gen, sizes[0], num_classes, device)
+    streams[0].wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(streams[0]), config.shape_bucketing():  # the graph's own stream
+        graphed[0].update(x, y)
+    torch.cuda.current_stream(device).wait_stream(streams[0])
+    eager[0].update(x, y)
+    after_reset = {"captures": _captures() - c1, "same_tensor": id(graphed[0].num_correct) == ids,
+                   "bitwise": _same_states(graphed[0], eager[0])}
+    _check(captures == 2 * buckets, f"{captures} captures for two metrics x {buckets} buckets")
+    _check(own and apart, "two metrics on two streams shared or crossed their states")
+    _check(after_reset["captures"] == 0 and after_reset["same_tensor"] and after_reset["bitwise"],
+           f"reset under donation: {after_reset}")
+    return {"sizes": list(sizes), "captures": captures, "bitwise_vs_eager": own,
+            "after_reset": after_reset}
+
+
+def _twin_panels(device, num_classes, num_t):
+    """Every remaining masked twin, one panel an input kind. The binary
+    panel also holds ``BinaryNormalizedEntropy`` (no twin), so one
+    ``update_collection`` call forms both groups."""
+    return {
+        "binary": {
+            "accuracy": BinaryAccuracy(device=device),
+            "precision": BinaryPrecision(device=device),
+            "recall": BinaryRecall(device=device),
+            "f1": BinaryF1Score(device=device),
+            "confusion_matrix": BinaryConfusionMatrix(device=device),
+            "binned_prc": BinaryBinnedPrecisionRecallCurve(threshold=num_t, device=device),
+            "ne": BinaryNormalizedEntropy(device=device),
+        },
+        "multilabel": {
+            "accuracy": MultilabelAccuracy(criteria="hamming", device=device),
+            "topk_accuracy": TopKMultilabelAccuracy(criteria="overlap", k=3, device=device),
+            "binned_vectorized": MultilabelBinnedPrecisionRecallCurve(
+                num_labels=num_classes, threshold=num_t, device=device),
+            "binned_memory": MultilabelBinnedPrecisionRecallCurve(
+                num_labels=num_classes, threshold=num_t, optimization="memory", device=device),
+        },
+        "multiclass": {
+            "binned_vectorized": MulticlassBinnedPrecisionRecallCurve(
+                num_classes=num_classes, threshold=num_t, device=device),
+            "binned_memory": MulticlassBinnedPrecisionRecallCurve(
+                num_classes=num_classes, threshold=num_t, optimization="memory", device=device),
+        },
+        "regression": {"mse": MeanSquaredError(device=device), "r2": R2Score(device=device)},
+        "weighted": {"mse": MeanSquaredError(device=device)},
+    }
+
+
+def _twin_batch(kind, gen, m, num_classes, device):
+    if kind == "binary":
+        s = torch.rand((m,), generator=gen, device=device)
+        return (s, (torch.rand((m,), generator=gen, device=device) < s).to(torch.int64)), {}
+    if kind == "multilabel":
+        return (torch.rand((m, num_classes), generator=gen, device=device),
+                torch.randint(0, 2, (m, num_classes), generator=gen, device=device)), {}
+    if kind == "multiclass":
+        x, y = _classify_batch(gen, m, num_classes, device)
+        return (torch.softmax(x, -1), y), {}
+    x = torch.rand((m,), generator=gen, device=device)
+    y = torch.rand((m,), generator=gen, device=device)
+    if kind == "weighted":
+        return (x, y), {"sample_weight": torch.rand((m,), generator=gen, device=device) + 0.5}
+    return (x, y), {}
+
+
+def _bucket_twins(device, sizes, num_classes, num_t, seed):
+    """Each remaining masked twin on the card at small shapes: its panel
+    bucketed (graphed) against the same panel eager, counters bitwise and
+    the regression sums within the float32 bound of float64."""
+    graphed, eager = _twin_panels(device, num_classes, num_t), _twin_panels(device, num_classes, num_t)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    o = {k: torch.zeros((), dtype=torch.float64, device=device)
+         for k in ("se", "n", "t2", "t", "wse", "w")}
+    c0 = _captures()
+    for m in sizes:
+        for kind in graphed:
+            args, kwargs = _twin_batch(kind, gen, m, num_classes, device)
+            with config.shape_bucketing():
+                toolkit.update_collection(graphed[kind], *args, **kwargs)
+            toolkit.update_collection(eager[kind], *args, **kwargs)
+            if kind in ("regression", "weighted"):
+                x, y = (a.double() for a in args)
+            if kind == "regression":
+                o["se"] += ((y - x) ** 2).sum()
+                o["n"] += m
+                o["t2"] += (y ** 2).sum()
+                o["t"] += y.sum()
+            elif kind == "weighted":
+                w = kwargs["sample_weight"].double()
+                o["wse"] += (w * (y - x) ** 2).sum()
+                o["w"] += w.sum()
+    captures = _captures() - c0
+    bitwise = {f"{kind}.{name}": _same_states(graphed[kind][name], eager[kind][name])
+               for kind in ("binary", "multilabel", "multiclass") for name in graphed[kind]}
+    reg, wreg = graphed["regression"], graphed["weighted"]["mse"]
+    b = max(sizes)
+    ok, err = _float_bound(
+        [reg["mse"].sum_squared_error, reg["mse"].sum_weight, reg["r2"].sum_squared_obs,
+         reg["r2"].sum_obs, reg["r2"].sum_squared_residual, reg["r2"].num_obs,
+         wreg.sum_squared_error, wreg.sum_weight],
+        [o["se"], o["n"], o["t2"], o["t"], o["se"], o["n"], o["wse"], o["w"]], b, len(sizes))
+    eok, eerr = _float_bound(
+        [eager["regression"]["mse"].sum_squared_error, eager["regression"]["r2"].sum_obs,
+         eager["weighted"]["mse"].sum_squared_error],
+        [o["se"], o["t"], o["wse"]], b, len(sizes))
+    _check(all(bitwise.values()), f"graphed twins differ from eager: {bitwise}")
+    _check(ok and eok, f"regression sums past the float32 bound ({err}, {eerr})")
+    return {"sizes": list(sizes), "num_classes": num_classes, "thresholds": num_t,
+            "captures": captures, "counters_bitwise": bitwise,
+            "regression_rel_err_vs_float64": err}
+
+
+def phase_bucket(device, classify_n=IMAGENET_VAL, num_classes=1000, batch=1024,
+                 variable=VARIABLE_BATCH, ctr_n=CRITEO_EVAL, ctr_batch=CTR_BATCH, row_tasks=1000,
+                 vocab=LLAMA3_VOCAB, seqs=PPL_SEQS, max_len=PPL_MAX_LEN, ppl_batches=PPL_BATCHES,
+                 chunk=1024, twin_sizes=TWIN_SIZES, twin_classes=20, twin_thresholds=100,
+                 reps=30, seed=13):
+    """Shape bucketing with its mask-aware twins, donated in-place updates
+    and bucketed panels as CUDA-graph replays (see the module
+    docstring). K1 runs only in the Criteo part, once an update."""
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:  # the debug mode must catch a readback, or its silence proves nothing
+        probe = torch.zeros(1, device=device)
+        try:
+            with _no_host_sync(True):
+                bool(probe.sum() > 0)
+            caught = False
+        except RuntimeError:
+            caught = True
+        _check(caught, "sync debug mode let a readback through")
+    classify = _bucket_classify(device, classify_n, num_classes, batch, variable, reps, seed)
+    criteo = _bucket_criteo(device, ctr_n, ctr_batch, row_tasks, seed + 1)
+    ppl = _bucket_perplexity(device, vocab, seqs, max_len, ppl_batches, chunk, max(2, reps // 10),
+                             seed + 2)
+    twins = _bucket_twins(device, twin_sizes, twin_classes, twin_thresholds, seed + 3)
+    streams = _bucket_streams(device, num_classes, batch, (batch, variable[5], variable[-1]),
+                              seed + 4)
+    return {"phase": "bucket", "device": str(device), "seconds": time.perf_counter() - t0,
+            "graph_stats": _fuse.graph_stats(), "classify": classify, "criteo": criteo,
+            "perplexity": ppl, "twins": twins, "streams": streams}
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -3765,6 +4257,8 @@ def main(argv=None) -> int:
     _emit(image)
     window = phase_window(device, seed=args.seed + 11)
     _emit(window)
+    bucket = phase_bucket(device, seed=args.seed + 13)
+    _emit(bucket)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -3782,6 +4276,8 @@ def main(argv=None) -> int:
         "launches_lm_eval": lm_eval["k1_launches"],
         "launches_image": image["k1_launches"],
         "launches_window": window["k1_launches"],
+        "launches_bucket_classify": bucket["classify"]["k1_launches"],
+        "launches_bucket_criteo": bucket["criteo"]["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

@@ -290,3 +290,27 @@ def test_window_oracles_match_the_jax_metrics():
     np.testing.assert_allclose(
         chip_smoke._weighted_auroc64(torch.from_numpy(s), torch.from_numpy(y), ones).numpy(),
         chip_smoke._exact_oracle(torch.from_numpy(s), torch.from_numpy(y))[0].numpy(), rtol=1e-12)
+
+
+def test_phase_bucket_small_on_cpu():
+    """The bucket phase at a small size: every check of the card run that
+    the CPU can make passes -- the bucketed classify panel bitwise equal to
+    the eager unbucketed one after every update of a schedule whose buckets
+    each see two valid counts, the Criteo panel's counters bitwise and its
+    calibration rows within the float32 bound, perplexity within its
+    float64 bound and equal to the eager stream, every remaining twin
+    bitwise -- and nothing captures a CUDA graph or launches K1 here."""
+    out = chip_smoke.phase_bucket(
+        CPU, classify_n=700, num_classes=20, batch=64, variable=(64, 64, 60, 37, 32, 17, 7, 3),
+        ctr_n=20_000, ctr_batch=4096, row_tasks=50, vocab=50, seqs=8, max_len=40, ppl_batches=5,
+        chunk=64, twin_sizes=(64, 40, 3, 64), twin_classes=6, twin_thresholds=9, reps=2)
+    classify = out["classify"]
+    assert classify["stream_bitwise"] and classify["schedule_updates_bitwise"]
+    assert set(classify["buckets_with_two_counts"]) == {"64", "32", "8"}
+    assert classify["captures_first_pass"] == 0 and out["graph_stats"]["captures"] == 0
+    assert classify["k1_launches"] == 0 and out["criteo"]["k1_launches"] == 0
+    assert out["criteo"]["counters_bitwise"] and out["criteo"]["tail"] == 20_000 - 4 * 4096
+    assert out["perplexity"]["rel_err_vs_eager"] <= 1e-6
+    assert out["perplexity"]["rel_err_vs_float64"] <= out["perplexity"]["rel_bound_vs_float64"]
+    assert all(out["twins"]["counters_bitwise"].values()) and len(out["twins"]["counters_bitwise"]) == 13
+    assert out["streams"] is None  # two CUDA streams: a card check

@@ -15,6 +15,18 @@ only when asked for:
   ``warn`` or ``raise``, default ``off``): a NaN/Inf guard on every float
   input that passes through a class metric's ``update``.
 
+Two knobs shape how an update runs:
+
+- ``shape_bucketing`` (env ``TORCHEVAL_TPU_SHAPE_BUCKETING``, default
+  off): ragged batch axes are padded with zeros to power-of-two buckets
+  and a mask-aware twin of the kernel keeps the padding out of every
+  state (``metrics/_bucket.py``), so a ragged stream sees at most
+  ``bucket_bound(max_batch)`` shapes; on CUDA each bucket's update is then
+  one CUDA-graph replay (``metrics/_fuse.py``).
+- ``update_donation`` (env ``TORCHEVAL_TPU_UPDATE_DONATION``): updates
+  write the new state into the state tensor in place. Unset, it is on for
+  a metric whose state lives on CUDA and off for one on the CPU.
+
 The environment names, spellings, defaults and policies are the JAX
 package's.
 """
@@ -24,7 +36,7 @@ from __future__ import annotations
 import os
 import warnings
 from contextlib import contextmanager
-from typing import Iterator
+from typing import Iterator, Optional
 
 # accepted spellings for boolean env knobs
 _TRUTHY = ("1", "true", "yes", "on")
@@ -124,3 +136,94 @@ def validate_inputs(policy: str = "raise") -> Iterator[None]:
         yield
     finally:
         _validate_inputs = prev
+
+
+# ------------------------------------------------------ shape bucketing
+
+_shape_bucketing: bool = env_truthy("TORCHEVAL_TPU_SHAPE_BUCKETING")
+
+
+def shape_bucketing_enabled() -> bool:
+    """True when variable-shape updates are padded to power-of-two buckets."""
+    return _shape_bucketing
+
+
+def set_shape_bucketing(enabled: bool) -> None:
+    global _shape_bucketing
+    _shape_bucketing = bool(enabled)
+
+
+@contextmanager
+def shape_bucketing(enabled: bool = True) -> Iterator[None]:
+    """Context manager enabling shape bucketing.
+
+    Inside the context, bucket-aware metrics pad ragged batch axes with
+    zeros up to power-of-two buckets and pass the valid extents to a
+    mask-aware twin of their kernel, so padded rows add exactly zero to
+    every state and ``compute()`` matches the unbucketed stream.
+
+    >>> with shape_bucketing():
+    ...     for batch in loader:           # ragged last batch is fine
+    ...         metric.update(batch.scores, batch.labels)
+    """
+    global _shape_bucketing
+    prev = _shape_bucketing
+    _shape_bucketing = enabled
+    try:
+        yield
+    finally:
+        _shape_bucketing = prev
+
+
+# -------------------------------------------------------- update donation
+
+
+def _env_donation() -> Optional[bool]:
+    raw = os.environ.get("TORCHEVAL_TPU_UPDATE_DONATION", "").lower()
+    if raw in _TRUTHY:
+        return True
+    if raw in _FALSY:
+        return False
+    return None
+
+
+# None: no override, the default follows each metric's device
+_update_donation: Optional[bool] = _env_donation()
+
+
+def update_donation_enabled(device=None) -> bool:
+    """True when updates of a metric on ``device`` DONATE their state
+    tensors: the new state is written into the old one in place
+    (``add_``/``copy_`` wherever the result keeps the state's dtype and
+    shape), so an update allocates no state, and on CUDA a bucketed update
+    can be a CUDA-graph replay that writes the live states. Default: on
+    for a CUDA device (``None`` means the card, as for a metric's state)
+    and off for the CPU; env ``TORCHEVAL_TPU_UPDATE_DONATION`` or
+    :func:`set_update_donation` overrides either way.
+
+    Consequence when on: ``state_dict()`` hands out copies and
+    ``compute()`` results are copied where they would be a state tensor
+    itself, but a state attribute read before an update changes with it.
+    """
+    if _update_donation is not None:
+        return _update_donation
+    return device is None or str(device).startswith("cuda")
+
+
+def set_update_donation(enabled: Optional[bool]) -> None:
+    """Force donation on or off for every metric; ``None`` restores the
+    per-device default."""
+    global _update_donation
+    _update_donation = None if enabled is None else bool(enabled)
+
+
+@contextmanager
+def update_donation(enabled: bool = True) -> Iterator[None]:
+    """Scoped override of :func:`update_donation_enabled`."""
+    global _update_donation
+    prev = _update_donation
+    _update_donation = bool(enabled)
+    try:
+        yield
+    finally:
+        _update_donation = prev

@@ -1,7 +1,9 @@
 """Accuracy class metrics (counterpart of
 ``torcheval_tpu/metrics/classification/accuracy.py``: ``MulticlassAccuracy``,
-``BinaryAccuracy``, ``MultilabelAccuracy`` and ``TopKMultilabelAccuracy``). The classes own counter accumulation; the math
-lives in the functional module."""
+``BinaryAccuracy``, ``MultilabelAccuracy`` and ``TopKMultilabelAccuracy``).
+The classes own counter accumulation; the math lives in the functional
+module. Every plan declares its mask-aware twin and the shared ``batch``
+axis of its two inputs, for shape bucketing."""
 
 from __future__ import annotations
 
@@ -15,18 +17,25 @@ from torcheval_tpu_torch.metrics.functional.classification.accuracy import (
     _accuracy_update_input_check,
     _binary_accuracy_update,
     _binary_accuracy_update_input_check,
+    _binary_accuracy_update_masked,
     _multiclass_accuracy_update,
+    _multiclass_accuracy_update_masked,
     _multilabel_accuracy_param_check,
     _multilabel_accuracy_update,
     _multilabel_accuracy_update_input_check,
+    _multilabel_accuracy_update_masked,
     _topk_multilabel_accuracy_param_check,
     _topk_multilabel_accuracy_update,
     _topk_multilabel_accuracy_update_input_check,
+    _topk_multilabel_accuracy_update_masked,
 )
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
 
 TAccuracy = TypeVar("TAccuracy", bound="MulticlassAccuracy")
+
+# input and target share one ragged leading axis
+_BATCH2 = (("batch",), ("batch",))
 
 
 class MulticlassAccuracy(Metric[torch.Tensor]):
@@ -71,6 +80,8 @@ class MulticlassAccuracy(Metric[torch.Tensor]):
             ("num_correct", "num_total"),
             (input, target),
             (self.average, self.num_classes, self.k),
+            masked_kernel=_multiclass_accuracy_update_masked,
+            batch_axes=_BATCH2,
         )
 
     def update(self: TAccuracy, input, target) -> TAccuracy:
@@ -103,6 +114,8 @@ class BinaryAccuracy(MulticlassAccuracy):
             ("num_correct", "num_total"),
             (input, target),
             (float(self.threshold),),
+            masked_kernel=_binary_accuracy_update_masked,
+            batch_axes=_BATCH2,
         )
 
 
@@ -139,6 +152,8 @@ class MultilabelAccuracy(MulticlassAccuracy):
             ("num_correct", "num_total"),
             (input, target),
             (float(self.threshold), self.criteria),
+            masked_kernel=_multilabel_accuracy_update_masked,
+            batch_axes=_BATCH2,
         )
 
 
@@ -175,4 +190,6 @@ class TopKMultilabelAccuracy(MulticlassAccuracy):
             ("num_correct", "num_total"),
             (input, target),
             (self.criteria, self.k),
+            masked_kernel=_topk_multilabel_accuracy_update_masked,
+            batch_axes=_BATCH2,
         )

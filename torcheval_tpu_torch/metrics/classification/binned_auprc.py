@@ -68,7 +68,7 @@ class BinaryBinnedAUPRC(_BinnedCounters):
         if self.num_tasks == 1:
             # the (1, n) form counts into the (T,) state, not a (1, T) one
             input, target = input.reshape(-1), target.reshape(-1)
-        return self._counter_plan(_binary_binned_update_jit, input, target)
+        return self._counter_plan(_binary_binned_update_jit, None, input, target)
 
     def compute(self) -> torch.Tensor:
         return _binned_auprc_from_counts(self.num_tp, self.num_fp, self.num_fn)
@@ -108,7 +108,7 @@ class MulticlassBinnedAUPRC(_BinnedCounters):
     def _update_plan(self, input, target):
         input, target = self._input(input), self._input(target)
         _multiclass_auprc_update_input_check(input, target, self.num_classes)
-        return self._counter_plan(_MULTICLASS_KERNELS[self.optimization], input, target)
+        return self._counter_plan(_MULTICLASS_KERNELS[self.optimization], None, input, target)
 
     def compute(self) -> torch.Tensor:
         auprc = _binned_auprc_from_counts(self.num_tp.T, self.num_fp.T, self.num_fn.T)
@@ -149,7 +149,7 @@ class MultilabelBinnedAUPRC(_BinnedCounters):
     def _update_plan(self, input, target):
         input, target = self._input(input), self._input(target)
         _multilabel_auprc_update_input_check(input, target, self.num_labels)
-        return self._counter_plan(_MULTILABEL_KERNELS[self.optimization], input, target)
+        return self._counter_plan(_MULTILABEL_KERNELS[self.optimization], None, input, target)
 
     def compute(self) -> torch.Tensor:
         auprc = _binned_auprc_from_counts(self.num_tp.T, self.num_fp.T, self.num_fn.T)

@@ -1,7 +1,8 @@
 """Binned precision-recall curve class metrics (counterpart of
 ``torcheval_tpu/metrics/classification/binned_precision_recall_curve.py``):
 float32 ``(T,)`` or ``(T, C)`` counters with ``SUM`` merge, so replicas
-sync by one sum instead of shipping examples."""
+sync by one sum instead of shipping examples. Every plan declares its
+mask-aware twin; the threshold grid has no ragged axis."""
 
 from __future__ import annotations
 
@@ -14,9 +15,12 @@ from torcheval_tpu_torch.metrics.functional.classification.binned_precision_reca
     ThresholdLike,
     _binary_binned_compute_jit,
     _binary_binned_update_jit,
+    _binary_binned_update_masked_jit,
     _MULTICLASS_KERNELS,
+    _MULTICLASS_MASKED_KERNELS,
     _multiclass_binned_precision_recall_curve_compute,
     _MULTILABEL_KERNELS,
+    _MULTILABEL_MASKED_KERNELS,
     _optimization_param_check,
 )
 from torcheval_tpu_torch.metrics.functional.classification.precision_recall_curve import (
@@ -40,9 +44,13 @@ class _BinnedCounters(Metric):
         for name in ("num_tp", "num_fp", "num_fn"):
             self._add_state(name, torch.zeros(shape), merge=MergeKind.SUM)
 
-    def _counter_plan(self, kernel, input, target) -> UpdatePlan:
+    def _counter_plan(self, kernel, masked_kernel, input, target) -> UpdatePlan:
         return UpdatePlan(
-            kernel, ("num_tp", "num_fp", "num_fn"), (narrow_64(input), target, self.threshold)
+            kernel,
+            ("num_tp", "num_fp", "num_fn"),
+            (narrow_64(input), target, self.threshold),
+            masked_kernel=masked_kernel,
+            batch_axes=(("batch",), ("batch",), None),
         )
 
     def update(self, input, target):
@@ -71,7 +79,9 @@ class BinaryBinnedPrecisionRecallCurve(_BinnedCounters):
     def _update_plan(self, input, target):
         input, target = self._input(input), self._input(target)
         _binary_precision_recall_curve_update_input_check(input, target)
-        return self._counter_plan(_binary_binned_update_jit, input, target)
+        return self._counter_plan(
+            _binary_binned_update_jit, _binary_binned_update_masked_jit, input, target
+        )
 
     def compute(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         precision, recall = _binary_binned_compute_jit(self.num_tp, self.num_fp, self.num_fn)
@@ -111,7 +121,12 @@ class MulticlassBinnedPrecisionRecallCurve(_BinnedCounters):
     def _update_plan(self, input, target):
         input, target = self._input(input), self._input(target)
         _multiclass_precision_recall_curve_update_input_check(input, target, self.num_classes)
-        return self._counter_plan(_MULTICLASS_KERNELS[self.optimization], input, target)
+        return self._counter_plan(
+            _MULTICLASS_KERNELS[self.optimization],
+            _MULTICLASS_MASKED_KERNELS[self.optimization],
+            input,
+            target,
+        )
 
     def compute(self) -> Tuple[List[torch.Tensor], List[torch.Tensor], torch.Tensor]:
         return _multiclass_binned_precision_recall_curve_compute(
@@ -150,7 +165,12 @@ class MultilabelBinnedPrecisionRecallCurve(_BinnedCounters):
     def _update_plan(self, input, target):
         input, target = self._input(input), self._input(target)
         _multilabel_precision_recall_curve_update_input_check(input, target, self.num_labels)
-        return self._counter_plan(_MULTILABEL_KERNELS[self.optimization], input, target)
+        return self._counter_plan(
+            _MULTILABEL_KERNELS[self.optimization],
+            _MULTILABEL_MASKED_KERNELS[self.optimization],
+            input,
+            target,
+        )
 
     def compute(self) -> Tuple[List[torch.Tensor], List[torch.Tensor], torch.Tensor]:
         return _multiclass_binned_precision_recall_curve_compute(

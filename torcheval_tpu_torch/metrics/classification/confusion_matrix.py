@@ -12,10 +12,12 @@ import torch
 from torcheval_tpu_torch.metrics.functional.classification.confusion_matrix import (
     _binary_confusion_matrix_update_input_check,
     _binary_confusion_matrix_update_jit,
+    _binary_confusion_matrix_update_masked,
     _confusion_matrix_compute,
     _confusion_matrix_param_check,
     _confusion_matrix_update_input_check,
     _confusion_matrix_update_jit,
+    _confusion_matrix_update_masked,
 )
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
@@ -82,6 +84,8 @@ class MulticlassConfusionMatrix(Metric[torch.Tensor]):
             ("confusion_matrix",),
             (input, target),
             (self.num_classes,),
+            masked_kernel=_confusion_matrix_update_masked,
+            batch_axes=(("batch",), ("batch",)),
         )
 
     def update(self: TMulticlassConfusionMatrix, input, target) -> TMulticlassConfusionMatrix:
@@ -126,4 +130,6 @@ class BinaryConfusionMatrix(MulticlassConfusionMatrix):
             ("confusion_matrix",),
             (input, target),
             (float(self.threshold),),
+            masked_kernel=_binary_confusion_matrix_update_masked,
+            batch_axes=(("batch",), ("batch",)),
         )

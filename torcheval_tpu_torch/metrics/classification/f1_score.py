@@ -11,10 +11,12 @@ import torch
 from torcheval_tpu_torch.metrics.functional.classification.f1_score import (
     _binary_f1_score_update_input_check,
     _binary_f1_score_update_jit,
+    _binary_f1_score_update_masked,
     _f1_score_compute,
     _f1_score_param_check,
     _f1_score_update_input_check,
     _f1_score_update_jit,
+    _f1_score_update_masked,
 )
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
@@ -57,6 +59,8 @@ class MulticlassF1Score(Metric[torch.Tensor]):
             ("num_tp", "num_label", "num_prediction"),
             (input, target),
             (self.num_classes, self.average),
+            masked_kernel=_f1_score_update_masked,
+            batch_axes=(("batch",), ("batch",)),
         )
 
     def update(self: TF1Score, input, target) -> TF1Score:
@@ -91,4 +95,6 @@ class BinaryF1Score(MulticlassF1Score):
             ("num_tp", "num_label", "num_prediction"),
             (input, target),
             (float(self.threshold),),
+            masked_kernel=_binary_f1_score_update_masked,
+            batch_axes=(("batch",), ("batch",)),
         )

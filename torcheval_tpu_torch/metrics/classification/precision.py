@@ -11,10 +11,12 @@ import torch
 from torcheval_tpu_torch.metrics.functional.classification.precision import (
     _binary_precision_update_input_check,
     _binary_precision_update_jit,
+    _binary_precision_update_masked,
     _precision_compute,
     _precision_param_check,
     _precision_update_input_check,
     _precision_update_jit,
+    _precision_update_masked,
 )
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
@@ -62,6 +64,8 @@ class MulticlassPrecision(Metric[torch.Tensor]):
             ("num_tp", "num_fp", "num_label"),
             (input, target),
             (self.num_classes, self.average),
+            masked_kernel=_precision_update_masked,
+            batch_axes=(("batch",), ("batch",)),
         )
 
     def update(self: TPrecision, input, target) -> TPrecision:
@@ -94,4 +98,6 @@ class BinaryPrecision(MulticlassPrecision):
             ("num_tp", "num_fp", "num_label"),
             (input, target),
             (float(self.threshold),),
+            masked_kernel=_binary_precision_update_masked,
+            batch_axes=(("batch",), ("batch",)),
         )

@@ -12,10 +12,12 @@ import torch
 from torcheval_tpu_torch.metrics.functional.classification.recall import (
     _binary_recall_update_input_check,
     _binary_recall_update_jit,
+    _binary_recall_update_masked,
     _recall_compute,
     _recall_param_check,
     _recall_update_input_check,
     _recall_update_jit,
+    _recall_update_masked,
 )
 from torcheval_tpu_torch.metrics.functional.tensor_utils import nan_safe_divide
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
@@ -64,6 +66,8 @@ class MulticlassRecall(Metric[torch.Tensor]):
             ("num_tp", "num_labels", "num_predictions"),
             (input, target),
             (self.num_classes, self.average),
+            masked_kernel=_recall_update_masked,
+            batch_axes=(("batch",), ("batch",)),
         )
 
     def update(self: TRecall, input, target) -> TRecall:
@@ -98,6 +102,8 @@ class BinaryRecall(Metric[torch.Tensor]):
             ("num_tp", "num_true_labels"),
             (input, target),
             (float(self.threshold),),
+            masked_kernel=_binary_recall_update_masked,
+            batch_axes=(("batch",), ("batch",)),
         )
 
     def update(self, input, target) -> "BinaryRecall":

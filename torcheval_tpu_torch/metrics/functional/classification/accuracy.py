@@ -3,7 +3,11 @@
 Counterpart of ``torcheval_tpu/metrics/functional/classification/accuracy.py``
 (``_multiclass_accuracy_update`` :49, ``_accuracy_compute`` :109, the param
 and input checks, ``multiclass_accuracy``, ``binary_accuracy``,
-``multilabel_accuracy`` :410, ``topk_multilabel_accuracy`` :443). Per-class
+``multilabel_accuracy`` :410, ``topk_multilabel_accuracy`` :443, and the
+mask-aware twins of shape bucketing: ``_multiclass_accuracy_update_masked``
+:77, ``_binary_accuracy_update_masked`` :230, ``_multilabel_update_masked``
+:295, ``_multilabel_accuracy_update_masked`` :328,
+``_topk_multilabel_accuracy_update_masked`` :354). Per-class
 counts use ``segment_sum`` with the JAX package's drop semantics for
 targets outside ``[0, num_classes)``; top-k correctness uses the same
 rank-count rule (an example is correct iff fewer than k classes score
@@ -22,6 +26,7 @@ from torcheval_tpu_torch.config import debug_validation_enabled
 from torcheval_tpu_torch.metrics.functional.tensor_utils import (
     correct_mask,
     segment_sum,
+    valid_mask,
 )
 from torcheval_tpu_torch.ops.topk import topk
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
@@ -44,13 +49,9 @@ def _debug_check_target_range(target: torch.Tensor, num_classes: Optional[int]) 
 # ---------------------------------------------------------------- multiclass
 
 
-def _multiclass_accuracy_update(
-    input: torch.Tensor,
-    target: torch.Tensor,
-    average: Optional[str],
-    num_classes: Optional[int],
-    k: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+def _correct(input: torch.Tensor, target: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-row float32 correctness: argmax (or label) match for k = 1, the
+    rank count for k > 1."""
     if k == 1:
         if input.ndim == 2:
             mask = correct_mask(input, target)
@@ -69,7 +70,17 @@ def _multiclass_accuracy_update(
         )
         rank = torch.sum(input > target_score, dim=-1)
         mask = (rank < k).to(torch.float32)
+    return mask
 
+
+def _multiclass_accuracy_update(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    average: Optional[str],
+    num_classes: Optional[int],
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    mask = _correct(input, target, k)
     if average == "micro":
         return (
             torch.sum(mask),
@@ -77,6 +88,26 @@ def _multiclass_accuracy_update(
         )
     num_correct = segment_sum(mask, target, num_classes)
     num_total = segment_sum(torch.ones_like(mask), target, num_classes)
+    return num_correct, num_total
+
+
+def _multiclass_accuracy_update_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    valid_sizes: torch.Tensor,
+    average: Optional[str],
+    num_classes: Optional[int],
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask-aware twin of ``_multiclass_accuracy_update`` (shape
+    bucketing): rows at index >= ``valid_sizes[0]`` are padding and add
+    exactly zero to both counters."""
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    mask = _correct(input, target, k) * valid
+    if average == "micro":
+        return torch.sum(mask), torch.sum(valid)
+    num_correct = segment_sum(mask, target, num_classes)
+    num_total = segment_sum(valid, target, num_classes)
     return num_correct, num_total
 
 
@@ -190,6 +221,15 @@ def _binary_accuracy_update(
     return num_correct, torch.full((), float(target.shape[0]), device=input.device)
 
 
+def _binary_accuracy_update_masked(
+    input: torch.Tensor, target: torch.Tensor, valid_sizes: torch.Tensor, threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    pred = torch.where(input < threshold, 0, 1)
+    num_correct = torch.sum((pred == target).to(torch.float32) * valid)
+    return num_correct, torch.sum(valid)
+
+
 def _binary_accuracy_update_input_check(
     input: torch.Tensor, target: torch.Tensor
 ) -> None:
@@ -244,6 +284,29 @@ def _multilabel_update(
     return torch.sum(torch.all(input_label - target <= 0, dim=1)).to(torch.float32), n
 
 
+def _multilabel_update_masked(
+    input_label: torch.Tensor, target: torch.Tensor, valid: torch.Tensor, criteria: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_multilabel_update`` with padded rows excluded from both counts."""
+    n = torch.sum(valid)
+    if criteria == "exact_match":
+        row = torch.all(input_label == target, dim=1).to(torch.float32)
+        return torch.sum(row * valid), n
+    if criteria == "hamming":
+        hit = (input_label == target).to(torch.float32) * valid[:, None]
+        return torch.sum(hit), n * float(target.shape[1])
+    if criteria == "overlap":
+        hit = torch.any((input_label == target) & (input_label == 1), dim=1)
+        all_negative = torch.all((input_label == 0) & (target == 0), dim=1)
+        return torch.sum((hit | all_negative).to(torch.float32) * valid), n
+    if criteria == "contain":
+        row = torch.all(input_label - target >= 0, dim=1).to(torch.float32)
+        return torch.sum(row * valid), n
+    # belong
+    row = torch.all(input_label - target <= 0, dim=1).to(torch.float32)
+    return torch.sum(row * valid), n
+
+
 def _multilabel_accuracy_update(
     input: torch.Tensor, target: torch.Tensor, threshold: float, criteria: str
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -251,14 +314,40 @@ def _multilabel_accuracy_update(
     return _multilabel_update(input_label, target, criteria)
 
 
-def _topk_multilabel_accuracy_update(
-    input: torch.Tensor, target: torch.Tensor, criteria: str, k: int
+def _multilabel_accuracy_update_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    valid_sizes: torch.Tensor,
+    threshold: float,
+    criteria: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    input_label = torch.where(input < threshold, 0, 1)
+    return _multilabel_update_masked(input_label, target, valid, criteria)
+
+
+def _topk_labels(input: torch.Tensor, target: torch.Tensor, k: int) -> torch.Tensor:
     # exactly k predicted labels a row, ties to the lower index
     _, idx = topk(input, k)
     input_label = torch.zeros(input.shape, dtype=target.dtype, device=input.device)
-    input_label.scatter_(1, idx.to(torch.int64), 1)
-    return _multilabel_update(input_label, target, criteria)
+    return input_label.scatter_(1, idx.to(torch.int64), 1)
+
+
+def _topk_multilabel_accuracy_update(
+    input: torch.Tensor, target: torch.Tensor, criteria: str, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _multilabel_update(_topk_labels(input, target, k), target, criteria)
+
+
+def _topk_multilabel_accuracy_update_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    valid_sizes: torch.Tensor,
+    criteria: str,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    return _multilabel_update_masked(_topk_labels(input, target, k), target, valid, criteria)
 
 
 def _multilabel_accuracy_param_check(criteria: str) -> None:

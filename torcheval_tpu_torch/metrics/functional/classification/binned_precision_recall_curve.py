@@ -22,6 +22,12 @@ count it at every threshold, while the ``vectorized`` compare
 (``NaN >= t`` is false) counts it at none -- the JAX package's two modes
 differ there too, and the port keeps each. 64-bit scores are compared in
 float32, the width the JAX package holds them in.
+
+Each kernel has a mask-aware twin for shape bucketing (binary :71,
+multiclass :189/:208, multilabel :338/:356 in the JAX module): a padded
+sample carries weight 0 in the histograms, is never above a threshold in
+the ``vectorized`` compares, and is left out of the positive counts that
+feed ``num_fn``.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from torcheval_tpu_torch.metrics.functional.tensor_utils import (
     create_threshold_tensor,
     nan_safe_divide,
     searchsorted_right,
+    valid_mask,
 )
 from torcheval_tpu_torch.ops.segment import safe_ids, segment_sum
 from torcheval_tpu_torch.utils.convert import (
@@ -96,6 +103,24 @@ def _binary_binned_update_jit(
     num_fn = torch.sum(tgt, dim=-1).to(torch.float32)[:, None] - num_tp
     shape = input.shape[:-1] + (num_t,)
     return num_tp.reshape(shape), num_fp.reshape(shape), num_fn.reshape(shape)
+
+
+def _binary_binned_update_masked_jit(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    threshold: torch.Tensor,
+    valid_sizes: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mask-aware twin of ``_binary_binned_update_jit`` for (n,) scores."""
+    valid = valid_mask(input.shape[0], valid_sizes[0])
+    num_t = threshold.shape[0]
+    idx = _bin_index(input, threshold)
+    fused = torch.clamp(2 * idx + target.to(torch.int32), 0, 2 * num_t - 1)
+    weight = (idx >= 0).to(torch.float32) * valid
+    suffix = _suffix_sum(segment_sum(weight, fused, 2 * num_t).reshape(num_t, 2), dim=0)
+    num_fp, num_tp = suffix[:, 0], suffix[:, 1]
+    num_fn = torch.sum(target * valid).to(torch.float32) - num_tp
+    return num_tp, num_fp, num_fn
 
 
 def _binary_binned_compute_jit(
@@ -156,16 +181,37 @@ def _multiclass_binned_update_vectorized_jit(
     return num_tp, num_fp, num_fn
 
 
+def _multiclass_binned_update_vectorized_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    threshold: torch.Tensor,
+    valid_sizes: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    valid = valid_mask(input.shape[0], valid_sizes[0])
+    labels = (input[None] >= threshold[:, None, None]) & (valid[None, :, None] > 0)
+    onehot = _one_hot(target, input.shape[1]).to(torch.float32) * valid[:, None]
+    num_tp = torch.sum(labels * onehot[None], dim=1)
+    num_fp = torch.sum(labels, dim=1).to(torch.float32) - num_tp
+    num_fn = torch.sum(onehot, dim=0) - num_tp
+    return num_tp, num_fp, num_fn
+
+
 def _fused_histogram_counts(
-    idx: torch.Tensor, is_target: torch.Tensor, num_t: int
+    idx: torch.Tensor,
+    is_target: torch.Tensor,
+    num_t: int,
+    row_weight: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(num_tp, num_fp)``, (T, C), from (N, C) bins and target flags:
     one ``segment_sum`` of the fused ``2 * (C * bin + c) + is_target``
-    index, then suffix sums over the thresholds."""
+    index, then suffix sums over the thresholds. ``row_weight`` (N,)
+    scales each sample's weight (the bucketing mask)."""
     num_cols = idx.shape[1]
     cols = torch.arange(num_cols, device=idx.device)[None, :]
     fused = 2 * (num_cols * idx + cols) + is_target.to(torch.int32)
     valid = (idx >= 0).to(torch.float32)
+    if row_weight is not None:
+        valid = valid * row_weight[:, None]
     nbins = 2 * num_t * num_cols
     hist = segment_sum(valid.reshape(-1), torch.clamp(fused, 0, nbins - 1).reshape(-1), nbins)
     suffix = _suffix_sum(hist.reshape(num_t, num_cols, 2), dim=0)
@@ -187,9 +233,28 @@ def _multiclass_binned_update_memory_jit(
     return num_tp, num_fp, class_counts[None, :] - num_tp
 
 
+def _multiclass_binned_update_memory_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    threshold: torch.Tensor,
+    valid_sizes: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    num_classes = input.shape[1]
+    valid = valid_mask(input.shape[0], valid_sizes[0])
+    num_tp, num_fp = _fused_histogram_counts(
+        _bin_index(input, threshold), _one_hot(target, num_classes), threshold.shape[0], valid
+    )
+    class_counts = segment_sum(valid, safe_ids(target, num_classes), num_classes)
+    return num_tp, num_fp, class_counts[None, :] - num_tp
+
+
 _MULTICLASS_KERNELS = {
     "vectorized": _multiclass_binned_update_vectorized_jit,
     "memory": _multiclass_binned_update_memory_jit,
+}
+_MULTICLASS_MASKED_KERNELS = {
+    "vectorized": _multiclass_binned_update_vectorized_masked,
+    "memory": _multiclass_binned_update_memory_masked,
 }
 
 
@@ -272,9 +337,42 @@ def _multilabel_binned_update_memory_jit(
     return num_tp, num_fp, label_counts[None, :] - num_tp
 
 
+def _multilabel_binned_update_vectorized_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    threshold: torch.Tensor,
+    valid_sizes: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    valid = valid_mask(input.shape[0], valid_sizes[0])
+    labels = (input[None] >= threshold[:, None, None]) & (valid[None, :, None] > 0)
+    tmask = target.to(torch.float32) * valid[:, None]
+    num_tp = torch.sum(labels * tmask[None], dim=1)
+    num_fp = torch.sum(labels, dim=1).to(torch.float32) - num_tp
+    num_fn = torch.sum(tmask, dim=0) - num_tp
+    return num_tp, num_fp, num_fn
+
+
+def _multilabel_binned_update_memory_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    threshold: torch.Tensor,
+    valid_sizes: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    valid = valid_mask(input.shape[0], valid_sizes[0])
+    num_tp, num_fp = _fused_histogram_counts(
+        _bin_index(input, threshold), target, threshold.shape[0], valid
+    )
+    label_counts = torch.sum(target.to(torch.float32) * valid[:, None], dim=0)
+    return num_tp, num_fp, label_counts[None, :] - num_tp
+
+
 _MULTILABEL_KERNELS = {
     "vectorized": _multilabel_binned_update_vectorized_jit,
     "memory": _multilabel_binned_update_memory_jit,
+}
+_MULTILABEL_MASKED_KERNELS = {
+    "vectorized": _multilabel_binned_update_vectorized_masked,
+    "memory": _multilabel_binned_update_memory_masked,
 }
 
 

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from torcheval_tpu_torch.config import debug_validation_enabled
-from torcheval_tpu_torch.metrics.functional.tensor_utils import argmax_last
+from torcheval_tpu_torch.metrics.functional.tensor_utils import argmax_last, valid_mask
 from torcheval_tpu_torch.ops.segment import segment_count
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
 
@@ -42,6 +42,25 @@ def _binary_confusion_matrix_update_jit(
 ) -> torch.Tensor:
     pred = torch.where(input < threshold, 0, 1)
     return _confusion_matrix_update_jit(pred, target, 2)
+
+
+def _confusion_matrix_update_masked(
+    input: torch.Tensor, target: torch.Tensor, valid_sizes: torch.Tensor, num_classes: int
+) -> torch.Tensor:
+    """Mask-aware twin of ``_confusion_matrix_update_jit`` (shape
+    bucketing): padded rows count in no cell."""
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    flat = _confusion_matrix_flat_index(input, target, num_classes)
+    counts = segment_count(flat, num_classes * num_classes, mask=valid)
+    return counts.reshape(num_classes, num_classes)
+
+
+def _binary_confusion_matrix_update_masked(
+    input: torch.Tensor, target: torch.Tensor, valid_sizes: torch.Tensor, threshold: float
+) -> torch.Tensor:
+    return _confusion_matrix_update_masked(
+        torch.where(input < threshold, 0, 1), target, valid_sizes, 2
+    )
 
 
 def _l1_normalize(cm: torch.Tensor, dim: int) -> torch.Tensor:

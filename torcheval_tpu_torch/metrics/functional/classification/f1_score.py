@@ -19,6 +19,7 @@ from torcheval_tpu_torch.metrics.functional.tensor_utils import (
     argmax_last,
     nan_safe_divide,
     segment_sum,
+    valid_mask,
 )
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
 
@@ -41,6 +42,28 @@ def _f1_score_update_jit(
     num_label = segment_sum(ones, target, num_classes)
     num_prediction = segment_sum(ones, input.to(target.dtype), num_classes)
     tp_mask = (input == target).to(torch.float32)
+    num_tp = segment_sum(tp_mask, target, num_classes)
+    return num_tp, num_label, num_prediction
+
+
+def _f1_score_update_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    valid_sizes: torch.Tensor,
+    num_classes: Optional[int],
+    average: Optional[str],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mask-aware twin of ``_f1_score_update_jit`` (shape bucketing)."""
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    if input.ndim == 2:
+        input = argmax_last(input)
+    if average == "micro":
+        num_tp = torch.sum((input == target).to(torch.float32) * valid)
+        num_label = torch.sum(valid)
+        return num_tp, num_label, num_label
+    num_label = segment_sum(valid, target, num_classes)
+    num_prediction = segment_sum(valid, input.to(target.dtype), num_classes)
+    tp_mask = (input == target).to(torch.float32) * valid
     num_tp = segment_sum(tp_mask, target, num_classes)
     return num_tp, num_label, num_prediction
 
@@ -149,6 +172,17 @@ def _binary_f1_score_update_jit(
     pred = torch.where(input < threshold, 0, 1)
     num_tp = torch.sum(pred * target).to(torch.float32)
     num_label = torch.sum(target).to(torch.float32)
+    num_prediction = torch.sum(pred).to(torch.float32)
+    return num_tp, num_label, num_prediction
+
+
+def _binary_f1_score_update_masked(
+    input: torch.Tensor, target: torch.Tensor, valid_sizes: torch.Tensor, threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    pred = torch.where(input < threshold, 0, 1) * valid
+    num_tp = torch.sum(pred * target).to(torch.float32)
+    num_label = torch.sum(target * valid).to(torch.float32)
     num_prediction = torch.sum(pred).to(torch.float32)
     return num_tp, num_label, num_prediction
 

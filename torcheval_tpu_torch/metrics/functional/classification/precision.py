@@ -20,6 +20,7 @@ from torcheval_tpu_torch.metrics.functional.tensor_utils import (
     argmax_last,
     nan_safe_divide,
     segment_sum,
+    valid_mask,
 )
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
 
@@ -43,6 +44,28 @@ def _precision_update_jit(
     tp_mask = (input == target).to(torch.float32)
     num_tp = segment_sum(tp_mask, target, num_classes)
     num_fp = segment_sum(1.0 - tp_mask, input.to(target.dtype), num_classes)
+    return num_tp, num_fp, num_label
+
+
+def _precision_update_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    valid_sizes: torch.Tensor,
+    num_classes: Optional[int],
+    average: Optional[str],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mask-aware twin of ``_precision_update_jit`` (shape bucketing)."""
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    if input.ndim == 2:
+        input = argmax_last(input)
+    if average == "micro":
+        num_tp = torch.sum((input == target).to(torch.float32) * valid)
+        num_fp = torch.sum((input != target).to(torch.float32) * valid)
+        return num_tp, num_fp, torch.zeros((), device=target.device)
+    num_label = segment_sum(valid, target, num_classes)
+    tp_mask = (input == target).to(torch.float32) * valid
+    num_tp = segment_sum(tp_mask, target, num_classes)
+    num_fp = segment_sum(valid - tp_mask, input.to(target.dtype), num_classes)
     return num_tp, num_fp, num_label
 
 
@@ -136,6 +159,16 @@ def _binary_precision_update_jit(
     input: torch.Tensor, target: torch.Tensor, threshold: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     pred = torch.where(input < threshold, 0, 1)
+    num_tp = torch.sum(pred * target, dim=-1).to(torch.float32)
+    num_fp = torch.sum(pred, dim=-1).to(torch.float32) - num_tp
+    return num_tp, num_fp, torch.zeros((), device=input.device)
+
+
+def _binary_precision_update_masked(
+    input: torch.Tensor, target: torch.Tensor, valid_sizes: torch.Tensor, threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    pred = torch.where(input < threshold, 0, 1) * valid
     num_tp = torch.sum(pred * target, dim=-1).to(torch.float32)
     num_fp = torch.sum(pred, dim=-1).to(torch.float32) - num_tp
     return num_tp, num_fp, torch.zeros((), device=input.device)

@@ -3,7 +3,7 @@
 
 An update returns the (per-output) sum of squared errors and the weight
 sum; the compute divides with the signed clamp of the weight sum. The
-mask-aware twins of the JAX package wait for shape bucketing.
+mask-aware twins (shape bucketing) treat a padded row as a weight-0 row.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from torcheval_tpu_torch.metrics.functional.tensor_utils import xla_mean
+from torcheval_tpu_torch.metrics.functional.tensor_utils import valid_mask, xla_mean
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch_float
 
 # the JAX package clamps with float64's eps, rounded to float32 in its
@@ -37,6 +37,27 @@ def _update_weighted(
         sample_weight = sample_weight[:, None]
     sum_squared_error = torch.sum(squared_error * sample_weight, dim=0)
     return sum_squared_error, torch.sum(sample_weight, dim=0).squeeze()
+
+
+def _update_unweighted_masked(
+    input: torch.Tensor, target: torch.Tensor, valid_sizes: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask-aware twin of ``_update_unweighted``: a padded row's squared
+    error is zeroed and it adds nothing to the weight sum."""
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    squared_error = torch.square(target - input)
+    w = valid[:, None] if squared_error.ndim == 2 else valid
+    return torch.sum(squared_error * w, dim=0), torch.sum(valid)
+
+
+def _update_weighted_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    sample_weight: torch.Tensor,
+    valid_sizes: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    return _update_weighted(input, target, sample_weight * valid)
 
 
 def _mean_squared_error_update(

@@ -4,7 +4,8 @@
 An update returns the sufficient statistics (sum of y^2, sum of y, the
 residual sum of squares and a float32 observation count); the compute
 reads the count on the host for its sample-count checks, as the JAX
-package does. The mask-aware twin waits for shape bucketing.
+package does. The mask-aware twin (shape bucketing) adds zero for a padded
+row to all four statistics.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from torcheval_tpu_torch.metrics.functional.tensor_utils import xla_mean
+from torcheval_tpu_torch.metrics.functional.tensor_utils import valid_mask, xla_mean
 from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch_float
 
 
@@ -23,8 +24,21 @@ def _update(
     sum_squared_obs = torch.sum(torch.square(target), dim=0)
     sum_obs = torch.sum(target, dim=0)
     sum_squared_residual = torch.sum(torch.square(target - input), dim=0)
-    n = torch.tensor(float(target.shape[0]), dtype=torch.float32, device=target.device)
+    # a fill, not a host-to-device copy: the update never synchronizes
+    n = torch.full((), float(target.shape[0]), dtype=torch.float32, device=target.device)
     return sum_squared_obs, sum_obs, sum_squared_residual, n
+
+
+def _update_masked(
+    input: torch.Tensor, target: torch.Tensor, valid_sizes: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mask-aware twin of ``_update`` (shape bucketing)."""
+    valid = valid_mask(target.shape[0], valid_sizes[0])
+    w = valid[:, None] if target.ndim == 2 else valid
+    sum_squared_obs = torch.sum(torch.square(target) * w, dim=0)
+    sum_obs = torch.sum(target * w, dim=0)
+    sum_squared_residual = torch.sum(torch.square(target - input) * w, dim=0)
+    return sum_squared_obs, sum_obs, sum_squared_residual, torch.sum(valid)
 
 
 def _compute(

@@ -69,7 +69,11 @@ def correct_mask(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def valid_mask(n: int, valid, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     """Length-``n`` mask with ``valid`` leading ones (the shape-bucketing
-    validity row of the JAX package's masked kernel twins)."""
+    validity row of the masked kernel twins). ``valid`` may be a Python
+    int or a tensor count, which is compared on its own device and never
+    read back to the host, so a CUDA graph replays it with any count."""
+    if device is None and isinstance(valid, torch.Tensor):
+        device = valid.device
     return (torch.arange(n, device=device) < valid).to(dtype)
 
 

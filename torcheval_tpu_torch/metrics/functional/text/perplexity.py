@@ -21,9 +21,10 @@ target's log-probability and a masked sum: linear memory, no host sync.
   divided by the int32 count it gives a float32 perplexity.
 
 Under ``config.debug_validation`` a target past the vocabulary raises
-(the check reads the targets back to the host). Not ported: the
-mask-aware twin (shape bucketing) and the native CPU cross-entropy kernel
-(torch ops take its place).
+(the check reads the targets back to the host). The mask-aware twin
+(shape bucketing) masks the batch and the sequence axes apart: a padded
+token adds no NLL and no count, as an ignored one. Not ported: the native
+CPU cross-entropy kernel (torch ops take its place).
 """
 
 from __future__ import annotations
@@ -60,6 +61,14 @@ def _clip_index(target: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.clamp(wrapped, 0, vocab - 1)
 
 
+def _token_log_probs(input: torch.Tensor, flat_target: torch.Tensor) -> torch.Tensor:
+    """Each target's log-probability, one a token (the input's dtype)."""
+    vocab = input.shape[-1]
+    log_probs = _log_softmax(input.reshape(-1, vocab))
+    index = _clip_index(flat_target, vocab)
+    return torch.gather(log_probs, 1, index[:, None]).squeeze(-1)
+
+
 def _perplexity_update_jit(
     input: torch.Tensor,
     target: torch.Tensor,
@@ -67,11 +76,8 @@ def _perplexity_update_jit(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Summed negative log-likelihood (in the input's dtype) and the int32
     count of the targets that are not ignored."""
-    vocab = input.shape[-1]
-    log_probs = _log_softmax(input.reshape(-1, vocab))
     flat_target = target.reshape(-1)
-    index = _clip_index(flat_target, vocab)
-    token_log_probs = torch.gather(log_probs, 1, index[:, None]).squeeze(-1)
+    token_log_probs = _token_log_probs(input, flat_target)
     if ignore_index is not None:
         keep = flat_target != ignore_index
         token_log_probs = torch.where(keep, token_log_probs, 0.0)
@@ -81,6 +87,26 @@ def _perplexity_update_jit(
             flat_target.shape[0], dtype=torch.int32, device=flat_target.device
         )
     return -torch.sum(token_log_probs), num_total
+
+
+def _perplexity_update_masked_jit(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    valid_sizes: torch.Tensor,
+    ignore_index: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask-aware twin of ``_perplexity_update_jit``: ``valid_sizes =
+    [valid_batch, valid_seq]``, each axis masked on its own."""
+    n, s = target.shape
+    rows = torch.arange(n, device=target.device)[:, None] < valid_sizes[0]
+    cols = torch.arange(s, device=target.device)[None, :] < valid_sizes[1]
+    keep = (rows & cols).reshape(-1)
+    flat_target = target.reshape(-1)
+    token_log_probs = _token_log_probs(input, flat_target)
+    if ignore_index is not None:
+        keep = keep & (flat_target != ignore_index)
+    token_log_probs = torch.where(keep, token_log_probs, 0.0)
+    return -torch.sum(token_log_probs), torch.sum(keep).to(torch.int32)
 
 
 def _perplexity_compute(

@@ -8,26 +8,34 @@ declarative merge kinds -- in eager PyTorch:
 - State is torch tensors (plus Python int/float and list/dict containers)
   on ``self.device``: CUDA unless the metric was built with
   ``device="cpu"`` (see ``utils.convert.canonicalize_device``).
-- An update plan runs eagerly: ``states += kernel(*dynamic, *config)``,
-  or, for an ``UpdatePlan`` with ``transform=True``,
-  ``states = kernel(states, *dynamic, *config)``. There is no jit and no
-  plan cache. A transform kernel may update a state tensor in place;
-  ``state_dict()`` therefore hands out copies and ``load_state_dict``
-  copies what it takes. A plan's ``finalize`` (host-side, optional) runs
-  after its states are set: a windowed metric advances its ring cursor
-  there.
+- An update plan runs through ``metrics/_fuse.py``:
+  ``states += kernel(*dynamic, *config)``, or, for an ``UpdatePlan`` with
+  ``transform=True``, ``states = kernel(states, *dynamic, *config)``. A
+  plan's ``finalize`` (host-side, optional) runs after its states are set:
+  a windowed metric advances its ring cursor there.
+- Shape bucketing (``config.shape_bucketing``): a plan that declares
+  ``masked_kernel`` and ``batch_axes`` is padded to its power-of-two
+  bucket first (``metrics/_bucket.py``); on CUDA, under donation, that
+  bucketed update is one CUDA-graph replay.
+- Donation (``config.update_donation``, on by default for CUDA metrics):
+  the new state is written into the live state tensor in place. So
+  ``state_dict()`` hands out copies, ``load_state_dict`` copies what it
+  takes, ``reset()`` writes the defaults into the live tensors, and a
+  ``compute()`` result that would be a state tensor itself is copied
+  (``_shield_compute_output``).
 - Under ``config.validate_inputs`` every float input of ``update`` is
   checked for NaN/Inf (``_guard_finite``); off by default, since the check
   reads the input back to the host.
 
-Left for later slices: shard bookkeeping, routing outboxes, donation,
-shape bucketing, mesh shardings and the observability wrappers.
+Left for later slices: shard bookkeeping, routing outboxes, mesh
+shardings and the observability wrappers.
 """
 
 from __future__ import annotations
 
 import copy
 import enum
+import functools
 import warnings
 from abc import ABC, abstractmethod
 from typing import Any, Dict, Generic, Iterable, List, NamedTuple, TypeVar, Union
@@ -54,6 +62,17 @@ class UpdatePlan(NamedTuple):
     ``transform=False``: ``states += kernel(*dynamic, *config)``.
     ``transform=True``: ``states = kernel(states, *dynamic, *config)``.
     ``finalize`` (host-side, optional) runs after the new states are set.
+
+    ``masked_kernel`` + ``batch_axes`` opt the plan into shape bucketing
+    (``metrics/_bucket.py``): under ``config.shape_bucketing()``, batch
+    axes are zero-padded to power-of-two buckets and
+    ``masked_kernel(*padded_dynamic, valid_sizes, *config)`` runs instead;
+    it must make padded rows contribute exactly zero to every state, and
+    must read ``valid_sizes`` (int32, on the metric's device) as a tensor,
+    never as a host number, so one CUDA graph serves every count.
+    ``batch_axes`` names the ragged axes of each dynamic argument: one
+    tuple of dim labels per argument (positional from axis 0; ``None`` or
+    empty for arguments with no ragged axis).
     """
 
     kernel: Any
@@ -62,6 +81,8 @@ class UpdatePlan(NamedTuple):
     config: tuple = ()
     transform: bool = False
     finalize: Any = None
+    masked_kernel: Any = None
+    batch_axes: tuple = ()
 
 
 class MergeKind(enum.Enum):
@@ -75,9 +96,9 @@ class MergeKind(enum.Enum):
     CUSTOM = "custom"  # subclass overrides merge_state / _merge_custom_state
 
 
-def _clone_state(value: TState) -> TState:
-    """An independent copy: tensors are mutable, and a transform kernel
-    may update a live state in place."""
+def _clone_state(value: Any) -> Any:
+    """An independent copy: tensors are mutable, and an update may write
+    a live state in place."""
     if isinstance(value, torch.Tensor):
         return value.detach().clone()
     if isinstance(value, list):
@@ -87,29 +108,24 @@ def _clone_state(value: TState) -> TState:
     return copy.deepcopy(value)
 
 
-def _run_plan(plan, states: tuple) -> tuple:
-    """Execute one update plan eagerly; returns the new state tuple."""
-    if isinstance(plan, UpdatePlan):
-        kernel, dynamic, config, transform = (
-            plan.kernel, plan.dynamic, plan.config, plan.transform
-        )
-    else:
-        kernel, _, dynamic, *rest = plan
-        config, transform = (rest[0] if rest else ()), False
-    if transform:
-        out = kernel(states, *dynamic, *config)
-    else:
-        out = kernel(*dynamic, *config)
-    if not isinstance(out, tuple):
-        out = (out,)
-    if len(out) != len(states):
-        raise ValueError(
-            f"update kernel {getattr(kernel, '__name__', kernel)!r} returned "
-            f"{len(out)} outputs for {len(states)} states"
-        )
-    if transform:
+def _shield_compute_output(metric: "Metric", out: Any) -> Any:
+    """Copy the tensors of a ``compute()`` result while donation is
+    active: several computes return a STATE tensor itself (``Sum``, the
+    confusion matrix with ``normalize=None``), and the next in-place update
+    would change a value the caller already holds. Without donation this
+    is a no-op (computes stay zero-copy)."""
+    if not metric._donation_active():
         return out
-    return tuple(s + d for s, d in zip(states, out))
+    return _clone_state(out)
+
+
+def _shielded(fn):
+    @functools.wraps(fn)
+    def compute(self, *args, **kwargs):
+        return _shield_compute_output(self, fn(self, *args, **kwargs))
+
+    compute._shielded = True
+    return compute
 
 
 class Metric(Generic[TComputeReturn], ABC):
@@ -124,6 +140,31 @@ class Metric(Generic[TComputeReturn], ABC):
         self._state_name_to_default: Dict[str, TState] = {}
         self._state_name_to_merge_kind: Dict[str, MergeKind] = {}
         self._device: torch.device = canonicalize_device(device)
+
+    def __init_subclass__(cls, **kwargs: Any) -> None:
+        """Wrap a concrete ``compute`` defined on this class with the
+        donation shield (``_shield_compute_output``); inherited ones were
+        wrapped where they were defined."""
+        super().__init_subclass__(**kwargs)
+        fn = cls.__dict__.get("compute")
+        if (
+            fn is not None
+            and callable(fn)
+            and not getattr(fn, "__isabstractmethod__", False)
+            and not getattr(fn, "_shielded", False)
+        ):
+            cls.compute = _shielded(fn)
+
+    # Donation: while True -- and ``config.update_donation_enabled`` holds
+    # for this metric's device (on for CUDA by default) -- updates write
+    # each new state into the live state tensor in place. State tensors
+    # must therefore never escape the metric: ``state_dict`` copies,
+    # ``compute`` results are shielded. A subclass whose states alias
+    # outside tensors opts out by setting this False.
+    _donated_update: bool = True
+
+    def _donation_active(self) -> bool:
+        return self._donated_update and config.update_donation_enabled(self._device)
 
     # ------------------------------------------------------------------ state
 
@@ -224,14 +265,40 @@ class Metric(Generic[TComputeReturn], ABC):
         return None
 
     def _apply_update_plan(self: TSelf, plan) -> TSelf:
-        """Run one update plan against this metric's states, then its
-        ``finalize``."""
-        names = plan.state_names if isinstance(plan, UpdatePlan) else plan[1]
-        states = tuple(getattr(self, n) for n in names)
-        for name, value in zip(names, _run_plan(plan, states)):
+        """Run one update plan against this metric's states: bucketed
+        first when it declares a masked kernel, then through
+        ``metrics/_fuse.py`` -- one CUDA-graph replay when bucketed on CUDA
+        under donation, eager otherwise -- then its ``finalize``. The
+        trailing ``config`` of a tuple plan may be omitted."""
+        from torcheval_tpu_torch.metrics._bucket import apply_bucketing
+        from torcheval_tpu_torch.metrics._fuse import (
+            fused_accumulate,
+            fused_transform,
+            graphed_update_possible,
+        )
+
+        donate = self._donation_active()
+        if isinstance(plan, UpdatePlan):
+            graph = graphed_update_possible((self,))
+            rewritten = apply_bucketing(plan, lazy=graph)
+            graph = graph and rewritten is not plan
+            plan = rewritten
+            states = tuple(getattr(self, n) for n in plan.state_names)
+            run = fused_transform if plan.transform else fused_accumulate
+            new_states = run(
+                plan.kernel, states, plan.dynamic, plan.config, donate=donate, graph=graph
+            )
+            for name, value in zip(plan.state_names, new_states):
+                setattr(self, name, value)
+            if plan.finalize is not None:
+                plan.finalize()
+            return self
+        kernel, state_names, dynamic, *rest = plan
+        config_ = rest[0] if rest else ()
+        states = tuple(getattr(self, n) for n in state_names)
+        new_states = fused_accumulate(kernel, states, dynamic, config_, donate=donate)
+        for name, value in zip(state_names, new_states):
             setattr(self, name, value)
-        if isinstance(plan, UpdatePlan) and plan.finalize is not None:
-            plan.finalize()
         return self
 
     @abstractmethod
@@ -282,9 +349,25 @@ class Metric(Generic[TComputeReturn], ABC):
     # ------------------------------------------------------------------ reset
 
     def reset(self: TSelf) -> TSelf:
-        """Restore every state to its registered default on ``self.device``."""
+        """Restore every state to its registered default on ``self.device``.
+
+        Under donation a tensor state whose default has its dtype and
+        shape is overwritten in place, so the tensors -- and the CUDA
+        graphs that write them -- outlive the reset."""
+        donate = self._donation_active()
         for name, default in self._state_name_to_default.items():
-            setattr(self, name, self._place_state(_clone_state(default)))
+            live = getattr(self, name, None)
+            if (
+                donate
+                and isinstance(live, torch.Tensor)
+                and isinstance(default, torch.Tensor)
+                and live.dtype == default.dtype
+                and live.shape == default.shape
+                and live.device == self._device
+            ):
+                live.copy_(default, non_blocking=True)
+            else:
+                setattr(self, name, self._place_state(_clone_state(default)))
         return self
 
     # ---------------------------------------------------------- serialization

@@ -6,8 +6,10 @@ float32 ``weighted_input_sum`` and ``weighted_target_sum``,
 Besides the dense update (``(num_tasks, n)`` inputs), ``update(input,
 target, weight, task_ids=...)`` takes a stream of per-event rows, each
 with its task id: one segment sum a counter, ids outside
-``[0, num_tasks)`` dropped (``ops.segment.safe_ids``). Sharding over the
-task axis (``shard=``) is not ported yet.
+``[0, num_tasks)`` dropped (``ops.segment.safe_ids``); under shape
+bucketing its plan pads the row axis and its twin sends padded rows to
+the dropped id. Sharding over the task axis (``shard=``) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -44,6 +46,21 @@ def _wc_scatter_rows(
         segment.segment_sum(w * input.to(torch.float32), ids, num_tasks),
         segment.segment_sum(w * target.to(torch.float32), ids, num_tasks),
     )
+
+
+def _wc_scatter_rows_masked(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    weight: torch.Tensor,
+    task_ids: torch.Tensor,
+    valid: torch.Tensor,
+    num_tasks: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shape-bucketing twin of ``_wc_scatter_rows``: padded rows take the
+    ``-1`` id, which every segment sum drops."""
+    row_ok = torch.arange(task_ids.shape[0], device=task_ids.device) < valid[0]
+    ids = torch.where(row_ok, task_ids, torch.full_like(task_ids, -1))
+    return _wc_scatter_rows(input, target, weight, ids, num_tasks)
 
 
 class WeightedCalibration(Metric[torch.Tensor]):
@@ -119,7 +136,8 @@ class WeightedCalibration(Metric[torch.Tensor]):
                 f"`task_ids` shape ({tuple(task_ids.shape)}) must match "
                 f"`input` shape ({tuple(input.shape)})"
             )
-        if isinstance(weight, (float, int)):
+        is_scalar = isinstance(weight, (float, int))
+        if is_scalar:
             weight = torch.full((), float(weight), dtype=torch.float32, device=self.device)
         elif weight.shape != input.shape:
             raise ValueError(
@@ -131,6 +149,8 @@ class WeightedCalibration(Metric[torch.Tensor]):
             ("weighted_input_sum", "weighted_target_sum"),
             (input, target, weight, task_ids),
             (self.num_tasks,),
+            masked_kernel=_wc_scatter_rows_masked,
+            batch_axes=(("n",), ("n",), () if is_scalar else ("n",), ("n",)),
         )
 
     def update(

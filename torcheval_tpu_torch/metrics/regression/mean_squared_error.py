@@ -1,7 +1,8 @@
 """MeanSquaredError class metric (counterpart of
 ``torcheval_tpu/metrics/regression/mean_squared_error.py``). The states
 start as scalars and broadcast to per-output sums under addition, so the
-SUM merge covers a replica that saw 2-D input."""
+SUM merge covers a replica that saw 2-D input. Both plans declare their
+mask-aware twins for shape bucketing."""
 
 from __future__ import annotations
 
@@ -14,9 +15,11 @@ from torcheval_tpu_torch.metrics.functional.regression.mean_squared_error import
     _mean_squared_error_param_check,
     _mean_squared_error_update_input_check,
     _update_unweighted,
+    _update_unweighted_masked,
     _update_weighted,
+    _update_weighted_masked,
 )
-from torcheval_tpu_torch.metrics.metric import MergeKind, Metric
+from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
 
 TMeanSquaredError = TypeVar("TMeanSquaredError", bound="MeanSquaredError")
@@ -61,8 +64,16 @@ class MeanSquaredError(Metric[torch.Tensor]):
         _mean_squared_error_update_input_check(input, target, sample_weight)
         names = ("sum_squared_error", "sum_weight")
         if sample_weight is None:
-            return (_update_unweighted, names, (input, target), ())
-        return (_update_weighted, names, (input, target, sample_weight), ())
+            return UpdatePlan(
+                _update_unweighted, names, (input, target),
+                masked_kernel=_update_unweighted_masked,
+                batch_axes=(("batch",), ("batch",)),
+            )
+        return UpdatePlan(
+            _update_weighted, names, (input, target, sample_weight),
+            masked_kernel=_update_weighted_masked,
+            batch_axes=(("batch",), ("batch",), ("batch",)),
+        )
 
     def compute(self) -> torch.Tensor:
         """The MSE; NaN before any update."""

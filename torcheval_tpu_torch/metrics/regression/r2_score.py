@@ -1,7 +1,8 @@
 """R2Score class metric (counterpart of
 ``torcheval_tpu/metrics/regression/r2_score.py``). The sufficient
 statistics start as scalars and broadcast to per-output sums under
-addition; ``num_obs`` is a float32 counter, as in the JAX package."""
+addition; ``num_obs`` is a float32 counter, as in the JAX package. The
+plan declares its mask-aware twin for shape bucketing."""
 
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ from torcheval_tpu_torch.metrics.functional.regression.r2_score import (
     _r2_score_param_check,
     _r2_score_update_input_check,
     _update as _r2_update_kernel,
+    _update_masked as _r2_update_kernel_masked,
 )
-from torcheval_tpu_torch.metrics.metric import MergeKind, Metric
+from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
 
 TR2Score = TypeVar("TR2Score", bound="R2Score")
@@ -57,11 +59,12 @@ class R2Score(Metric[torch.Tensor]):
         input = self._input_float(input)
         target = self._input_float(target)
         _r2_score_update_input_check(input, target)
-        return (
+        return UpdatePlan(
             _r2_update_kernel,
             ("sum_squared_obs", "sum_obs", "sum_squared_residual", "num_obs"),
             (input, target),
-            (),
+            masked_kernel=_r2_update_kernel_masked,
+            batch_axes=(("batch",), ("batch",)),
         )
 
     def update(self: TR2Score, input, target) -> TR2Score:

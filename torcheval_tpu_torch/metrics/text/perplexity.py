@@ -1,7 +1,8 @@
 """Perplexity class metric (counterpart of
 ``torcheval_tpu/metrics/text/perplexity.py``): a float32 ``sum_log_probs``
 and an int32 ``num_total`` (an exact counter: a float32 one would stop
-counting at 2^24 tokens), both ``SUM``-merged."""
+counting at 2^24 tokens), both ``SUM``-merged. Under shape bucketing both
+the batch and the sequence axes bucket."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from torcheval_tpu_torch.metrics.functional.text.perplexity import (
     _perplexity_input_check,
     _perplexity_inputs,
     _perplexity_update_jit,
+    _perplexity_update_masked_jit,
 )
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
 from torcheval_tpu_torch.utils.convert import DeviceLike
@@ -58,6 +60,8 @@ class Perplexity(Metric[torch.Tensor]):
             ("sum_log_probs", "num_total"),
             (input, target),
             (self.ignore_index,),
+            masked_kernel=_perplexity_update_masked_jit,
+            batch_axes=(("batch", "seq"), ("batch", "seq")),
         )
 
     def update(self: TPerplexity, input, target) -> TPerplexity:

@@ -7,7 +7,9 @@ processes (each metric's ``_sync_state_dict()`` gathered through
 ``synclib.sync_states``, then merged rank by rank, in ascending rank
 order, into clones; a process outside a subgroup gets its metrics back
 untouched), ``update_collection`` (every plan built, and so validated,
-before any runs; then each runs eagerly in turn), ``classwise_converter``,
+before any runs; under shape bucketing the bucketed plans run as one
+group -- one CUDA-graph replay on the card -- and the rest as another),
+``classwise_converter``,
 ``clone_metric(s)``, ``reset_metrics`` and ``to_device``.
 
 Left for later slices: sync provenance, resilience policies, the
@@ -29,7 +31,10 @@ from torcheval_tpu_torch.distributed import (
     default_process_group,
 )
 from torcheval_tpu_torch.metrics import synclib
-from torcheval_tpu_torch.metrics.metric import Metric, TState
+from torcheval_tpu_torch.metrics._bucket import apply_bucketing
+from torcheval_tpu_torch.metrics._fuse import fused_accumulate_group, graphed_update_possible
+from torcheval_tpu_torch.metrics.metric import Metric, TState, UpdatePlan
+from torcheval_tpu_torch.utils.convert import shared_conversion_cache
 
 _logger: logging.Logger = logging.getLogger(__name__)
 
@@ -214,10 +219,20 @@ def update_collection(
     """Update every metric on the same batch.
 
     Every metric's update plan is built first -- each plan validates its
-    inputs -- so a batch that any plan rejects raises before any metric
-    has changed. Metrics without a plan then update themselves, and the
-    plans run eagerly in turn. Returns the input collection, updated in
-    place.
+    inputs, and under shape bucketing is padded to its bucket, which
+    checks its batch axes agree -- so a batch that any plan rejects raises
+    before any metric has changed. Metrics without a plan then update
+    themselves (a batch only their own ``update`` rejects can leave
+    earlier ones of them updated), and the plans run.
+
+    Under ``config.shape_bucketing()`` the plans rewritten for their
+    bucket form one group and the rest another, as in the JAX package, so
+    a metric without a masked kernel cannot make the bucketed group's
+    shape follow the ragged batch. On CUDA, under donation, the bucketed
+    group is ONE CUDA-graph replay per bucket; the other group runs
+    eagerly. One pad is made per shared argument, and inside the call each
+    input is converted once (``utils.convert.shared_conversion_cache``).
+    Returns the input collection, updated in place.
 
     >>> import torch
     >>> from torcheval_tpu_torch.metrics import MulticlassAccuracy, MulticlassF1Score
@@ -230,18 +245,50 @@ def update_collection(
     tensor(1.)
     """
     items = list(metrics.values() if isinstance(metrics, dict) else metrics)
-    planned = []
     fallback: List[Metric] = []
-    for metric in items:
-        plan = metric._update_plan(*args, **kwargs)
-        if plan is None:
-            fallback.append(metric)
-        else:
-            planned.append((metric, plan))
-    for metric in fallback:
-        metric.update(*args, **kwargs)
-    for metric, plan in planned:
-        metric._apply_update_plan(plan)
+    groups: Dict[bool, list] = {False: [], True: []}  # bucketed -> members
+    pad_cache: dict = {}  # one pad per (tensor, bucket) across the panel
+    with shared_conversion_cache():
+        for metric in items:
+            plan = metric._update_plan(*args, **kwargs)
+            if plan is None:
+                fallback.append(metric)
+                continue
+            bucketed = False
+            if isinstance(plan, UpdatePlan):
+                lazy = graphed_update_possible((metric,))
+                rewritten = apply_bucketing(plan, pad_cache, lazy=lazy)
+                bucketed = rewritten is not plan
+                plan = rewritten
+                kernel, names, dynamic, config = (
+                    plan.kernel, plan.state_names, plan.dynamic, plan.config
+                )
+                transform, finalize = plan.transform, plan.finalize
+            else:
+                kernel, names, dynamic, *rest = plan
+                config = rest[0] if rest else ()
+                transform, finalize = False, None
+            states = tuple(getattr(metric, n) for n in names)
+            groups[bucketed].append(
+                (metric, names, finalize, (kernel, states, dynamic, config, transform))
+            )
+        # fallbacks validate inside their own update: after every plan
+        for metric in fallback:
+            metric.update(*args, **kwargs)
+    for bucketed, members in groups.items():
+        if not members:
+            continue
+        group_metrics = [m for m, _, _, _ in members]
+        donate = all(m._donation_active() for m in group_metrics)
+        graph = bucketed and graphed_update_possible(group_metrics)
+        new_states_group = fused_accumulate_group(
+            [p for _, _, _, p in members], donate=donate, graph=graph
+        )
+        for (metric, names, finalize, _), new_states in zip(members, new_states_group):
+            for name, value in zip(names, new_states):
+                setattr(metric, name, value)
+            if finalize is not None:
+                finalize()
     return metrics
 
 

@@ -6,6 +6,9 @@ arrays, Python scalars and sequences, as the JAX package's
 the JAX package's default (x64 disabled) so both packages compute on the
 same values; torch tensors keep their dtype.
 
+Within ``shared_conversion_cache()`` (``toolkit.update_collection``
+opens one) ``to_torch`` converts each source object once.
+
 ``numpy_state_dict`` / ``load_numpy_state_dict`` carry a metric's state
 between this package and the JAX package through numpy: the JAX
 package's ``state_dict()`` read out as numpy loads here, and the reverse.
@@ -13,13 +16,42 @@ package's ``state_dict()`` read out as numpy loads here, and the reverse.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+import contextvars
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
 TensorLike = Any  # torch.Tensor | np.ndarray | scalar | sequence
 DeviceLike = Union[torch.device, str, None]
+
+# per-call shared conversion memo (see shared_conversion_cache); None =
+# off, the default for a plain metric.update
+_CONVERSION_CACHE: "contextvars.ContextVar[Optional[dict]]" = contextvars.ContextVar(
+    "torcheval_tpu_torch_conversion_cache", default=None
+)
+
+
+@contextmanager
+def shared_conversion_cache() -> Iterator[None]:
+    """Scope within which ``to_torch`` memoizes conversions per source
+    object and target dtype and device.
+
+    ``toolkit.update_collection`` feeds ONE batch to K metrics; without
+    this each metric's ``_input`` would convert (and for a numpy input,
+    copy to the card) the same arrays K times. Sharing one converted
+    tensor among the K metrics is safe only because no update kernel
+    writes its inputs: the kernels read them, and the bucketing pads copy
+    them. Keys are ``id``-based with the source pinned in the entry, so
+    id reuse after garbage collection cannot alias; the cache must not
+    outlive the call that created it.
+    """
+    token = _CONVERSION_CACHE.set({})
+    try:
+        yield
+    finally:
+        _CONVERSION_CACHE.reset(token)
 
 
 def canonicalize_device(device: DeviceLike) -> torch.device:
@@ -64,6 +96,24 @@ def to_torch(
 ) -> torch.Tensor:
     """Coerce ``x`` to a tensor on ``device`` (no copy when it is already
     there with the right dtype)."""
+    cache = _CONVERSION_CACHE.get()
+    if cache is not None:
+        key = (id(x), dtype, device)
+        hit = cache.get(key)
+        if hit is not None and hit[0] is x:
+            return hit[1]
+        t = _to_torch_impl(x, dtype=dtype, device=device)
+        cache[key] = (x, t)  # pin the source: id is only valid while alive
+        return t
+    return _to_torch_impl(x, dtype=dtype, device=device)
+
+
+def _to_torch_impl(
+    x: TensorLike,
+    *,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         t = x.detach()
         if (device is None or t.device == device) and (dtype is None or t.dtype == dtype):
