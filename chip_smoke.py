@@ -202,6 +202,41 @@ phases, printing one JSON line for each:
    binned curves, MSE weighted and not, R2) graphed against eager at
    small shapes; two ``MulticlassAccuracy`` metrics on two streams with
    graphs of their own; a ``reset()`` that keeps its graphs.
+14. ``elastic``: fault-tolerant sync and elastic snapshot/resume. The
+   Criteo stream of phase 2 (1,361 batches of 65,536, each batch drawn
+   from a seed of its own) is split into four contiguous quarters, one a
+   rank of a ``ThreadWorld(4)`` (four threads on the one card), each
+   feeding the DLRM panel (``BinaryNormalizedEntropy``,
+   ``ClickThroughRate``, ``WeightedCalibration``, ``StreamingBinaryAUROC``
+   and ``StreamingBinaryAUPRC`` at 8,192 bins on K1) and an exact
+   ``BinaryAUROC`` over its first 2^22 samples (the cut: a whole quarter
+   would make each snapshot about 1.6 GB over the four ranks) under
+   ``ElasticSession(interval=100)``. A ``SnapshotCrashPlan`` kills rank 1
+   in the middle of its shard of generation 2; its peers time out in the
+   digest gather. A ``ThreadWorld(4)`` restores generation 1 (each rank
+   bitwise its old state) and runs the resilience checks over it:
+   ``ResilientGroup(policy="quorum")`` against the bare group (bitwise
+   equal, equal gather counts, sync seconds the median of 3), rank 3 dead
+   under ``quorum=0.75`` (ranks 0-2 merged bitwise, degraded, within the
+   deadline plus 1 s), the ``raise`` policy (a typed
+   ``SyncTimeoutError``), a corrupt payload (rank 1 dropped and counted),
+   re-formation after two degraded syncs (``world_size=3``,
+   ``reformed=True``). A ``ThreadWorld(2)`` restores it at world 2, fences
+   the counted steps and finishes the stream: the synced panel bitwise
+   equal to an in-memory oracle of the same merge order and within 1e-5
+   of float64 over the whole stream; then ``corrupt_shard`` on the newest
+   generation, and the restore falls back one generation and matches
+   again. K1 must launch once a streaming update before and after the
+   restore. Timed: drained-queue ms a batch with no session, a
+   synchronous writer and ``async_writer=True``, the snapshot steps, the
+   restores. Then ``launcher.launch`` runs two gloo workers (this script
+   with ``--elastic-worker``), each with CUDA metrics under
+   ``ElasticSession(async_writer=True)`` on ``MultiHostGroup``, synced
+   through ``ResilientGroup`` with rank 1 a slow peer; a relaunch at world
+   1 restores their last generation and must equal their synced merge
+   bitwise. Last, phase 13's ImageNet panel under shape bucketing is
+   snapshotted, restored into the same metric objects and fed on, bitwise
+   equal to the eager panel, captures within ``bucket_bound``.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -209,7 +244,7 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 13 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 14 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -225,6 +260,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -234,8 +270,13 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from torcheval_tpu_torch import config  # noqa: E402
-from torcheval_tpu_torch.distributed import LocalReplicaGroup, MultiHostGroup  # noqa: E402
+from torcheval_tpu_torch import config, launcher  # noqa: E402
+from torcheval_tpu_torch.distributed import (  # noqa: E402
+    LocalReplicaGroup,
+    MultiHostGroup,
+    ProcessGroup,
+)
+from torcheval_tpu_torch.elastic import ElasticSession, _assign_shards  # noqa: E402
 from torcheval_tpu_torch.metrics import (  # noqa: E402
     AUC,
     BinaryAccuracy,
@@ -323,6 +364,15 @@ from torcheval_tpu_torch.metrics.image.fid import (  # noqa: E402
 )
 from torcheval_tpu_torch.models.inception import FEATURE_DIM, init_inception_params  # noqa: E402
 from torcheval_tpu_torch.ops import _kernels, topk  # noqa: E402
+from torcheval_tpu_torch.resilience import ResilientGroup, SyncTimeoutError  # noqa: E402
+from torcheval_tpu_torch.utils.test_utils import (  # noqa: E402
+    FaultInjectionGroup,
+    FaultSpec,
+    InjectedCrash,
+    SnapshotCrashPlan,
+    ThreadWorld,
+    corrupt_shard,
+)
 fa = importlib.import_module("torcheval_tpu_torch.ops.fused_auc")  # the module, not ops.fused_auc
 from torcheval_tpu_torch.ops.fused_auc import (  # noqa: E402
     K1Geometry,
@@ -3976,6 +4026,572 @@ def phase_bucket(device, classify_n=IMAGENET_VAL, num_classes=1000, batch=1024,
             "perplexity": ppl, "twins": twins, "streams": streams}
 
 
+# ------------------------------------------------------------- elastic
+
+ELASTIC_WORLD = 4
+ELASTIC_INTERVAL = 100
+EXACT_PER_RANK = 1 << 22  # the exact AUROC's samples a rank: ~50 MB of buffers
+SYNC_DEADLINE = 2.0  # ResilientGroup(timeout=...) of the elastic phase, seconds
+MP_WORLD = 2
+_STREAMING = ("auroc", "auprc")  # K1 once each an update
+
+
+def _elastic_panel(device, num_bins=NUM_BINS):
+    """The DLRM eval panel of the elastic phase, plus an exact AUROC whose
+    buffers give a snapshot real bytes."""
+    return {
+        "ne": BinaryNormalizedEntropy(device=device),
+        "ctr": ClickThroughRate(device=device),
+        "calibration": WeightedCalibration(device=device),
+        "auroc": StreamingBinaryAUROC(num_bins=num_bins, device=device),
+        "auprc": StreamingBinaryAUPRC(num_bins=num_bins, device=device),
+        "exact": BinaryAUROC(device=device),
+    }
+
+
+def _elastic_batch(device, seed, index, n, batch):
+    """Batch ``index`` of the Criteo stream, drawn from a seed of its own
+    so any rank (or thread) can draw any batch."""
+    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + index)
+    return _clicks(gen, (min(batch, n - index * batch),), device)
+
+
+def _elastic_feed(panel, s, y, exact):
+    toolkit.update_collection({k: panel[k] for k in ("ne", "calibration") + _STREAMING}, s, y)
+    toolkit.update_collection({"ctr": panel["ctr"]}, y)
+    if exact:
+        panel["exact"].update(s, y)
+
+
+def _clone_panel(panel):
+    return {k: toolkit.clone_metric(m) for k, m in panel.items()}
+
+
+def _merged(panels):
+    """``panels[0]`` merged with the rest in order, as a rank-ordered sync
+    folds them (into clones)."""
+    out = _clone_panel(panels[0])
+    for k, m in out.items():
+        m.merge_state([p[k] for p in panels[1:]])
+    return out
+
+
+def _same_panel(a, b):
+    """Every metric's logical state (``_sync_state_dict``: a buffer's valid
+    prefix, whatever its capacity) bitwise equal between two panels."""
+    for k in b:
+        sa, sb = a[k]._sync_state_dict(), b[k]._sync_state_dict()
+        if sa.keys() != sb.keys() or not all(_same_state(sa[n], sb[n]) for n in sb):
+            return False
+    return True
+
+
+class _CountingGroup(ProcessGroup):
+    """Counts the gathers issued through it, forwarding each to ``inner``."""
+
+    def __init__(self, inner):
+        self._inner, self.object_gathers, self.array_gathers = inner, 0, 0
+
+    world_size = property(lambda self: self._inner.world_size)
+    rank = property(lambda self: self._inner.rank)
+    ranks = property(lambda self: self._inner.ranks)
+
+    def new_subgroup(self, ranks):
+        return self._inner.new_subgroup(ranks)
+
+    def allgather_object(self, obj):
+        self.object_gathers += 1
+        return self._inner.allgather_object(obj)
+
+    def allgather_array(self, x):
+        self.array_gathers += 1
+        return self._inner.allgather_array(x)
+
+
+def _shard_bytes(directory, generation):
+    gen_dir = os.path.join(directory, f"gen-{generation:08d}")
+    return sorted(os.path.getsize(os.path.join(gen_dir, f)) for f in os.listdir(gen_dir)
+                  if f.startswith("shard-"))
+
+
+def _device_state_bytes(panel):
+    """Bytes of one ``state_dict()`` clone of the panel on the card: what
+    a snapshot holds there until its host copy is done."""
+    return sum(v.numel() * v.element_size() for m in panel.values()
+               for v in m.state_dict().values()
+               if isinstance(v, torch.Tensor) and v.device.type == "cuda")
+
+
+def _resilience_checks(g, panel, old, deadline):
+    """One rank of the resilience sub-phase over restored world-4 state:
+    returns its records. ``old`` holds every rank's state for the oracles."""
+    out = {}
+    bare, wrapped = _CountingGroup(g), _CountingGroup(g)
+    rg = ResilientGroup(wrapped, timeout=deadline, policy="quorum")
+    secs = {"bare": [], "resilient": []}
+    got = {}
+    for name, group in (("bare", bare), ("resilient", rg)) * 3:
+        t0 = time.perf_counter()
+        got[name] = toolkit.get_synced_metric_collection(panel, group)
+        secs[name].append(time.perf_counter() - t0)
+    out["happy_bitwise"] = _same_panel(got["resilient"], got["bare"]) and _same_panel(
+        got["bare"], _merged(old))
+    out["gathers"] = {"bare": [bare.object_gathers, bare.array_gathers],
+                      "resilient": [wrapped.object_gathers, wrapped.array_gathers]}
+    out["sync_seconds"] = {k: _median(v) for k, v in secs.items()}
+    out["happy_provenance"] = list(got["resilient"]["ne"].sync_provenance.ranks)
+
+    dead = FaultInjectionGroup(g, dead_ranks={3})
+    if g.rank == 3:  # the dying rank still joins the exchanges it sends into
+        toolkit.get_synced_metric_collection(panel, g)
+    else:
+        rg = ResilientGroup(dead, timeout=deadline, policy="quorum", quorum=0.75)
+        t0 = time.perf_counter()
+        synced = toolkit.get_synced_metric_collection(panel, rg)
+        out["dead_seconds"] = time.perf_counter() - t0
+        prov = synced["ne"].sync_provenance
+        out["dead_provenance"] = [list(prov.ranks), prov.world_size, prov.degraded]
+        out["dead_bitwise"] = _same_panel(synced, _merged(old[:3]))
+        out["dead_health"] = rg.health.as_dict()
+    if g.rank == 3:
+        g.allgather_object(None)  # its metadata, then it is gone
+    else:
+        rg = ResilientGroup(FaultInjectionGroup(g, dead_ranks={3}), timeout=deadline,
+                            retries=0, policy="raise")
+        t0 = time.perf_counter()
+        try:
+            toolkit.get_synced_metric_collection(panel, rg)
+            out["raise_error"] = None
+        except SyncTimeoutError as e:
+            out["raise_error"] = type(e).__name__
+        out["raise_seconds"] = time.perf_counter() - t0
+
+    chaos = FaultInjectionGroup(g, [FaultSpec(call=1, kind="corrupt", rank=1)], seed=g.rank)
+    rg = ResilientGroup(chaos, timeout=deadline, policy="quorum", quorum=0.75)
+    synced = toolkit.get_synced_metric_collection(panel, rg)
+    out["corrupt_provenance"] = list(synced["ne"].sync_provenance.ranks)
+    out["corrupt_counted"] = rg.health.corrupt_payloads
+    out["corrupt_bitwise"] = _same_panel(synced, _merged([old[0], old[2], old[3]]))
+
+    if g.rank == 3:
+        for _ in range(2):
+            toolkit.get_synced_metric_collection(panel, g)
+    else:
+        rg = ResilientGroup(FaultInjectionGroup(g, dead_ranks={3}), timeout=deadline,
+                            policy="quorum", quorum=0.75, reform_after=2)
+        provs = []
+        for _ in range(3):
+            synced = toolkit.get_synced_metric_collection(panel, rg)
+            p = synced["ne"].sync_provenance
+            provs.append([list(p.ranks), p.world_size, p.degraded, p.reformed])
+        out["reform_provenance"] = provs
+        out["reform_bitwise"] = _same_panel(synced, _merged(old[:3]))
+        out["reforms"] = rg.health.reforms
+    return out
+
+
+def _elastic_timing(device, seed, n, batch, steps, interval, exact_steps, directory):
+    """Drained-queue wall ms per batch of the panel with no session, a
+    synchronous writer and the async writer (world of one), the snapshot
+    steps' ms, the async drain, the shard bytes and the clone's device
+    bytes."""
+    out = {}
+    for mode in ("none", "sync", "async"):
+        panel = _elastic_panel(device)
+        d = os.path.join(directory, f"timing-{mode}")
+        session = (None if mode == "none" else
+                   ElasticSession(panel, d, interval=interval, async_writer=mode == "async"))
+        ms, snap_ms = [], []
+        for step in range(steps):
+            s, y = _elastic_batch(device, seed, step, n, batch)
+            _sync(device)
+            t0 = time.perf_counter()
+            _elastic_feed(panel, s, y, step < exact_steps)
+            if session is not None:
+                session.step_done(step)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if session is not None and (step + 1) % interval == 0:
+                snap_ms.append(ms[-1])
+        row = {"ms_per_batch_median": _median(ms), "ms_per_batch_mean": sum(ms) / len(ms),
+               "batches": steps}
+        if session is not None:
+            t0 = time.perf_counter()
+            session.close()
+            row["close_ms"] = (time.perf_counter() - t0) * 1e3
+            row["snapshot_step_ms"] = snap_ms
+            row["shard_bytes"] = _shard_bytes(d, session.snapshots_written - 1)
+        out[mode] = row
+    out["clone_device_bytes"] = _device_state_bytes(panel)
+    return out
+
+
+def _elastic_worker(config_json):
+    """One process of the elastic phase's launcher step, started by
+    ``launcher.launch`` as ``chip_smoke.py --elastic-worker <json>``:
+    first launch (world 2), its contiguous share of a short stream under
+    ``ElasticSession(async_writer=True)`` on ``MultiHostGroup`` (the
+    dedicated snapshot communicator), then a sync through
+    ``ResilientGroup`` with rank 1 a slow peer; relaunch (world 1),
+    restore and read the restored panel. Writes its result with
+    ``torch.save``."""
+    cfg = json.loads(config_json)
+    rank = launcher.init_from_env(timeout=120.0)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    try:
+        group = MultiHostGroup()
+        panel = _elastic_panel(device)
+        session = ElasticSession(panel, cfg["dir"], process_group=group,
+                                 interval=cfg["interval"], async_writer=True)
+        restored = session.restore()
+        _kernels.reset_launch_counts()
+        fed = 0
+        if restored is None:
+            mine = _assign_shards(cfg["batches"], group.world_size)[group.rank]
+            for step, index in enumerate(mine):
+                s, y = _elastic_batch(device, cfg["seed"], index, cfg["n"], cfg["batch"])
+                _elastic_feed(panel, s, y, step < cfg["exact_steps"])
+                session.step_done(step)
+                fed += 1
+        session.close()
+        result = {"restored": None if restored is None else list(restored.assigned_ranks),
+                  "restored_step": None if restored is None else restored.step,
+                  "fed": fed, "launches": _kernels.LAUNCHES["fused_auc_hist"],
+                  "dedicated_comm": session._comm is not group}
+        if group.world_size > 1:
+            inner = group if rank == 0 else FaultInjectionGroup(
+                group, [FaultSpec(call=0, kind="delay", seconds=cfg["slow_seconds"])])
+            rg = ResilientGroup(inner, timeout=cfg["slow_deadline"] if rank else 60.0,
+                                retries=2, policy="raise", backoff_base=0.05)
+            t0 = time.perf_counter()
+            synced = toolkit.get_synced_metric_collection(panel, rg)
+            result["sync_seconds"] = time.perf_counter() - t0
+            result["timeouts"] = rg.health.timeouts
+            result["calls"] = inner.calls if rank else None
+        else:
+            synced = panel
+        result["states"] = _cpu_states({k: m.state_dict() for k, m in synced.items()})
+        result["values"] = {k: _cpu_value(m.compute()) for k, m in synced.items()}
+        torch.save(result, os.path.join(cfg["dir"], f"{cfg['tag']}-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _elastic_processes(device, seed, n, batch, steps, interval, exact_steps, timeout):
+    """Two gloo workers through ``launcher.launch``, then a relaunch at
+    world 1 that restores their last committed generation."""
+    nb = MP_WORLD * steps
+    with tempfile.TemporaryDirectory() as d:
+        cfg = {"dir": d, "seed": seed, "n": min(n, nb * batch), "batch": batch,
+               "batches": nb, "interval": interval, "exact_steps": exact_steps,
+               "slow_seconds": 0.5, "slow_deadline": 0.25}
+        t0 = time.perf_counter()
+        launcher.launch(os.path.abspath(__file__),
+                        ["--elastic-worker", json.dumps(dict(cfg, tag="first"))],
+                        nproc=MP_WORLD, timeout=timeout)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launcher.launch(os.path.abspath(__file__),
+                        ["--elastic-worker", json.dumps(dict(cfg, tag="again"))],
+                        nproc=1, timeout=timeout)
+        again_s = time.perf_counter() - t0
+        first = [torch.load(os.path.join(d, f"first-rank{r}.pt"), weights_only=False)
+                 for r in range(MP_WORLD)]
+        again = torch.load(os.path.join(d, "again-rank0.pt"), weights_only=False)
+    for r, got in enumerate(first):
+        _check(got["restored"] is None and got["fed"] == steps, f"worker {r} did not run fresh")
+        _check(got["dedicated_comm"], f"worker {r}: the async writer shares the sync group")
+        _check(got["launches"] == len(_STREAMING) * steps, f"worker {r}: K1 launched {got['launches']}")
+        for k in got["values"]:
+            _check(_same_state(got["values"][k], first[0]["values"][k]), f"workers disagree on {k}")
+    _check(first[1]["timeouts"] >= 1 and first[1]["calls"] == 2,
+           f"slow peer: {first[1]['timeouts']} timeouts, {first[1]['calls']} gathers")
+    _check(again["restored"] == list(range(MP_WORLD)) and again["restored_step"] == steps,
+           f"relaunch restored {again['restored']} at {again['restored_step']}")
+    for k, v in first[0]["values"].items():
+        _check(_same_state(again["values"][k], v), f"relaunch {k} != the 2-process merge")
+        for name, state in first[0]["states"][k].items():
+            _check(_same_state(again["states"][k][name], state),
+                   f"relaunch state {k}.{name} != the 2-process merge")
+    return {"world": MP_WORLD, "steps_a_worker": steps, "interval": interval,
+            "launch_seconds": first_s, "relaunch_seconds": again_s,
+            "sync_seconds": [got["sync_seconds"] for got in first],
+            "slow_peer_timeouts": first[1]["timeouts"], "bitwise": sorted(first[0]["values"])}
+
+
+def _elastic_bucket(device, directory, n, num_classes, batch, variable, seed):
+    """The ImageNet-1k panel of the bucket phase under shape bucketing:
+    snapshot, one more batch, restore into the same metric objects (the
+    batch is undone), then the rest of the stream and the variable
+    schedule, states bitwise equal to the eager panel after every update."""
+    cuda = torch.device(device).type == "cuda"
+    graphed, eager = _classify_panel(device, num_classes), _classify_panel(device, num_classes)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def feed(panels, m):
+        x, y = _classify_batch(gen, m, num_classes, device)
+        with config.shape_bucketing():
+            toolkit.update_collection(graphed, x, y)
+        if "eager" in panels:
+            toolkit.update_collection(eager, x, y)
+        return _same_panel(graphed, eager)
+
+    sizes = [min(batch, n - start) for start in range(0, n, batch)]
+    half = len(sizes) // 2
+    ok = [feed(("eager",), m) for m in sizes[:half]]
+    session = ElasticSession(graphed, directory, interval=10**9)
+    session.snapshot()
+    session.close()
+    feed((), batch)  # into the graphed panel only: the restore must undo it
+    c0 = _captures()
+    session = ElasticSession(graphed, directory)
+    restored = session.restore()
+    session.close()
+    restored_bitwise = _same_panel(graphed, eager)
+    schedule = [int(v) for v in np.random.default_rng(seed).permutation(variable)]
+    ok += [feed(("eager",), m) for m in sizes[half:] + schedule]
+    captures = _captures() - c0
+    bound = bucket_bound(batch)
+    _check(restored is not None and restored_bitwise, "the restore did not give back the snapshot")
+    _check(all(ok), "a bucketed update after the restore differs from its eager twin")
+    if cuda:
+        _check(0 < captures <= bound, f"{captures} captures after the restore (bound {bound})")
+    return {"samples": n, "restored_at_batch": half, "updates_bitwise": len(ok),
+            "captures_after_restore": captures, "capture_bound": bound}
+
+
+def phase_elastic(device, n=CRITEO_EVAL, batch=CTR_BATCH, num_bins=NUM_BINS, world=ELASTIC_WORLD,
+                  interval=ELASTIC_INTERVAL, exact_per_rank=EXACT_PER_RANK, crash_timeout=10.0,
+                  deadline=SYNC_DEADLINE, timing_steps=100, timing_interval=25, mp_steps=32,
+                  mp_interval=8, mp_timeout=300, classify_n=IMAGENET_VAL // 2, num_classes=1000,
+                  cls_batch=1024, variable=VARIABLE_BATCH, seed=14):
+    """Fault-tolerant sync and elastic snapshot/resume over the Criteo
+    stream (see the module docstring)."""
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    batches = -(-n // batch)
+    shards = _assign_shards(batches, world)  # contiguous batch ranges a rank
+    steps = max(len(sh) for sh in shards)
+    exact_steps = exact_per_rank // batch
+    restore_step = 2 * interval  # generation 1 commits at step 2 * interval
+    _check(3 * interval <= min(len(sh) for sh in shards), "the stream is too short for 3 snapshots")
+
+    def batch_of(index):
+        return _elastic_batch(device, seed, index, n, batch)
+
+    def run_steps(panel, session, rank_batches, start):
+        """Steps ``start..steps`` of the given old ranks' batches, each
+        step feeding them in old-rank order; returns batches fed."""
+        fed = 0
+        for step in range(start, steps):
+            if not session.fence(step):
+                continue
+            for sh in rank_batches:
+                if step < len(sh):
+                    _elastic_feed(panel, *batch_of(sh[step]), step < exact_steps)
+                    fed += 1
+            session.step_done(step)
+        return fed
+
+    out = {"phase": "elastic", "device": str(device), "samples": n, "batch": batch,
+           "world": world, "interval": interval, "exact_samples_a_rank": exact_steps * batch}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "bundle")
+        # 1. world 4; rank 1 dies in the middle of its shard of generation 2
+        plan = SnapshotCrashPlan("mid-shard", at_snapshot=2, rank=1)
+        fed = [0] * world
+        _kernels.reset_launch_counts()
+
+        def body_crash(g):
+            panel = _elastic_panel(device, num_bins)
+            session = ElasticSession(panel, d, process_group=g, interval=interval, fault_hook=plan)
+            try:
+                for step, index in enumerate(shards[g.rank]):
+                    _elastic_feed(panel, *batch_of(index), step < exact_steps)
+                    fed[g.rank] += 1
+                    session.step_done(step, payload={"next_batch": index + 1})
+            except InjectedCrash:
+                return "crash"
+            except TimeoutError:  # its peers, blocked in the digest gather
+                return "timeout"
+            return "done"
+
+        # the rank threads by hand: ThreadWorld.run would bound the whole
+        # run by the gathers' deadline, which here must stay short
+        t1 = time.perf_counter()
+        views = ThreadWorld(world, timeout=crash_timeout).views
+        ends = [None] * world
+        threads = [threading.Thread(target=lambda r=r: ends.__setitem__(r, body_crash(views[r])))
+                   for r in range(world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["crash_run_seconds"] = time.perf_counter() - t1
+        launches_before = _kernels.LAUNCHES["fused_auc_hist"]
+        _check(plan.crashed and ends == ["timeout", "crash"] + ["timeout"] * (world - 2),
+               f"crash run ended {ends}")
+        _check(all(f == 3 * interval for f in fed), f"batches fed before the crash: {fed}")
+
+        # the in-memory oracle: every old rank's panel at the restored step,
+        # then the world-2 continuation in the restore's merge order, and
+        # float64 sums of the whole stream
+        ref = torch.zeros((1, 2, num_bins), dtype=torch.float64, device=device)
+        o = {k: torch.zeros((), dtype=torch.float64, device=device) for k in ("ce", "pos", "s")}
+        exact_s, exact_y = [], []
+
+        def oracle_feed(panel, index, exact):
+            s, y = batch_of(index)
+            _elastic_feed(panel, s, y, exact)
+            ref.add_(_oracle_hist(s[None], y[None], None, num_bins))
+            o["ce"] += _ce64(s, y, False).sum()
+            o["pos"] += y.double().sum()
+            o["s"] += s.double().sum()
+            if exact:
+                exact_s.append(s)
+                exact_y.append(y)
+
+        old = []
+        for r in range(world):
+            panel = _elastic_panel(device, num_bins)
+            for step in range(restore_step):
+                oracle_feed(panel, shards[r][step], step < exact_steps)
+            old.append(panel)
+        assign2 = _assign_shards(world, 2)
+        new = []
+        for ranks in assign2:
+            panel = _merged([old[r] for r in ranks])
+            for step in range(restore_step, steps):
+                for r in ranks:
+                    if step < len(shards[r]):
+                        oracle_feed(panel, shards[r][step], step < exact_steps)
+            new.append(panel)
+        final = _merged(new)
+
+        # 2. restore at world 4 (the same world), then the resilience checks
+        def body_same(g):
+            panel = _elastic_panel(device, num_bins)
+            session = ElasticSession(panel, d, process_group=g, interval=interval)
+            t = time.perf_counter()
+            restored = session.restore()
+            seconds = time.perf_counter() - t
+            same = _same_panel(panel, old[g.rank])
+            checks = _resilience_checks(g, panel, old, deadline)
+            session.close()
+            return restored, seconds, same, checks
+
+        res4 = ThreadWorld(world).run(body_same)
+        for r, (restored, _, same, _) in enumerate(res4):
+            _check(restored.generation == 1 and restored.step == restore_step
+                   and restored.assigned_ranks == (r,) and same,
+                   f"rank {r}: world-{world} restore {restored}, bitwise {same}")
+            _check(restored.payload == {"next_batch": shards[r][restore_step - 1] + 1},
+                   f"rank {r}: payload {restored.payload}")
+        rec = [c for _, _, _, c in res4]
+        for r, c in enumerate(rec):
+            _check(c["happy_bitwise"], f"rank {r}: resilient sync != bare sync != merge")
+            _check(c["gathers"]["bare"] == c["gathers"]["resilient"],
+                   f"rank {r}: collective counts {c['gathers']}")
+            _check(c["corrupt_provenance"] == [0, 2, 3] and c["corrupt_bitwise"],
+                   f"rank {r}: corrupt payload kept ranks {c['corrupt_provenance']}")
+            _check(c["corrupt_counted"] == 1, f"rank {r}: corrupt payloads counted {c['corrupt_counted']}")
+            if r == world - 1:
+                continue
+            _check(c["dead_provenance"] == [[0, 1, 2], world, True] and c["dead_bitwise"],
+                   f"rank {r}: dead-rank quorum {c['dead_provenance']}")
+            _check(c["dead_seconds"] <= deadline + 1.0, f"rank {r}: dead-rank sync took {c['dead_seconds']}")
+            _check(c["raise_error"] == "SyncTimeoutError" and c["raise_seconds"] <= deadline + 1.0,
+                   f"rank {r}: raise policy {c['raise_error']} after {c['raise_seconds']} s")
+            p = c["reform_provenance"]
+            _check(p[0][2] and not p[0][3] and p[1][3] and p[2] == [[0, 1, 2], 3, False, True]
+                   and c["reforms"] == 1 and c["reform_bitwise"], f"rank {r}: re-formation {p}")
+        out["resilience"] = {
+            "sync_seconds": {k: [c["sync_seconds"][k] for c in rec] for k in ("bare", "resilient")},
+            "gathers": rec[0]["gathers"], "dead_rank_seconds": [c["dead_seconds"] for c in rec[:3]],
+            "raise_seconds": [c["raise_seconds"] for c in rec[:3]],
+            "deadline": deadline, "quorum": 0.75,
+            "dead_provenance": rec[0]["dead_provenance"],
+            "corrupt_provenance": rec[0]["corrupt_provenance"],
+            "reform_provenance": rec[0]["reform_provenance"],
+            "dead_health": rec[0]["dead_health"],
+        }
+        out["restore_seconds_same_world"] = max(s for _, s, _, _ in res4)
+
+        # 3. restore at world 2, fence, finish; then fall back past a
+        # corrupt newest shard and finish again
+        _kernels.reset_launch_counts()
+
+        def body_small(g):
+            panel = _elastic_panel(device, num_bins)
+            session = ElasticSession(panel, d, process_group=g, interval=interval)
+            t = time.perf_counter()
+            restored = session.restore()  # warns on a skipped generation
+            seconds = time.perf_counter() - t
+            fed = run_steps(panel, session, [shards[r] for r in restored.assigned_ranks],
+                            restored.step)
+            session.close()
+            synced = toolkit.get_synced_metric_collection(panel, g)
+            return restored, seconds, fed, synced
+
+        def committed():
+            return sorted(int(x[4:]) for x in os.listdir(d) if x.startswith("gen-")
+                          and os.path.exists(os.path.join(d, x, "MANIFEST.json")))
+
+        results = []
+        for attempt in ("restore", "fallback"):
+            if attempt == "fallback":
+                newest = committed()[-1]
+                corrupt_shard(d, newest, rank=0, seed=seed)
+            got = ThreadWorld(2).run(body_small)
+            for j, (restored, _, _, synced) in enumerate(got):
+                _check(restored.generation == 1 and restored.world_size == world
+                       and restored.step == restore_step
+                       and restored.assigned_ranks == assign2[j],
+                       f"{attempt}: rank {j} restored {restored}")
+                _check(_same_panel(synced, final), f"{attempt}: rank {j} synced panel != oracle")
+            if attempt == "fallback":  # the corrupt generation was quarantined
+                _check(newest not in committed(), f"generation {newest} left after the fallback")
+            results.append(got)
+        launches_after = _kernels.LAUNCHES["fused_auc_hist"]
+        fed_after = sum(f for got in results for _, _, f, _ in got)
+        out["restore_seconds_4_to_2"] = max(s for _, s, _, _ in results[0])
+        out["restore_seconds_fallback"] = max(s for _, s, _, _ in results[1])
+        if cuda:
+            _check(launches_before == len(_STREAMING) * sum(fed),
+                   f"K1 launched {launches_before} times before the restore")
+            _check(launches_after == len(_STREAMING) * fed_after,
+                   f"K1 launched {launches_after} times after it, {fed_after} batches")
+        out["k1_launches"] = {"before_restore": launches_before, "after_restore": launches_after,
+                              "streaming_updates": [len(_STREAMING) * sum(fed),
+                                                    len(_STREAMING) * fed_after]}
+
+        # the whole-stream float64 oracle
+        synced = results[0][0][3]
+        n64 = torch.tensor(float(n), dtype=torch.float64, device=device)
+        es, ey = torch.cat(exact_s), torch.cat(exact_y)
+        want = {"ne": o["ce"] / n64 / _entropy64(o["pos"], n64), "ctr": o["pos"] / n64,
+                "calibration": o["s"] / o["pos"], "auroc": _auc64(ref)[0],
+                "auprc": _auprc64(ref)[0], "exact": _exact_oracle(es[None], ey[None])[0][0]}
+        _check(torch.equal(synced["auroc"].hist.double(), ref), "streaming histogram != float64")
+        errs = {k: _rel_err(synced[k].compute().reshape(-1)[0], v) for k, v in want.items()}
+        _check(max(errs.values()) <= CURVE_TOL, f"elastic values off float64: {errs}")
+        out["values"] = {k: float(synced[k].compute().reshape(-1)[0]) for k in want}
+        out["rel_err_vs_float64"] = errs
+        out["shard_bytes"] = _shard_bytes(d, 1)
+
+        # 4. timing, the launcher, the bucketed panel
+        out["timing"] = _elastic_timing(device, seed, n, batch, timing_steps, timing_interval,
+                                        exact_steps, tmp)
+        if mp_steps:
+            out["processes"] = _elastic_processes(device, seed, n, batch, mp_steps, mp_interval,
+                                                  min(exact_steps, mp_steps), mp_timeout)
+        out["bucket"] = _elastic_bucket(device, os.path.join(tmp, "bucket"), classify_n,
+                                        num_classes, cls_batch, variable, seed + 1)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -4221,10 +4837,14 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sweep", action="store_true",
                         help="time every launch design over every batch size in the timing phase")
+    parser.add_argument("--elastic-worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.elastic_worker is not None:  # one process of the elastic phase's launcher step
+        _elastic_worker(args.elastic_worker)
+        return 0
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4259,6 +4879,8 @@ def main(argv=None) -> int:
     _emit(window)
     bucket = phase_bucket(device, seed=args.seed + 13)
     _emit(bucket)
+    elastic = phase_elastic(device, seed=args.seed + 14)
+    _emit(elastic)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -4278,6 +4900,7 @@ def main(argv=None) -> int:
         "launches_window": window["k1_launches"],
         "launches_bucket_classify": bucket["classify"]["k1_launches"],
         "launches_bucket_criteo": bucket["criteo"]["k1_launches"],
+        "launches_elastic": elastic["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

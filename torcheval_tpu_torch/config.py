@@ -27,12 +27,22 @@ Two knobs shape how an update runs:
   write the new state into the state tensor in place. Unset, it is on for
   a metric whose state lives on CUDA and off for one on the CPU.
 
+Sync resilience (``resilience.ResilientGroup``): ``sync_timeout``,
+``sync_retries``, ``sync_degradation`` (``raise``/``local``/``quorum``),
+``sync_quorum`` and ``sync_reform_after``, scoped together by
+``sync_resilience(...)``; envs ``TORCHEVAL_TPU_SYNC_TIMEOUT``,
+``_SYNC_RETRIES``, ``_SYNC_DEGRADATION``, ``_SYNC_QUORUM`` and
+``_SYNC_REFORM_AFTER``. Elastic snapshots (``elastic.ElasticSession``):
+``snapshot_interval`` and ``snapshot_retention``; envs
+``TORCHEVAL_TPU_SNAPSHOT_INTERVAL`` and ``_SNAPSHOT_RETENTION``.
+
 The environment names, spellings, defaults and policies are the JAX
 package's.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import warnings
 from contextlib import contextmanager
@@ -48,6 +58,13 @@ def env_truthy(name: str) -> bool:
     return os.environ.get(name, "").lower() in _TRUTHY
 
 
+def _env_invalid(name: str, raw: str, why: str, default) -> None:
+    warnings.warn(
+        f"ignoring env {name}={raw!r}: {why}; using default {default!r}",
+        RuntimeWarning,
+    )
+
+
 def _env_choice(name: str, default: str, choices) -> str:
     """Env var ``name`` as one of ``choices`` (case-insensitive); unset
     gives ``default``, and an unknown value warns and gives ``default``
@@ -56,13 +73,62 @@ def _env_choice(name: str, default: str, choices) -> str:
     if not raw:
         return default
     if raw not in choices:
-        warnings.warn(
-            f"ignoring env {name}={raw!r}: must be one of {choices}; "
-            f"using default {default!r}",
-            RuntimeWarning,
-        )
+        _env_invalid(name, raw, f"must be one of {choices}", default)
         return default
     return raw
+
+
+def _check_timeout(seconds: float) -> float:
+    seconds = float(seconds)
+    if not math.isfinite(seconds) or seconds <= 0:
+        # a 0/negative/NaN deadline would disable the deadline: the
+        # unbounded hang the knob exists to prevent
+        raise ValueError(
+            f"sync_timeout must be a positive finite number of seconds "
+            f"(or None for no deadline), got {seconds}"
+        )
+    return seconds
+
+
+def _env_timeout(name: str) -> Optional[float]:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    try:
+        return _check_timeout(float(raw))
+    except ValueError:
+        _env_invalid(name, raw, "not a positive finite number", None)
+        return None
+
+
+def _env_int(name: str, default: int, minimum: int) -> int:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        value = int(raw)
+    except ValueError:
+        _env_invalid(name, raw, "not an integer", default)
+        return default
+    if value < minimum:
+        _env_invalid(name, raw, f"must be >= {minimum}", default)
+        return default
+    return value
+
+
+def _env_fraction(name: str, default: float) -> float:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        value = float(raw)
+    except ValueError:
+        _env_invalid(name, raw, "not a number", default)
+        return default
+    if not 0.0 < value <= 1.0:
+        _env_invalid(name, raw, "must be a fraction in (0, 1]", default)
+        return default
+    return value
 
 
 # ------------------------------------------------------ debug validation
@@ -227,3 +293,182 @@ def update_donation(enabled: bool = True) -> Iterator[None]:
         yield
     finally:
         _update_donation = prev
+
+
+# --------------------------------------------------------- sync resilience
+
+_SYNC_POLICIES = ("raise", "local", "quorum")
+
+_sync_timeout: Optional[float] = _env_timeout("TORCHEVAL_TPU_SYNC_TIMEOUT")
+_SYNC_RETRIES_DEFAULT = 2
+_sync_retries: int = _env_int(
+    "TORCHEVAL_TPU_SYNC_RETRIES", _SYNC_RETRIES_DEFAULT, minimum=0
+)
+_sync_degradation: str = _env_choice(
+    "TORCHEVAL_TPU_SYNC_DEGRADATION", "raise", _SYNC_POLICIES
+)
+_sync_quorum: float = _env_fraction("TORCHEVAL_TPU_SYNC_QUORUM", 0.5)
+
+
+def sync_timeout() -> Optional[float]:
+    """Per-collective metric-sync deadline in seconds (``None`` = wait
+    forever, the reference's behavior). Env ``TORCHEVAL_TPU_SYNC_TIMEOUT``."""
+    return _sync_timeout
+
+
+def set_sync_timeout(seconds: Optional[float]) -> None:
+    global _sync_timeout
+    _sync_timeout = None if seconds is None else _check_timeout(seconds)
+
+
+def sync_retries() -> int:
+    """Extra attempts after a transient sync failure or timeout (default 2).
+    Env ``TORCHEVAL_TPU_SYNC_RETRIES``."""
+    return _sync_retries
+
+
+def set_sync_retries(retries: int) -> None:
+    global _sync_retries
+    if retries < 0:
+        raise ValueError(f"sync_retries must be >= 0, got {retries}")
+    _sync_retries = int(retries)
+
+
+def sync_degradation() -> str:
+    """What a failed sync degrades to: ``"raise"`` (typed error -- default),
+    ``"local"`` (unsynced local state, flagged stale), or ``"quorum"``
+    (merge the surviving ranks). Env ``TORCHEVAL_TPU_SYNC_DEGRADATION``."""
+    return _sync_degradation
+
+
+def check_sync_policy(policy: str) -> str:
+    """The one validator for degradation-policy names, shared by the
+    setter here and ``resilience.ResilientGroup``."""
+    if policy not in _SYNC_POLICIES:
+        raise ValueError(
+            f"sync degradation policy must be one of {_SYNC_POLICIES}, "
+            f"got {policy!r}"
+        )
+    return policy
+
+
+def set_sync_degradation(policy: str) -> None:
+    global _sync_degradation
+    _sync_degradation = check_sync_policy(policy)
+
+
+def sync_quorum() -> float:
+    """Minimum participating fraction of world size for the ``quorum``
+    policy (default 0.5). Env ``TORCHEVAL_TPU_SYNC_QUORUM``."""
+    return _sync_quorum
+
+
+def set_sync_quorum(fraction: float) -> None:
+    global _sync_quorum
+    if not 0.0 < fraction <= 1.0:
+        raise ValueError(f"quorum must be in (0, 1], got {fraction}")
+    _sync_quorum = float(fraction)
+
+
+def sync_resilience_configured() -> bool:
+    """True when a behavior-bearing sync-resilience knob departs from the
+    all-ranks-alive default: the toolkit then wraps the process group in
+    a ``ResilientGroup`` itself. (``sync_quorum`` alone does not: it only
+    tunes the ``quorum`` policy.)"""
+    return (
+        _sync_timeout is not None
+        or _sync_degradation != "raise"
+        or _sync_retries != _SYNC_RETRIES_DEFAULT
+    )
+
+
+@contextmanager
+def sync_resilience(
+    *,
+    timeout: Optional[float] = None,
+    retries: Optional[int] = None,
+    degradation: Optional[str] = None,
+    quorum: Optional[float] = None,
+) -> Iterator[None]:
+    """Context manager scoping the sync-resilience defaults.
+
+    >>> with sync_resilience(timeout=30.0, degradation="quorum"):
+    ...     value = sync_and_compute(metric)   # survives a dead host
+    """
+    global _sync_timeout, _sync_retries, _sync_degradation, _sync_quorum
+    prev = (_sync_timeout, _sync_retries, _sync_degradation, _sync_quorum)
+    try:
+        # the setters run inside the try: a bad later knob must not leak
+        # the earlier ones past the context
+        if timeout is not None:
+            set_sync_timeout(timeout)
+        if retries is not None:
+            set_sync_retries(retries)
+        if degradation is not None:
+            set_sync_degradation(degradation)
+        if quorum is not None:
+            set_sync_quorum(quorum)
+        yield
+    finally:
+        (_sync_timeout, _sync_retries, _sync_degradation, _sync_quorum) = prev
+
+
+# ------------------------------------------------------ elastic evaluation
+
+_SNAPSHOT_INTERVAL_DEFAULT = 100
+_snapshot_interval: int = _env_int(
+    "TORCHEVAL_TPU_SNAPSHOT_INTERVAL", _SNAPSHOT_INTERVAL_DEFAULT, minimum=1
+)
+_SNAPSHOT_RETENTION_DEFAULT = 2
+_snapshot_retention: int = _env_int(
+    "TORCHEVAL_TPU_SNAPSHOT_RETENTION", _SNAPSHOT_RETENTION_DEFAULT, minimum=1
+)
+_sync_reform_after: int = _env_int("TORCHEVAL_TPU_SYNC_REFORM_AFTER", 0, minimum=0)
+
+
+def snapshot_interval() -> int:
+    """Default steps between ``elastic.ElasticSession`` snapshots
+    (default 100). Env ``TORCHEVAL_TPU_SNAPSHOT_INTERVAL``."""
+    return _snapshot_interval
+
+
+def set_snapshot_interval(steps: int) -> None:
+    global _snapshot_interval
+    if int(steps) < 1:
+        raise ValueError(f"snapshot_interval must be >= 1 step, got {steps}")
+    _snapshot_interval = int(steps)
+
+
+def snapshot_retention() -> int:
+    """Default number of committed snapshot generations an
+    ``elastic.ElasticSession`` keeps on disk (default 2: the newest plus
+    one fallback for torn-write recovery). Env
+    ``TORCHEVAL_TPU_SNAPSHOT_RETENTION``."""
+    return _snapshot_retention
+
+
+def set_snapshot_retention(generations: int) -> None:
+    global _snapshot_retention
+    if int(generations) < 1:
+        raise ValueError(
+            f"snapshot_retention must keep >= 1 generation, got {generations}"
+        )
+    _snapshot_retention = int(generations)
+
+
+def sync_reform_after() -> int:
+    """Persistent-failure escalation threshold for
+    ``resilience.ResilientGroup``: after this many consecutive
+    quorum-degraded syncs missing the same ranks, the group re-forms onto
+    a survivors-only subgroup so later syncs run undegraded. ``0``
+    (default) disables re-formation. The streak lives on the group
+    object, so it needs a long-lived, explicitly constructed group. Env
+    ``TORCHEVAL_TPU_SYNC_REFORM_AFTER``."""
+    return _sync_reform_after
+
+
+def set_sync_reform_after(syncs: int) -> None:
+    global _sync_reform_after
+    if int(syncs) < 0:
+        raise ValueError(f"sync_reform_after must be >= 0 (0 disables), got {syncs}")
+    _sync_reform_after = int(syncs)

@@ -5,7 +5,9 @@ interface the sync layer needs), ``SingleProcessGroup`` (a world of one),
 ``LocalReplicaGroup`` (N metric replicas driven by one process, one per
 ``torch.device`` -- several may share one card), and ``MultiHostGroup`` /
 ``MultiHostSubgroup``: one rank per process over ``torch.distributed``,
-the counterparts of the JAX package's multi-host groups.
+the counterparts of the JAX package's multi-host groups. Every group
+also speaks the participation protocol of the resilience layer:
+``unwrap()`` and the ``allgather_*_with_ranks`` gathers.
 
 An object gather pickles the object, gathers every rank's byte length as
 an int32 pair (``encode_length``), pads the bytes to the longest and
@@ -100,6 +102,25 @@ class ProcessGroup:
     def allgather_object(self, obj: Any) -> List[Any]:
         """Gather one picklable object from every rank, in rank order."""
         raise NotImplementedError
+
+    # ------------------------------------------------- resilience extensions
+
+    def unwrap(self) -> "ProcessGroup":
+        """The innermost group behind any decorators (``ResilientGroup``,
+        ``FaultInjectionGroup``). Plain groups return themselves; the sync
+        layer dispatches on ``unwrap()`` so wrapping never changes which
+        protocol (local replicas or processes) is spoken."""
+        return self
+
+    def allgather_object_with_ranks(self, obj: Any) -> Tuple[List[Any], List[int]]:
+        """Gather plus the participating-rank list. Plain groups always
+        return every rank; ``resilience.ResilientGroup`` overrides this to
+        report partial participation after degradation."""
+        return self.allgather_object(obj), list(range(self.world_size))
+
+    def allgather_array_with_ranks(self, x: Any) -> Tuple[List[np.ndarray], List[int]]:
+        """Array-gather twin of :meth:`allgather_object_with_ranks`."""
+        return self.allgather_array(x), list(range(self.world_size))
 
 
 class SingleProcessGroup(ProcessGroup):

@@ -368,6 +368,9 @@ class Metric(Generic[TComputeReturn], ABC):
                 live.copy_(default, non_blocking=True)
             else:
                 setattr(self, name, self._place_state(_clone_state(default)))
+        # a provenance left by a prior (possibly degraded) sync describes
+        # the state this reset discarded
+        self.__dict__.pop("sync_provenance", None)
         return self
 
     # ---------------------------------------------------------- serialization
@@ -403,6 +406,9 @@ class Metric(Generic[TComputeReturn], ABC):
             value = state_dict[name]
             self._check_state_variable_type(name, value)
             setattr(self, name, self._place_state(_clone_state(value)))
+        # restored state replaces whatever a prior sync produced; the sync
+        # path stamps its own provenance afterwards
+        self.__dict__.pop("sync_provenance", None)
 
     # ---------------------------------------------------------------- devices
 

@@ -10,8 +10,16 @@ syncs in one metadata gather plus one payload gather, whatever the number
 of metrics, over local replicas or over processes. A crc32 of each payload
 rides the metadata and is checked on receipt. Each rank's shapes ride its
 own metadata, so states of different shapes per rank (buffers of different
-capacity) unpack. The bf16/int8 wire rungs and the resilience layer are
-later slices.
+capacity) unpack.
+
+Partial participation (``resilience.ResilientGroup``): the gathers use
+the ``allgather_*_with_ranks`` protocol, so a degraded group can hand
+back a subset of ranks. ``sync_states`` intersects the participants of
+the two gathers (metadata and payload may lose different ranks), checks
+each surviving payload against the crc32 riding the metadata, enforces
+the quorum, and returns a :class:`SyncedStates` whose ``.ranks`` names
+exactly the ranks that contributed. None of it costs a collective. Only
+the exact wire rung exists here; the bf16/int8 rungs come later.
 """
 
 from __future__ import annotations
@@ -23,6 +31,11 @@ import numpy as np
 import torch
 
 from torcheval_tpu_torch.distributed import LocalReplicaGroup, ProcessGroup
+from torcheval_tpu_torch.resilience import (
+    SyncIntegrityError,
+    SyncTimeoutError,
+    quorum_count,
+)
 
 # {metric_name: {state_name: TState}}
 MetricStates = Dict[str, Dict[str, Any]]
@@ -37,6 +50,30 @@ _StateMeta = Tuple[str, List[Tuple[Tuple[int, ...], str, Any]], Any]
 _SPARSE_MIN_BYTES = 4096
 
 _BIT_VIEWS = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+class SyncedStates(List[MetricStates]):
+    """Per-rank gathered states plus partial-participation metadata.
+
+    A plain list of the surviving ranks' states (ascending rank order),
+    with:
+
+    - ``ranks``: the ranks whose states are present, aligned with the list;
+    - ``world_size``: the group's full world size;
+    - ``degraded``: True when some rank did not contribute;
+    - ``sent_bytes``/``recv_bytes``: the packed payload this rank shipped,
+      and the surviving ranks' payloads combined (read off the metadata
+      the protocol already exchanged).
+    """
+
+    ranks: Tuple[int, ...] = ()
+    world_size: int = 0
+    sent_bytes: int = 0
+    recv_bytes: int = 0
+
+    @property
+    def degraded(self) -> bool:
+        return len(self.ranks) < self.world_size
 
 
 def metrics_traversal_order(metric_states: MetricStates) -> List[Tuple[str, str]]:
@@ -145,48 +182,115 @@ def _unpack_rank_states(
     return out
 
 
-def sync_states(metric_states, process_group: ProcessGroup) -> List[MetricStates]:
+def sync_states(metric_states, process_group: ProcessGroup) -> SyncedStates:
     """Gather every rank's metric states to every rank, through the wire
-    protocol; returns the per-rank states as numpy, in rank order.
+    protocol; returns the surviving ranks' states as numpy, in rank order,
+    as a :class:`SyncedStates`.
 
-    Under a ``LocalReplicaGroup``, ``metric_states`` is the per-replica
-    list ``[{metric_name: state_dict}, ...]``; under a multi-process group
-    it is this process's ``{metric_name: state_dict}``. Either way the
-    states travel through one ``allgather_object`` (each rank's metadata,
-    scalar states, payload size and crc32) and at most one
-    ``allgather_array`` (the payloads, padded to the longest on the
-    multi-process path).
+    Under a ``LocalReplicaGroup`` (also behind wrappers: the dispatch is on
+    ``process_group.unwrap()``), ``metric_states`` is the per-replica list
+    ``[{metric_name: state_dict}, ...]``; under a multi-process group it
+    is this process's ``{metric_name: state_dict}``. Either way the states
+    are packed to host numpy on the caller's thread and travel through one
+    ``allgather_object`` (each rank's metadata, scalar states, payload
+    size and crc32) and at most one ``allgather_array`` (the payloads,
+    padded to the longest on the multi-process path).
     """
-    if isinstance(process_group, LocalReplicaGroup):
-        template = metric_states[0]
-        order = metrics_traversal_order(template)
+    local_mode = isinstance(process_group.unwrap(), LocalReplicaGroup)
+    template = metric_states[0] if local_mode else metric_states
+    order = metrics_traversal_order(template)
+    world = process_group.world_size
+    if local_mode:
         packed = [_pack_rank_states(ms, order) for ms in metric_states]
-        metas = process_group.allgather_object(
+        sent_bytes = sum(int(flat.size) for _, flat in packed)
+        metas, meta_ranks = process_group.allgather_object_with_ranks(
             [(meta, int(flat.size), zlib.crc32(flat)) for meta, flat in packed]
         )
         if all(size == 0 for _, size, _ in metas):
             bufs = [np.zeros(0, dtype=np.uint8)] * len(metas)
+            buf_ranks = list(meta_ranks)
         else:
-            bufs = process_group.allgather_array([flat for _, flat in packed])
+            bufs, buf_ranks = process_group.allgather_array_with_ranks(
+                [flat for _, flat in packed]
+            )
     else:
-        template = metric_states
-        order = metrics_traversal_order(template)
         meta, flat = _pack_rank_states(metric_states, order)
-        metas = process_group.allgather_object((meta, int(flat.size), zlib.crc32(flat)))
+        sent_bytes = int(flat.size)
+        metas, meta_ranks = process_group.allgather_object_with_ranks(
+            (meta, int(flat.size), zlib.crc32(flat))
+        )
         max_bytes = max(size for _, size, _ in metas)
         if max_bytes == 0:
             bufs = [np.zeros(0, dtype=np.uint8)] * len(metas)
+            buf_ranks = list(meta_ranks)
         else:
             padded = np.zeros(max_bytes, dtype=np.uint8)
             padded[: flat.size] = flat
-            bufs = process_group.allgather_array(padded)
-    out = []
-    for rank, ((meta, size, crc), buf) in enumerate(zip(metas, bufs)):
-        buf = np.asarray(buf, dtype=np.uint8)
+            bufs, buf_ranks = process_group.allgather_array_with_ranks(padded)
+    out = _assemble(
+        template, order, process_group, world,
+        dict(zip(meta_ranks, metas)), dict(zip(buf_ranks, bufs)),
+    )
+    out.sent_bytes = sent_bytes
+    return out
+
+
+def _assemble(
+    template: MetricStates,
+    order: List[Tuple[str, str]],
+    process_group: ProcessGroup,
+    world: int,
+    meta_by_rank: Dict[int, Tuple[List[_StateMeta], int, int]],
+    buf_by_rank: Dict[int, np.ndarray],
+) -> SyncedStates:
+    """Intersect the two gathers' participants, verify payload integrity,
+    enforce the quorum, and unpack the survivors."""
+    policy = getattr(process_group, "degradation_policy", "raise")
+    own = process_group.rank
+    survivors: List[int] = []
+    for rank in sorted(meta_by_rank):
+        if rank not in buf_by_rank:
+            continue  # the payload gather lost this rank after metadata
+        _, size, crc = meta_by_rank[rank]
+        buf = np.asarray(buf_by_rank[rank], dtype=np.uint8)
         if zlib.crc32(buf[:size].tobytes()) != crc:
-            raise RuntimeError(
-                f"rank {rank}'s gathered metric-state payload failed its "
-                f"checksum ({size} bytes); refusing to merge corrupt state"
+            if hasattr(process_group, "note_corrupt"):
+                process_group.note_corrupt(rank)
+            if policy == "raise":
+                raise SyncIntegrityError(
+                    f"rank {rank}'s gathered metric-state payload failed "
+                    f"its checksum ({size} bytes); refusing to merge "
+                    "corrupt state (degradation policy 'raise')"
+                )
+            continue  # quorum/local: a corrupt rank is a lost rank
+        survivors.append(rank)
+    if policy == "local" and survivors != sorted(meta_by_rank):
+        # the local policy degrades the whole sync to this rank's own
+        # state the moment anything was lost, never a partial peer merge
+        survivors = [own] if own in survivors else []
+    quorum = getattr(process_group, "quorum_fraction", None)
+    if policy == "quorum" and quorum is not None:
+        needed = quorum_count(quorum, world)
+        if len(survivors) < needed:
+            raise SyncTimeoutError(
+                f"metric sync quorum not met after integrity checks: "
+                f"{len(survivors)}/{world} usable ranks, quorum requires "
+                f">= {needed}"
             )
-        out.append(_unpack_rank_states(template, order, meta, buf))
+    if not survivors:
+        raise SyncTimeoutError(
+            "metric sync retained no usable rank (all payloads lost or corrupt)"
+        )
+    if hasattr(process_group, "note_sync_result"):
+        process_group.note_sync_result(survivors, world)
+    out = SyncedStates(
+        _unpack_rank_states(
+            template, order, meta_by_rank[rank][0],
+            np.asarray(buf_by_rank[rank], dtype=np.uint8),
+        )
+        for rank in survivors
+    )
+    out.ranks = tuple(survivors)
+    out.world_size = world
+    out.recv_bytes = sum(meta_by_rank[r][1] for r in survivors)
     return out

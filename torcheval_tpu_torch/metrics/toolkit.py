@@ -6,14 +6,19 @@ Counterpart of ``torcheval_tpu/metrics/toolkit.py``:
 processes (each metric's ``_sync_state_dict()`` gathered through
 ``synclib.sync_states``, then merged rank by rank, in ascending rank
 order, into clones; a process outside a subgroup gets its metrics back
-untouched), ``update_collection`` (every plan built, and so validated,
+untouched). Each takes ``on_failure=`` (``"raise"``, ``"local"`` or
+``"quorum"``), which, like a configured ``config.sync_resilience``, wraps
+the group in a ``resilience.ResilientGroup`` for the call; every synced
+metric carries a ``sync_provenance`` naming the ranks that contributed.
+Also ``update_collection`` (every plan built, and so validated,
 before any runs; under shape bucketing the bucketed plans run as one
 group -- one CUDA-graph replay on the card -- and the rest as another),
 ``classwise_converter``,
 ``clone_metric(s)``, ``reset_metrics`` and ``to_device``.
 
-Left for later slices: sync provenance, resilience policies, the
-observability recorder, the sync plane and admission control.
+Left for later slices: the observability recorder, ``adopt_synced`` (for
+sharded metrics and tables), the sync plane, admission control and the
+wire ladder.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Any, Dict, Iterable, List, Optional, TypeVar, Union
 import numpy as np
 import torch
 
+from torcheval_tpu_torch import config
 from torcheval_tpu_torch.distributed import (
     LocalReplicaGroup,
     ProcessGroup,
@@ -34,6 +40,11 @@ from torcheval_tpu_torch.metrics import synclib
 from torcheval_tpu_torch.metrics._bucket import apply_bucketing
 from torcheval_tpu_torch.metrics._fuse import fused_accumulate_group, graphed_update_possible
 from torcheval_tpu_torch.metrics.metric import Metric, TState, UpdatePlan
+from torcheval_tpu_torch.resilience import (
+    ResilientGroup,
+    SyncProvenance,
+    default_sync_health,
+)
 from torcheval_tpu_torch.utils.convert import shared_conversion_cache
 
 _logger: logging.Logger = logging.getLogger(__name__)
@@ -57,6 +68,35 @@ TMetric = TypeVar("TMetric", bound=Metric)
 MetricOrReplicas = Union[TMetric, List[TMetric]]
 
 
+def _resolve_group(
+    process_group: Optional[ProcessGroup], on_failure: Optional[str] = None
+) -> ProcessGroup:
+    """Pick the group and apply the resilience policy for this call.
+
+    ``on_failure`` overrides the process-wide ``config.sync_degradation()``
+    for one entry point; either source of a non-default policy (or a
+    configured ``sync_timeout``) wraps the group in a ``ResilientGroup``.
+    An explicitly passed ``ResilientGroup`` keeps its own knobs (and its
+    accumulated ``SyncHealth``)."""
+    group = process_group if process_group is not None else default_process_group()
+    if isinstance(group, ResilientGroup):
+        return group.with_policy(on_failure) if on_failure else group
+    if on_failure is not None or config.sync_resilience_configured():
+        # the wrapper lives only for this call: its counters accumulate
+        # into the process-wide default_sync_health()
+        wrapped = ResilientGroup(group, policy=on_failure, health=default_sync_health())
+        # the process-wide record reports the policy now in effect
+        wrapped.health.policy = wrapped.policy
+        return wrapped
+    return group
+
+
+def _is_local_replica(group: ProcessGroup) -> bool:
+    # dispatch on the innermost group: resilience and chaos wrappers must
+    # not change which protocol (local replicas or processes) is spoken
+    return isinstance(group.unwrap(), LocalReplicaGroup)
+
+
 def _select_replicas(replicas, group: ProcessGroup, what: str) -> list:
     """The member replicas of a local-replica (sub)group: the full
     per-replica list, or for a subgroup also the parent world's list."""
@@ -65,7 +105,8 @@ def _select_replicas(replicas, group: ProcessGroup, what: str) -> list:
             f"With a LocalReplicaGroup, pass the per-replica list of "
             f"{what} (one per device/replica)."
         )
-    member_ranks, parent_world = group._member_ranks, group.parent_world
+    inner = group.unwrap()
+    member_ranks, parent_world = inner._member_ranks, inner.parent_world
     if (
         member_ranks is not None
         and parent_world is not None
@@ -82,51 +123,80 @@ def _select_replicas(replicas, group: ProcessGroup, what: str) -> list:
 
 
 def sync_and_compute(
-    metric: MetricOrReplicas, process_group: Optional[ProcessGroup] = None
+    metric: MetricOrReplicas,
+    process_group: Optional[ProcessGroup] = None,
+    on_failure: Optional[str] = None,
 ) -> Any:
-    """Sync state across ranks/replicas and compute on the merged state."""
-    return get_synced_metric(metric, process_group).compute()
+    """Sync state across ranks/replicas and compute on the merged state.
+
+    ``on_failure`` (``"raise"`` | ``"local"`` | ``"quorum"``) overrides the
+    configured degradation policy for this call: under a degrading policy
+    a dead rank costs a bounded wait instead of a hang, and the value
+    reflects the surviving ranks (``get_synced_metric(...).sync_provenance``
+    names them)."""
+    return get_synced_metric(metric, process_group, on_failure=on_failure).compute()
 
 
 def sync_and_compute_collection(
     metrics: Union[Dict[str, Metric], List[Dict[str, Metric]]],
     process_group: Optional[ProcessGroup] = None,
+    on_failure: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Sync a ``{name: Metric}`` collection in one batched state exchange
-    and compute every merged metric."""
-    synced = get_synced_metric_collection(metrics, process_group)
+    and compute every merged metric. ``on_failure``: see
+    :func:`sync_and_compute`."""
+    synced = get_synced_metric_collection(metrics, process_group, on_failure=on_failure)
     return {name: m.compute() for name, m in synced.items()}
 
 
 def get_synced_metric(
-    metric: MetricOrReplicas, process_group: Optional[ProcessGroup] = None
+    metric: MetricOrReplicas,
+    process_group: Optional[ProcessGroup] = None,
+    on_failure: Optional[str] = None,
 ) -> Metric:
-    """Gather every rank's state and merge into a fresh metric."""
+    """Gather every rank's state and merge into a fresh metric, which
+    carries ``sync_provenance``. ``on_failure``: see
+    :func:`sync_and_compute`."""
     if isinstance(metric, (list, tuple)):
         wrapped: Any = [{"_metric": m} for m in metric]
     else:
         wrapped = {"_metric": metric}
-    return get_synced_metric_collection(wrapped, process_group)["_metric"]
+    return get_synced_metric_collection(wrapped, process_group, on_failure=on_failure)[
+        "_metric"
+    ]
+
+
+def _stamp(coll: Dict[str, Metric], provenance: SyncProvenance) -> Dict[str, Metric]:
+    for m in coll.values():
+        m.sync_provenance = provenance
+    return coll
 
 
 def get_synced_metric_collection(
     metrics: Union[Dict[str, Metric], List[Dict[str, Metric]]],
     process_group: Optional[ProcessGroup] = None,
+    on_failure: Optional[str] = None,
 ) -> Dict[str, Metric]:
     """Collection variant: every metric's states travel in one batched
     exchange ordered by ``synclib.metrics_traversal_order``; every rank
-    merges, folding ranks in ascending order (rank 0 + rank 1, then
-    + rank 2, ...). A process outside the group's members, or a world of
-    one, gets its collection back untouched."""
-    group = process_group if process_group is not None else default_process_group()
-    local = isinstance(group, LocalReplicaGroup)
-    if not local and (not group.is_member or group.world_size == 1):
-        if group.is_member:
-            _logger.warning(
-                "World size is 1, and metric states are not synced; "
-                "returning the input metric collection."
-            )
-        return metrics if isinstance(metrics, dict) else metrics[0]
+    merges the surviving ranks, folding them in ascending order (rank 0 +
+    rank 1, then + rank 2, ...). Every merged metric carries
+    ``sync_provenance``. A process outside the group's members, or a world
+    of one, gets its collection back untouched (and stamped).
+    ``on_failure``: see :func:`sync_and_compute`."""
+    group = _resolve_group(process_group, on_failure)
+    local = _is_local_replica(group)
+    policy = getattr(group, "degradation_policy", "raise")
+    if not group.is_member:
+        coll = metrics if isinstance(metrics, dict) else metrics[0]
+        return _stamp(coll, SyncProvenance((), group.world_size, False, policy))
+    if not local and group.world_size == 1:
+        _logger.warning(
+            "World size is 1, and metric states are not synced; "
+            "returning the input metric collection."
+        )
+        coll = metrics if isinstance(metrics, dict) else metrics[0]
+        return _stamp(coll, SyncProvenance((group.rank,), 1, False, policy))
 
     if local:
         replicas = _select_replicas(metrics, group, "metric collections")
@@ -139,6 +209,24 @@ def get_synced_metric_collection(
         template = metrics
     per_rank_states = synclib.sync_states(payload, group)
 
+    # the world size comes from the sync itself, not the group: a
+    # re-formation during this sync takes effect from the next one
+    ranks = tuple(per_rank_states.ranks)
+    world = per_rank_states.world_size
+    provenance = SyncProvenance(
+        ranks=ranks,
+        world_size=world,
+        degraded=len(ranks) < world,
+        policy=policy,
+        reformed=bool(getattr(group, "was_reformed", False)),
+    )
+    if provenance.degraded:
+        _logger.warning(
+            "Metric sync degraded: merged state reflects ranks %s of %d "
+            "(policy %r); result may be stale.",
+            list(ranks), world, provenance.policy,
+        )
+
     merged: Dict[str, Metric] = {}
     for name, base in template.items():
         rank_metrics: List[Metric] = []
@@ -148,24 +236,38 @@ def get_synced_metric_collection(
             rank_metrics.append(clone)
         target = rank_metrics[0].to(base.device)
         target.merge_state(rank_metrics[1:])
+        target.sync_provenance = provenance
         merged[name] = target
     return merged
 
 
 def get_synced_state_dict(
-    metric: MetricOrReplicas, process_group: Optional[ProcessGroup] = None
+    metric: MetricOrReplicas,
+    process_group: Optional[ProcessGroup] = None,
+    on_failure: Optional[str] = None,
 ) -> Dict[str, TState]:
     """The synced metric's ``state_dict()``: the same merged state on
-    every rank, for a checkpoint."""
-    return get_synced_metric(metric, process_group).state_dict()
+    every rank, for a checkpoint. ``on_failure``: see
+    :func:`sync_and_compute`."""
+    group = _resolve_group(process_group, on_failure)
+    if group.world_size == 1 and not _is_local_replica(group):
+        m = metric if isinstance(metric, Metric) else metric[0]
+        return m.state_dict()
+    return get_synced_metric(metric, group).state_dict()
 
 
 def get_synced_state_dict_collection(
     metrics: Union[Dict[str, Metric], List[Dict[str, Metric]]],
     process_group: Optional[ProcessGroup] = None,
+    on_failure: Optional[str] = None,
 ) -> Dict[str, Dict[str, TState]]:
-    """``{name: state_dict()}`` of the synced collection."""
-    synced = get_synced_metric_collection(metrics, process_group)
+    """``{name: state_dict()}`` of the synced collection. ``on_failure``:
+    see :func:`sync_and_compute`."""
+    group = _resolve_group(process_group, on_failure)
+    if group.world_size == 1 and not _is_local_replica(group):
+        coll = metrics if isinstance(metrics, dict) else metrics[0]
+        return {name: m.state_dict() for name, m in coll.items()}
+    synced = get_synced_metric_collection(metrics, group)
     return {name: m.state_dict() for name, m in synced.items()}
 
 

@@ -10,9 +10,11 @@ one loads. ``build_all()`` starts one ``nvcc`` per source, all at once.
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
 
-``LAUNCHES`` counts kernel launches by name. A wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.
+``LAUNCHES`` counts kernel launches by name. A wrapper adds one
+(``count_launch``) where it launches its kernel and nowhere else, so a run
+can show that its main path went through the kernels. The count is taken
+under a lock: ranks emulated as threads of one process launch from
+several threads, and a bare ``+= 1`` on a dict entry can lose increments.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import os
 import shutil
 import struct
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List
 
@@ -74,13 +77,21 @@ _SIGNATURES = {
 }
 
 LAUNCHES: Dict[str, int] = {"fused_auc_hist": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``LAUNCHES``."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

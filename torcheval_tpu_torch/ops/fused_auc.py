@@ -440,7 +440,7 @@ def _launch(
     code = lib.tev_fused_auc_hist(args, torch._C._cuda_getCurrentRawStream(device))
     if code:
         _kernels.check(lib, code, "fused_auc_hist launch")
-    _kernels.LAUNCHES["fused_auc_hist"] += 1
+    _kernels.count_launch("fused_auc_hist")
     return out
 
 

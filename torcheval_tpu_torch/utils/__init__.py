@@ -1,5 +1,7 @@
-"""Utilities: input coercion, cross-package state loading and random
-test data."""
+"""Utilities: input coercion, cross-package state loading, random test
+data and metric checkpoints (``save_metric_state``/``load_metric_state``,
+from ``utils.checkpoint``, imported on first use: the metrics import this
+package, and the checkpoint module imports the metrics)."""
 
 from torcheval_tpu_torch.utils.convert import (
     load_numpy_state_dict,
@@ -17,6 +19,16 @@ __all__ = [
     "get_rand_data_binned_binary",
     "get_rand_data_multiclass",
     "get_rand_data_multilabel",
+    "load_metric_state",
     "load_numpy_state_dict",
     "numpy_state_dict",
+    "save_metric_state",
 ]
+
+
+def __getattr__(name):
+    if name in ("load_metric_state", "save_metric_state"):
+        from torcheval_tpu_torch.utils import checkpoint
+
+        return getattr(checkpoint, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
