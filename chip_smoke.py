@@ -237,6 +237,34 @@ phases, printing one JSON line for each:
    bitwise. Last, phase 13's ImageNet panel under shape bucketing is
    snapshotted, restored into the same metric objects and fed on, bitwise
    equal to the eager panel, captures within ``bucket_bound``.
+15. ``obs``: the observability core (``torcheval_tpu_torch.obs``). The DLRM
+   panel of phase 14 (``BinaryNormalizedEntropy``, ``ClickThroughRate``,
+   ``WeightedCalibration``, ``StreamingBinaryAUROC`` and
+   ``StreamingBinaryAUPRC`` at 8,192 bins on K1) over 300 Criteo batches of
+   65,536, three times from a drained queue a batch: recorder off,
+   recorder on, and inside one ``config.observability(jsonl=...,
+   chrome_trace=..., watchdog=0.5, serve=0)`` scope. Each update's states
+   must equal the recorder-off stream's bitwise, the update events cover
+   every metric update (one a panel call), K1 launches once a streaming
+   update, and ``set_sync_debug_mode("warn")`` counts the same host syncs
+   in every mode. In the same scope: phase 13's ImageNet panel as a ragged
+   bucketed stream (one compile event a CUDA-graph capture, each naming
+   its bucket, within ``bucket_bound``); ``ThreadWorld(4)`` ranks each with
+   the panel and an exact ``BinaryAUROC`` of 2^22 samples, synced flat and
+   through ``ResilientGroup(HierarchicalGroup(group_size=2))`` (bitwise
+   equal; 4 node and 2 or 0 leader collectives a rank; no divergence in
+   the flight rings; the ranks' N-th sync events share a flow id;
+   ``gather_observability`` merges all four); a slow peer delayed 1.5 s
+   past the watchdog (a ``StallEvent`` naming the collective, the
+   trip-time rings naming the rank, the run completes); one snapshot a
+   rank and a 4->4 restore (a ``SnapshotEvent`` and a ``RestoreEvent`` a
+   rank, the recorder's step cursor the session's); ``/metrics``,
+   ``/healthz``, ``/flight`` and ``/report`` over loopback (the exposition
+   parses, its panel-update count equals the calls made, the unported
+   sources read absent, the server stops at scope exit); then the Chrome
+   trace loads and the JSONL holds one line an event. Reported: ms a
+   batch, median and mean, in each mode; host microseconds of one
+   ``StreamingBinaryAUROC.update`` off and on; the sync warnings counted.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -244,7 +272,7 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 14 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 15 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -257,11 +285,15 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -270,8 +302,9 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from torcheval_tpu_torch import config, launcher  # noqa: E402
+from torcheval_tpu_torch import config, launcher, obs  # noqa: E402
 from torcheval_tpu_torch.distributed import (  # noqa: E402
+    HierarchicalGroup,
     LocalReplicaGroup,
     MultiHostGroup,
     ProcessGroup,
@@ -4592,6 +4625,401 @@ def phase_elastic(device, n=CRITEO_EVAL, batch=CTR_BATCH, num_bins=NUM_BINS, wor
     return out
 
 
+OBS_BATCHES = 300  # Criteo batches of the DLRM panel a timing mode
+OBS_WATCHDOG = 0.5  # the phase's stall-watchdog deadline, seconds
+OBS_SLOW_PEER = 1.5  # the slow peer's injected delay, seconds (>> the deadline)
+OBS_RANK_BATCHES = 64  # Criteo batches a rank of the four-rank sync: 2^22 samples
+
+
+@contextlib.contextmanager
+def _sync_warnings(cuda, counts, key):
+    """Count the host synchronizations ``torch.cuda.set_sync_debug_mode
+    ("warn")`` reports inside (CUDA only) into ``counts[key]``."""
+    if not cuda:
+        yield
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    counts[key] = counts.get(key, 0) + len(hits)
+    where = counts.setdefault("where", {})
+    for w in hits:
+        site = f"{os.path.basename(w.filename)}:{w.lineno}"
+        where[site] = where.get(site, 0) + 1
+
+
+def _new_events(rec, total_before):
+    """The events recorded since the log's ``total`` read ``total_before``
+    (``tail(0)`` would be every retained event)."""
+    new = rec.log.total - total_before
+    return rec.log.tail(new) if new > 0 else []
+
+
+def _obs_panel(device, num_bins):
+    """The DLRM eval panel (``_elastic_panel`` without its exact AUROC)."""
+    panel = _elastic_panel(device, num_bins)
+    del panel["exact"]
+    return panel
+
+
+def _flat_states(panel):
+    """Every state of a panel, cloned (``state_dict``), in a fixed order."""
+    return [v for k in sorted(panel) for _, v in sorted(panel[k].state_dict().items())]
+
+
+def _obs_stream(device, seed, n, batch, batches, num_bins, syncs, mode, oracle=None):
+    """The DLRM panel over ``batches`` Criteo batches, each update timed
+    from a drained queue. Without ``oracle`` every update's states are kept
+    (the recorder-off reference); with one, every update must equal it
+    bitwise. Returns (ms a batch, states or None, K1 launches)."""
+    cuda = torch.device(device).type == "cuda"
+    panel = _obs_panel(device, num_bins)
+    ms, kept = [], []
+    before = _kernels.LAUNCHES["fused_auc_hist"]
+    for i in range(batches):
+        s, y = _elastic_batch(device, seed, i, n, batch)
+        _sync(device)
+        t0 = time.perf_counter()
+        with _sync_warnings(cuda, syncs, mode):
+            _elastic_feed(panel, s, y, False)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        states = _flat_states(panel)
+        if oracle is None:
+            kept.append(states)
+        else:
+            _check(all(torch.equal(a, b) for a, b in zip(states, oracle[i])),
+                   f"{mode}: the panel after update {i} differs from the recorder-off stream")
+    launches = _kernels.LAUNCHES["fused_auc_hist"] - before
+    if cuda:
+        _check(launches == len(_STREAMING) * batches,
+               f"{mode}: K1 launched {launches} times for {batches} batches")
+    return ms, (kept if oracle is None else None), launches
+
+
+def _update_host_us(device, seed, batch, reps):
+    """Host microseconds of one ``StreamingBinaryAUROC.update`` call (no
+    synchronize around it), median over ``reps`` calls, recorder off and
+    on, interleaved."""
+    s, y = _elastic_batch(device, seed, 0, batch, batch)
+    metric = StreamingBinaryAUROC(num_bins=NUM_BINS, device=device)
+    times = {"off": [], "on": []}
+    for i in range(reps):
+        for mode in ("off", "on"):
+            with config.observability(mode == "on"):
+                t0 = time.perf_counter()
+                metric.update(s, y)
+                times[mode].append((time.perf_counter() - t0) * 1e6)
+        if i % 16 == 15:
+            _sync(device)
+    _sync(device)
+    return {k: _median(v) for k, v in times.items()}
+
+
+def _prometheus_families(text):
+    """{family: type} of a text exposition; every sample line must parse."""
+    families = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            families[name] = kind
+        elif line:
+            _check(re.match(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$", line) is not None,
+                   f"unparseable exposition line {line!r}")
+            float(line.rsplit(" ", 1)[1])
+    return families
+
+
+def _http_get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:  # /healthz answers 503 when unhealthy
+        return e.code, e.read().decode()
+
+
+def _obs_ranks(device, seed, n, batch, rank_batches, num_bins, world, calls):
+    """Four rank threads, each with its DLRM panel and an exact
+    ``BinaryAUROC`` over its samples, synced flat and through
+    ``ResilientGroup(HierarchicalGroup(group_size=2))``."""
+
+    def body(g):
+        panel, exact = _obs_panel(device, num_bins), BinaryAUROC(device=device)
+        for i in range(rank_batches):
+            s, y = _elastic_batch(device, seed, g.rank * rank_batches + i, n, batch)
+            _elastic_feed(panel, s, y, False)
+            exact.update(s, y)
+        calls[g.rank] = 2 * rank_batches
+        coll = dict(panel, exact=exact)
+        t0 = time.perf_counter()
+        flat = toolkit.get_synced_metric_collection(coll, ResilientGroup(g, timeout=120.0))
+        flat_s = time.perf_counter() - t0
+        hg = HierarchicalGroup(g, group_size=2)
+        t0 = time.perf_counter()
+        hier = toolkit.get_synced_metric_collection(coll, ResilientGroup(hg, timeout=120.0))
+        hier_s = time.perf_counter() - t0
+        merged = obs.gather_observability(g)
+        return (_same_panel(hier, flat), hg.node_collectives, hg.leader_collectives,
+                merged["ranks"], sorted(merged["per_rank"]), flat_s, hier_s)
+
+    return ThreadWorld(world, timeout=120.0).run(body)
+
+
+def _obs_slow_peer(world, wd):
+    """One rank's third collective delayed past the watchdog deadline;
+    returns the ranks' results and the watchdog's FIRST trip (when the
+    slow rank resumes, its peers' next collective may still be older than
+    the deadline and trip it again, replacing ``last_trip``)."""
+
+    def body(g):
+        faults = [FaultSpec(2, "delay", seconds=OBS_SLOW_PEER)] if g.rank == 2 else []
+        rg = ResilientGroup(FaultInjectionGroup(g, faults), timeout=30.0, policy="quorum")
+        for i in range(4):
+            rg.allgather_object({"rank": g.rank, "i": i})
+        return True
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = ThreadWorld(world, timeout=30.0).run(body)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+
+    trips0 = wd.trips
+    t = threading.Thread(target=run)
+    t.start()
+    while t.is_alive():
+        if wd.trips > trips0 and "trip" not in box:
+            box["trip"] = wd.last_trip
+        time.sleep(0.005)
+    t.join()
+    if "error" in box:
+        raise box["error"]
+    return box["out"], box.get("trip")
+
+
+def _obs_elastic(device, seed, n, batch, num_bins, world, directory, calls):
+    """One snapshot a rank at world 4, then a 4->4 restore."""
+
+    def write(g):
+        panel = _obs_panel(device, num_bins)
+        session = ElasticSession(panel, directory, process_group=g, interval=10**9)
+        for step in range(2):
+            _elastic_feed(panel, *_elastic_batch(device, seed, 4 * step + g.rank, n, batch), False)
+            session.step_done(step)
+        calls[g.rank] = 4
+        session.snapshot()
+        session.close()
+        return session._cursor
+
+    def read(g):
+        session = ElasticSession(_obs_panel(device, num_bins), directory, process_group=g,
+                                 interval=10**9)
+        restored = session.restore()
+        session.close()
+        return restored.step, obs.recorder().step_cursor
+
+    return ThreadWorld(world, timeout=60.0).run(write), ThreadWorld(world, timeout=60.0).run(read)
+
+
+def phase_obs(device, n=CRITEO_EVAL, batch=CTR_BATCH, batches=OBS_BATCHES, num_bins=NUM_BINS,
+              rank_batches=OBS_RANK_BATCHES, world=4, num_classes=1000, variable=VARIABLE_BATCH,
+              host_reps=200, watchdog=OBS_WATCHDOG, seed=15):
+    """The observability core on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    rec = obs.recorder()
+    out = {"phase": "obs", "device": str(device), "batches": batches, "batch": batch}
+    syncs = {}
+    # one throwaway update first, counted apart: the process's first
+    # counted region reports a one-time synchronization that is no
+    # update's (it does not recur in any later stream)
+    first = {}
+    with _sync_warnings(cuda, first, "first"):
+        _elastic_feed(_obs_panel(device, num_bins), *_elastic_batch(device, seed, 0, n, batch),
+                      False)
+    _sync(device)
+
+    # the recorder-off reference, then the recorder alone
+    off_ms, oracle, off_launches = _obs_stream(device, seed, n, batch, batches, num_bins, syncs,
+                                               "off")
+    rec.reset()
+    obs.hist.reset()
+    with config.observability():
+        on_ms, _, on_launches = _obs_stream(device, seed, n, batch, batches, num_bins, syncs, "on",
+                                            oracle)
+        on_events = rec.log.tail()
+    on_updates = [e for e in on_events if e.kind == "update"]
+    _check(len(on_updates) == 2 * batches, f"on: {len(on_updates)} update events, {2 * batches} calls")
+    _check(sum(e.fused for e in on_updates) == 5 * batches,
+           "on: the update events do not cover every metric update")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl, chrome = os.path.join(tmp, "events.jsonl"), os.path.join(tmp, "trace.json")
+        calls = {"armed": 0, "imagenet": 0}
+        with config.observability(jsonl=jsonl, chrome_trace=chrome, watchdog=watchdog, serve=0):
+            rec.reset()
+            obs.hist.reset()
+            srv, wd = obs.current_server(), obs.current_watchdog()
+            _check(srv is not None and wd is not None, "the scope armed no server or watchdog")
+            # 1. the DLRM panel, armed
+            armed_ms, _, armed_launches = _obs_stream(device, seed, n, batch, batches, num_bins,
+                                                      syncs, "armed", oracle)
+            calls["armed"] = 2 * batches
+            armed_updates = [e for e in rec.log.tail() if e.kind == "update"]
+            _check(len(armed_updates) == 2 * batches and
+                   sum(e.fused for e in armed_updates) == 5 * batches,
+                   "armed: one update event a panel update, covering every metric")
+            _check(syncs.get("on", 0) == syncs.get("off", 0) == syncs.get("armed", 0),  # noqa: E501
+                   f"the recorder changed the host syncs an update makes: {syncs}")
+
+            # 2. the ImageNet panel under shape bucketing, a ragged stream
+            gen = torch.Generator(device=device).manual_seed(seed)
+            schedule = [int(v) for v in np.random.default_rng(seed).permutation(variable)]
+            panel = _classify_panel(device, num_classes)
+            c0, e0 = _captures(), rec.log.total
+            with config.shape_bucketing():
+                for m in schedule:
+                    toolkit.update_collection(panel, *_classify_batch(gen, m, num_classes, device))
+            calls["imagenet"] = len(schedule)
+            captures = _captures() - c0
+            compiles = [e for e in _new_events(rec, e0) if e.kind == "compile"]
+            buckets = sorted({bucket_length(m) for m in schedule})
+            bound = bucket_bound(max(schedule))
+            _check(len(compiles) == captures <= bound,
+                   f"{len(compiles)} compile events, {captures} captures (bound {bound})")
+            if cuda:
+                _check(sorted(e.bucket for e in compiles) == buckets,
+                       f"captures attributed to buckets {[e.bucket for e in compiles]}, "
+                       f"the stream's are {buckets}")
+                _check(all(e.site == "torcheval.update_collection" for e in compiles),
+                       "a capture is attributed to another site")
+            out["imagenet"] = {"schedule": schedule, "captures": captures, "bound": bound,
+                               "compile_events": [[e.bucket, e.seconds] for e in compiles]}
+
+            # 3. four ranks, flat and hierarchical sync
+            obs.FLIGHT.reset()
+            e0 = rec.log.total
+            rank_calls = {}
+            ranks = _obs_ranks(device, seed + 1, n, batch, rank_batches, num_bins, world,
+                               rank_calls)
+            for r, (same, node, leader, merged, per_rank, _, _) in enumerate(ranks):
+                _check(same, f"rank {r}: the hierarchical sync differs from the flat one")
+                _check((node, leader) == (4, 2 if r % 2 == 0 else 0),
+                       f"rank {r}: {node} node and {leader} leader collectives")
+                _check(merged == per_rank == list(range(world)),
+                       f"rank {r}: gather_observability merged {merged}")
+            diff = obs.diff_flight_rings(obs.FLIGHT.per_rank())
+            _check(diff.diverged_rank is None,
+                   f"the ranks' flight rings diverge: {diff.format()}")
+            flows = {}
+            for e in _new_events(rec, e0):
+                if e.kind == "sync":
+                    flows.setdefault(e.rank, []).append(e.flow)
+            _check(len(flows) == world and len({tuple(v) for v in flows.values()}) == 1
+                   and len(next(iter(flows.values()))) == 2,
+                   f"the ranks' sync flow ids differ: {flows}")
+            out["sync"] = {"exact_samples_a_rank": rank_batches * batch,
+                           "flat_seconds": [x[5] for x in ranks],
+                           "hierarchical_seconds": [x[6] for x in ranks],
+                           "node_collectives": [x[1] for x in ranks],
+                           "leader_collectives": [x[2] for x in ranks], "flows": flows}
+
+            # 4. a slow peer past the watchdog deadline
+            obs.FLIGHT.reset()
+            e0, trips0 = rec.log.total, wd.trips
+            done, trip = _obs_slow_peer(world, wd)
+            _check(all(done), "the slow-peer run did not complete")
+            stalls = [e for e in _new_events(rec, e0) if e.kind == "stall"]
+            _check(stalls and stalls[0].op == "allgather_object" and stalls[0].rank == 2
+                   and trip is not None,
+                   f"stall events {[(e.op, e.rank) for e in stalls]} for rank 2's slow collective")
+            slow = obs.diff_flight_rings(trip["flight"])
+            _check(slow.stalled_rank == 2, f"the trip-time rings name rank {slow.stalled_rank}")
+            out["slow_peer"] = {"trips": wd.trips - trips0, "stall_events": len(stalls),
+                                "stall_rank": stalls[0].rank,
+                                "stall_age_seconds": stalls[0].age_seconds,
+                                "diff_stalled_rank": slow.stalled_rank,
+                                "diff_stalled_seq": slow.stalled_seq}
+
+            # 5. snapshot and restore
+            e0 = rec.log.total
+            el_calls = {}
+            written, restored = _obs_elastic(device, seed + 2, n, batch, num_bins, world,
+                                             os.path.join(tmp, "bundle"), el_calls)
+            events = _new_events(rec, e0)
+            for kind in ("snapshot", "restore"):
+                got = sorted(e.rank for e in events if e.kind == kind)
+                _check(got == list(range(world)), f"{kind} events from ranks {got}")
+            _check(all(step == cursor == written[0] for step, cursor in restored),
+                   f"step cursors after the restore: {restored}, sessions at {written}")
+
+            # 6. the health server (the watchdog re-arms at its first poll
+            # after the stall clears)
+            deadline = time.monotonic() + 10 * watchdog
+            while wd.tripped and time.monotonic() < deadline:
+                time.sleep(watchdog / 10)
+            status, health = _http_get(srv.url + "/healthz")
+            health = json.loads(health)
+            _check(status == 200 and health["status"] == "ok",
+                   f"/healthz {status}: {health['status']}, watchdog {health['watchdog']}")
+            _, metrics = _http_get(srv.url + "/metrics")
+            _, flight = _http_get(srv.url + "/flight")
+            _, report = _http_get(srv.url + "/report")
+            families = _prometheus_families(metrics)
+            json.loads(flight)
+            made = (calls["armed"] + calls["imagenet"] + sum(rank_calls.values())
+                    + sum(el_calls.values()))
+            count = re.search(r'torcheval_tpu_latency_seconds_count\{op="update/update_collection"\} (\S+)',
+                              metrics)
+            _check(count is not None and int(float(count.group(1))) == made,
+                   f"/metrics counts {count and count.group(1)} panel updates, {made} were made")
+            _check(all(health[k] == {"armed": 0} for k in ("federation", "syncplane", "failover"))
+                   and not health["admission"]["shedding"],
+                   "an unported source does not read absent")
+            _check(not any(re.match(r"torcheval_tpu_(admission|wire|quality)_", f) for f in families),
+                   "an unported source exported a family")
+            _check(report.startswith("torcheval_tpu observability report"), "bad /report")
+            url, recorded = srv.url, rec.log.total
+            out["server"] = {"healthz_status": status, "status": health["status"],
+                             "families": len(families), "update_calls": made}
+        try:
+            urllib.request.urlopen(url + "/healthz", timeout=2)
+            stopped = False
+        except OSError:
+            stopped = True
+        _check(stopped and obs.current_server() is None, "the server outlived its scope")
+        # 7. the files written at scope exit
+        with open(chrome) as f:
+            trace = json.load(f)
+        with open(jsonl) as f:
+            lines = [line for line in f if line.strip()]
+        _check(len(lines) == recorded, f"{len(lines)} JSONL lines for {recorded} events")
+        _check(len(trace["traceEvents"]) > 0, "an empty Chrome trace")
+        out["files"] = {"jsonl_lines": len(lines), "trace_records": len(trace["traceEvents"])}
+
+    # the recorder-off stream again: the first stream also pays the
+    # process's warm-up, so the modes are read against both
+    again_ms, _, _ = _obs_stream(device, seed, n, batch, batches, num_bins, syncs, "off_again",
+                                 oracle)
+    _check(syncs.get("off_again", 0) == syncs.get("off", 0), f"host syncs differ: {syncs}")
+    out["timing"] = {mode: {"ms_median": _median(v), "ms_mean": sum(v) / len(v)}
+                     for mode, v in (("off", off_ms), ("on", on_ms), ("armed", armed_ms),
+                                     ("off_again", again_ms))}
+    out["update_host_us"] = _update_host_us(device, seed, batch, host_reps)
+    out["sync_warnings"] = dict(syncs, first_update=first.get("first", 0))
+    out["k1_launches"] = {"off": off_launches, "on": on_launches, "armed": armed_launches,
+                          "streaming_updates": len(_STREAMING) * batches}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -4881,6 +5309,8 @@ def main(argv=None) -> int:
     _emit(bucket)
     elastic = phase_elastic(device, seed=args.seed + 14)
     _emit(elastic)
+    obs_phase = phase_obs(device, seed=args.seed + 15)
+    _emit(obs_phase)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -4901,6 +5331,7 @@ def main(argv=None) -> int:
         "launches_bucket_classify": bucket["classify"]["k1_launches"],
         "launches_bucket_criteo": bucket["criteo"]["k1_launches"],
         "launches_elastic": elastic["k1_launches"],
+        "launches_obs": obs_phase["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

@@ -139,12 +139,11 @@ def test_auc_of_integer_x_matches_jax(dtype):
 
 @pytest.mark.parametrize("reorder", [False, True])
 def test_auc_of_bool_x_raises_like_jax(reorder):
-    # the reorder sorts bool x as int32, but the trapezoid cannot
-    # subtract bools in either package
+    # the trapezoid cannot subtract bools: both packages raise TypeError
     x, y = np.array([True, False, True]), np.ones(3, np.float32)
     with pytest.raises(TypeError):
         JF.auc(x, y, reorder=reorder)
-    with pytest.raises(RuntimeError, match="bool"):
+    with pytest.raises(TypeError, match="bool"):
         TF.auc(x, y, reorder=reorder, device=CPU)
 
 

@@ -383,6 +383,30 @@ def test_restore_quarantines_unusable_newer_generations(tmp_path):
     _assert_bit_identical(_values(resumed), _oracle(batches))
 
 
+def test_rank_scanning_after_the_quarantine_numbers_past_it(tmp_path):
+    """The leader removes an unusable generation during its restore; a
+    peer whose restore scans after the removal never sees it, and must
+    still continue the numbering above it (a quarantine marker), or the
+    two ranks' next snapshots name different generations."""
+    batches = _batches(21)
+    metrics = _fresh()
+    session = ElasticSession(metrics, str(tmp_path), interval=INTERVAL)
+    for step, batch in enumerate(batches):
+        _feed(metrics, batch)
+        session.step_done(step)
+    session.close()
+    newest = newest_committed_generation(str(tmp_path))[0]
+    corrupt_shard(str(tmp_path), newest)
+    views = ThreadWorld(2).views
+    leader = ElasticSession(_fresh(), str(tmp_path), process_group=views[0], interval=INTERVAL)
+    with pytest.warns(RuntimeWarning, match="unusable"):
+        assert leader.restore().generation == newest - 1
+    assert not os.path.exists(tmp_path / f"gen-{newest:08d}")
+    late = ElasticSession(_fresh(), str(tmp_path), process_group=views[1], interval=INTERVAL)
+    assert late.restore().generation == newest - 1
+    assert late._next_gen == leader._next_gen == newest + 1
+
+
 def test_generation_divergence_fails_loudly_at_commit(tmp_path):
     directory = str(tmp_path)
 

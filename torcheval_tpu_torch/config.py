@@ -36,6 +36,12 @@ Sync resilience (``resilience.ResilientGroup``): ``sync_timeout``,
 ``snapshot_interval`` and ``snapshot_retention``; envs
 ``TORCHEVAL_TPU_SNAPSHOT_INTERVAL`` and ``_SNAPSHOT_RETENTION``.
 
+Observability (``torcheval_tpu_torch.obs``): ``observability(...)``
+scopes the event recorder, its JSONL writer and Chrome trace, the stall
+watchdog, the health server and the SLO monitor; ``observability_enabled``
+and ``set_observability``; env ``TORCHEVAL_TPU_OBSERVABILITY`` (truthy
+enables at import, a ``*.jsonl`` value also attaches the writer).
+
 The environment names, spellings, defaults and policies are the JAX
 package's.
 """
@@ -472,3 +478,191 @@ def set_sync_reform_after(syncs: int) -> None:
     if int(syncs) < 0:
         raise ValueError(f"sync_reform_after must be >= 0 (0 disables), got {syncs}")
     _sync_reform_after = int(syncs)
+
+
+# ---------------------------------------------------------- observability
+
+def observability_enabled() -> bool:
+    """True when the process-global event recorder
+    (``torcheval_tpu_torch.obs``) is recording. Off by default — when off, the
+    instrumented hot paths cost one attribute read and add no host sync
+    and no collective. Env
+    ``TORCHEVAL_TPU_OBSERVABILITY`` (truthy enables at import; a value
+    ending in ``.jsonl`` also attaches the JSONL writer)."""
+    from torcheval_tpu_torch.obs.recorder import RECORDER
+
+    return RECORDER.enabled
+
+
+def set_observability(enabled: bool) -> None:
+    """Turn the global event recorder on/off process-wide. Prefer the
+    scoped :func:`observability` context manager in eval code."""
+    from torcheval_tpu_torch.obs.recorder import RECORDER
+
+    if enabled:
+        RECORDER.enable()
+    else:
+        RECORDER.disable()
+
+
+@contextmanager
+def observability(
+    enabled: bool = True,
+    *,
+    jsonl: Optional[str] = None,
+    capacity: Optional[int] = None,
+    chrome_trace: Optional[str] = None,
+    watchdog: Optional[float] = None,
+    serve: Optional[int] = None,
+    slos=None,
+) -> Iterator[None]:
+    """Context manager scoping structured event recording.
+
+    Inside the context the global recorder (``torcheval_tpu_torch.obs``)
+    collects typed lifecycle events — updates, computes, syncs (with
+    provenance + wire bytes), resilience retries/degradations, elastic
+    snapshots/restores, CUDA-graph captures — into a bounded ring buffer,
+    with causal trace/span ids connecting them into per-step trees, and
+    optionally streams
+    them to ``jsonl`` via the async line writer (drained and closed on
+    exit). ``chrome_trace`` additionally writes the scope's retained
+    events as Chrome trace-event JSON (``obs.export_chrome_trace``,
+    loadable in Perfetto) when the scope exits — including an exit by
+    exception, so a crashed eval leaves its timeline behind.
+
+    Live-diagnosis layer: ``watchdog=<seconds>`` arms the
+    stall watchdog (``obs.watchdog``) for the scope — a collective
+    in-flight past that deadline dumps every thread's flight ring, the
+    stalled thread's span path, and a ``StallEvent`` before the process
+    dies; ``serve=<port>`` runs the background health server
+    (``obs.server``: ``/metrics``, ``/healthz``, ``/flight``,
+    ``/report``; port 0 = ephemeral — read it off
+    ``obs.server.current_server().port``); ``slos=[SloSpec, ...]`` arms
+    the SLO/anomaly monitor (``obs.monitor``; pass ``[]`` for
+    drift-detection-only). All three are torn down at scope exit —
+    watchdog disarmed, server stopped, monitor disarmed — exit by
+    exception included.
+
+    >>> with observability(jsonl="/tmp/eval-events.jsonl"):
+    ...     value = sync_and_compute(metric)
+    >>> # obs.format_report() / obs.read_jsonl(...) to inspect
+    """
+    from torcheval_tpu_torch.obs.flight import FLIGHT
+    from torcheval_tpu_torch.obs.recorder import RECORDER
+
+    prev_enabled = RECORDER.enabled
+    prev_writer = RECORDER._writer
+    # enable() adds the flight recorder's "recorder" source; the scope
+    # restores RECORDER.enabled by attribute (pause semantics), so the
+    # source must be restored the same way or flight recording leaks
+    # past the scope
+    prev_flight = "recorder" in FLIGHT._sources
+    # pre-existing process-global live-diagnosis instances: the scope
+    # must hand them BACK at exit (an operator's env-armed watchdog may
+    # not be silently stripped by a narrower scoped one)
+    scoped_watchdog = scoped_server = False
+    scoped_monitor = False
+    prev_watchdog = prev_monitor = None
+    prev_server_addr = None
+    # NOT sys.exc_info(): inside an outer `except` handler that call
+    # reports the already-HANDLED exception, which would both mask a
+    # chrome-trace export error after a fully successful scope and
+    # mislabel a clean exit as a crash — only an exception escaping the
+    # scope BODY counts
+    propagating: Optional[BaseException] = None
+    events_before = RECORDER.log.total
+    try:
+        # arming INSIDE the try: a failed start (e.g. the serve port is
+        # already bound) still runs the teardown below, so an armed
+        # watchdog/monitor cannot leak past a scope that never opened
+        if watchdog is not None:
+            from torcheval_tpu_torch.obs import watchdog as _wd_mod
+
+            prev_watchdog = _wd_mod._WATCHDOG
+            _wd_mod.arm_watchdog(watchdog)
+            scoped_watchdog = True
+        if slos is not None:
+            from torcheval_tpu_torch.obs import monitor as _mon_mod
+
+            prev_monitor = _mon_mod._MONITOR
+            _mon_mod.arm_monitor(slos=tuple(slos))
+            scoped_monitor = True
+        if serve is not None:
+            from torcheval_tpu_torch.obs.server import current_server, start_server
+
+            running = current_server()
+            if running is not None:
+                prev_server_addr = (running.port, running.host)
+            start_server(serve)
+            scoped_server = True
+        if enabled:
+            if jsonl is not None:
+                # detach (don't close) any writer attached OUTSIDE this
+                # scope before enable() installs this scope's — the outer
+                # stream must keep working after the scope exits
+                RECORDER._writer = None
+            RECORDER.enable(jsonl=jsonl, capacity=capacity)
+        else:
+            # pause recording only — a writer attached OUTSIDE this scope
+            # must survive the scope (full disable() would close it)
+            RECORDER.enabled = False
+        yield
+    except BaseException as e:
+        propagating = e
+        raise
+    finally:
+        # live-diagnosis teardown first (the server reads the monitor
+        # and watchdog, so it stops before they disarm); each RESTORES
+        # any process-global instance that pre-existed the scope. None
+        # of these raise by design, and the nested finally guarantees
+        # the recorder/writer restore below runs regardless
+        try:
+            if scoped_server:
+                from torcheval_tpu_torch.obs.server import start_server, stop_server
+
+                stop_server()
+                if prev_server_addr is not None:
+                    start_server(*prev_server_addr)
+            if scoped_monitor:
+                from torcheval_tpu_torch.obs.monitor import _restore_monitor
+
+                _restore_monitor(prev_monitor)
+            if scoped_watchdog:
+                from torcheval_tpu_torch.obs.watchdog import _restore_watchdog
+
+                _restore_watchdog(prev_watchdog)
+        finally:
+            export_error: Optional[BaseException] = None
+            if enabled and chrome_trace is not None:
+                # write the timeline even when the scope exits by
+                # exception (a crashed eval leaves its trace behind); an
+                # unwritable path surfaces — but only after the
+                # recorder/writer state below is restored, and never
+                # MASKING a propagating error. Only THIS SCOPE's events
+                # (the documented contract): the ring is process-global
+                # and may hold an earlier eval's events — export the
+                # suffix recorded since entry. (Events beyond the ring
+                # capacity are gone either way; tail(0) would mean ALL
+                # retained, hence the explicit [] branch.)
+                from torcheval_tpu_torch.obs.export import export_chrome_trace
+
+                new = RECORDER.log.total - events_before
+                scope_events = RECORDER.log.tail(new) if new > 0 else []
+                try:
+                    export_chrome_trace(scope_events, path=chrome_trace)
+                except Exception as e:  # noqa: BLE001 — re-raised below
+                    export_error = e
+            # restore recorder state FIRST (close may raise a ferried
+            # writer error to the caller), then close ONLY the writer
+            # THIS scope attached — never one inherited from outside
+            scoped = RECORDER._writer
+            RECORDER._writer = prev_writer
+            RECORDER.enabled = prev_enabled
+            if prev_flight:
+                FLIGHT.enable("recorder")
+            else:
+                FLIGHT.disable("recorder")
+            if scoped is not None and scoped is not prev_writer:
+                scoped.close()
+            if export_error is not None and propagating is None:
+                raise export_error

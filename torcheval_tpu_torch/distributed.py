@@ -3,11 +3,19 @@
 Counterpart of ``torcheval_tpu/distributed.py``: ``ProcessGroup`` (the
 interface the sync layer needs), ``SingleProcessGroup`` (a world of one),
 ``LocalReplicaGroup`` (N metric replicas driven by one process, one per
-``torch.device`` -- several may share one card), and ``MultiHostGroup`` /
+``torch.device`` -- several may share one card), ``MultiHostGroup`` /
 ``MultiHostSubgroup``: one rank per process over ``torch.distributed``,
-the counterparts of the JAX package's multi-host groups. Every group
-also speaks the participation protocol of the resilience layer:
-``unwrap()`` and the ``allgather_*_with_ranks`` gathers.
+the counterparts of the JAX package's multi-host groups, and
+``HierarchicalGroup``, the two-level gather over any of them that
+supports ``new_subgroup``. Every group also speaks the participation
+protocol of the resilience layer: ``unwrap()`` and the
+``allgather_*_with_ranks`` gathers.
+
+With the flight recorder on (``obs.flight``), every gather a
+``MultiHostGroup`` issues leaves one record on the calling thread's ring
+(one attribute read when off). A subgroup's gathers record the same op
+names as the world's; the JAX package's KV-store subgroups record theirs
+as ``kv_allgather``.
 
 An object gather pickles the object, gathers every rank's byte length as
 an int32 pair (``encode_length``), pads the bytes to the longest and
@@ -25,6 +33,10 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from torcheval_tpu_torch.obs import flight as _flight
+from torcheval_tpu_torch.obs.flight import FLIGHT as _FLIGHT
+from torcheval_tpu_torch.utils.convert import tensor_to_numpy
 
 LENGTH_WIRE_DTYPE = np.int32
 _LENGTH_BASE = 1 << 31
@@ -62,7 +74,7 @@ def _check_subgroup_ranks(ranks: Sequence[int], world: int) -> Tuple[int, ...]:
 
 def _as_numpy(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return tensor_to_numpy(x)
     return np.asarray(x)
 
 
@@ -270,10 +282,24 @@ class MultiHostGroup(ProcessGroup):
         return [t.cpu().numpy() for t in out]
 
     def allgather_array(self, x) -> List[np.ndarray]:
-        return self._all_gather(_as_numpy(x))
+        arr = _as_numpy(x)
+        if _FLIGHT.enabled:
+            return _flight.guarded_collective(
+                "allgather_array", arr.nbytes, self.rank, self.world_size,
+                lambda: self._all_gather(arr),
+            )
+        return self._all_gather(arr)
 
     def allgather_object(self, obj) -> List[Any]:
         payload = np.frombuffer(pickle.dumps(obj), dtype=np.uint8)
+        if _FLIGHT.enabled:
+            return _flight.guarded_collective(
+                "allgather_object", payload.nbytes, self.rank, self.world_size,
+                lambda: self._allgather_object(payload),
+            )
+        return self._allgather_object(payload)
+
+    def _allgather_object(self, payload: np.ndarray) -> List[Any]:
         sizes = [decode_length(n) for n in self._all_gather(encode_length(payload.size))]
         padded = np.zeros(max(sizes), dtype=np.uint8)
         padded[: payload.size] = payload
@@ -289,6 +315,129 @@ class MultiHostSubgroup(MultiHostGroup):
 
     def __init__(self, group, ranks: Sequence[int]) -> None:
         super().__init__(group, ranks)
+
+
+class HierarchicalGroup(ProcessGroup):
+    """Two-level eager sync: gather within each node, one exchange among
+    the node leaders, then each leader broadcasts to its node.
+
+    Counterpart of the JAX package's ``HierarchicalGroup``. Where links
+    within a node (NVLink, shared memory) are much faster than those
+    between nodes, a flat world-size-N gather puts N payloads on the slow
+    fabric; the two-level shape exchanges one aggregate per NODE among the
+    leaders instead. Results are identical to the flat gather (same
+    payloads, same rank order); only the wire pattern changes.
+    ``node_collectives`` / ``leader_collectives`` count the split.
+
+    Built on :meth:`ProcessGroup.new_subgroup`, so it works over any
+    rank-per-process group that supports subgroup scoping
+    (``MultiHostGroup``, ``ThreadRankGroup``, ``ResilientGroup``,
+    ``FaultInjectionGroup``); construct it on every process, since
+    ``new_subgroup`` is collective for ``MultiHostGroup``. Nodes are
+    ``group_size`` consecutive ranks, or the explicit ``groups``, which
+    must partition the ranks; they are ordered by leader (lowest) rank.
+
+    What it guarantees is the exchange SHAPE (only leaders exchange across
+    nodes), not a measured speedup: over one process group on one card
+    the three collectives cost more than one.
+    """
+
+    def __init__(
+        self,
+        inner: ProcessGroup,
+        *,
+        group_size: Optional[int] = None,
+        groups: Optional[Sequence[Sequence[int]]] = None,
+    ) -> None:
+        if isinstance(inner.unwrap(), LocalReplicaGroup):
+            raise ValueError(
+                "HierarchicalGroup needs a rank-per-process group "
+                "(MultiHostGroup); a LocalReplicaGroup is one process — "
+                "there is no slow fabric to optimize"
+            )
+        world = inner.world_size
+        if groups is None:
+            if group_size is None or group_size < 1:
+                raise ValueError("pass group_size >= 1 or explicit groups")
+            groups = [
+                list(range(lo, min(lo + group_size, world)))
+                for lo in range(0, world, group_size)
+            ]
+        nodes = [_check_subgroup_ranks(g, world) for g in groups]
+        covered = sorted(r for node in nodes for r in node)
+        if covered != list(range(world)):
+            raise ValueError(
+                f"groups {groups} must partition ranks 0..{world - 1}"
+            )
+        # canonical node order = ascending leader rank: the leaders'
+        # subgroup gathers in THAT order, and allgather_object zips the
+        # gathered per-node lists against self._nodes
+        nodes.sort(key=lambda n: n[0])
+        self._inner = inner
+        self._nodes = nodes
+        me = inner.rank
+        mine = next((n for n in nodes if me in n), None)
+        if not inner.is_member or mine is None:
+            # a non-member gets the graceful handle every other group
+            # kind returns
+            self._node = None
+            self._leaders = None
+        else:
+            self._node = inner.new_subgroup(mine)
+            self._leaders = inner.new_subgroup([n[0] for n in nodes])
+        self.node_collectives = 0
+        self.leader_collectives = 0
+
+    @property
+    def world_size(self) -> int:
+        return self._inner.world_size
+
+    @property
+    def rank(self) -> int:
+        return self._inner.rank
+
+    @property
+    def is_member(self) -> bool:
+        return self._node is not None
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        return self._inner.ranks
+
+    def unwrap(self) -> ProcessGroup:
+        return self._inner.unwrap()
+
+    def allgather_object(self, obj: Any) -> List[Any]:
+        if self._node is None:
+            raise RuntimeError(
+                "this process is not a member of the hierarchical group's "
+                "parent; non-members must not issue its collectives (the "
+                "toolkit returns their local metrics untouched)"
+            )
+        # level 1: gather within this node
+        self.node_collectives += 1
+        node_vals = self._node.allgather_object(obj)
+        # level 2: ONE exchange among node leaders, each carrying its
+        # whole node's payloads
+        flat: Optional[List[Any]] = None
+        if self._leaders.is_member:
+            self.leader_collectives += 1
+            per_node = self._leaders.allgather_object(node_vals)
+            flat = [None] * self.world_size
+            for node, vals in zip(self._nodes, per_node):
+                for r, v in zip(node, vals):
+                    flat[r] = v
+        # level 3: leaders broadcast the assembled world within their node
+        # (a gather where only the leader's slot carries data)
+        self.node_collectives += 1
+        shared = self._node.allgather_object(flat)
+        return shared[0]  # the node leader is its subgroup's rank 0
+
+    def allgather_array(self, x: Any) -> List[np.ndarray]:
+        return [
+            np.asarray(a)
+            for a in self.allgather_object(np.ascontiguousarray(_as_numpy(x)))
+        ]
 
 
 def default_process_group() -> ProcessGroup:

@@ -50,9 +50,15 @@ controller holding per-replica metric lists) is not supported: give each
 logical rank its own session, or snapshot the synced metric with
 ``utils.save_metric_state``.
 
+Observability (``torcheval_tpu_torch.obs``): ``step_done`` keeps the
+recorder's step cursor on the session's; a snapshot's two-phase commit is
+one ``torcheval.snapshot`` span and a ``SnapshotEvent``, a restore a
+``RestoreEvent``, each fed to the latency digests; the registry's
+``snapshots`` tallies move whether or not the recorder is on.
+
 Left for later slices: the ``plane=`` and ``federation=`` riders, which
 raise ``NotImplementedError`` unless ``None``; sharded-state
-redistribution; the observability events.
+redistribution.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ import queue
 import re
 import shutil
 import threading
+import time
 import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
@@ -76,6 +83,11 @@ from torcheval_tpu_torch.distributed import (
     default_process_group,
 )
 from torcheval_tpu_torch.metrics.metric import Metric
+from torcheval_tpu_torch.obs import counters as _obs_counters
+from torcheval_tpu_torch.obs import hist as _obs_hist
+from torcheval_tpu_torch.obs import trace as _obs_trace
+from torcheval_tpu_torch.obs.events import RestoreEvent, SnapshotEvent
+from torcheval_tpu_torch.obs.recorder import RECORDER as _OBS
 from torcheval_tpu_torch.utils.checkpoint import (
     _digest,
     _from_plain,
@@ -541,6 +553,10 @@ class ElasticSession:
             self._payload = payload
         self._cursor += 1
         self._since_snapshot += 1
+        if _OBS.enabled:
+            # the session IS the step authority in an elastic loop: keep
+            # the recorder's step cursor in lockstep with it
+            _OBS.set_step(self._cursor)
         if self._since_snapshot >= self.interval:
             self.snapshot()
 
@@ -636,6 +652,42 @@ class ElasticSession:
         mode a dedicated whole-world subgroup whose collective sequence
         nothing else shares.
         """
+        write_t0 = time.monotonic()
+        # the whole commit is one span (the digest gather parents to it);
+        # recorder off = no frame, nothing to pay
+        with _obs_trace.scope_or_null("torcheval.snapshot", _OBS.enabled) as snap_frame:
+            shard_bytes = self._write_bundle_body(
+                generation, metric_states, cursor, payload, event
+            )
+        seconds = time.monotonic() - write_t0
+        # registry tallies accumulate whether or not event recording is on
+        # (snapshotting is off the hot path); the typed event is gated
+        _obs_counters.note_snapshot(generation, seconds)
+        if _OBS.enabled and snap_frame is not None:
+            _obs_hist.observe("snapshot", seconds)
+            _OBS.record(
+                SnapshotEvent(
+                    rank=self._comm.rank,
+                    step=int(cursor),
+                    generation=generation,
+                    seconds=seconds,
+                    shard_bytes=shard_bytes,
+                    async_writer=self._writer is not None,
+                    trace=snap_frame.trace_id,
+                    span=snap_frame.span_id,
+                    parent=snap_frame.parent_id,
+                )
+            )
+        return shard_bytes
+
+    def _write_bundle_body(
+        self,
+        generation: int,
+        metric_states: Dict[str, Dict[str, Any]],
+        cursor: int,
+        payload: Any,
+        event: Optional["torch.cuda.Event"],
+    ) -> int:
         group = self._comm
         rank, world = group.rank, group.world_size
         self._fault("pre-shard", generation)
@@ -758,6 +810,20 @@ class ElasticSession:
         out.sort()
         return out
 
+    def _quarantine_marker(self, generation: int) -> str:
+        return os.path.join(self.directory, f"quarantined-{generation:08d}")
+
+    def _quarantined(self) -> List[int]:
+        """Generation numbers the leader quarantined (their markers): a
+        rank that scans after the leader removed a generation still sees
+        its number, so every rank continues the numbering above it."""
+        try:
+            names = os.listdir(self.directory)
+        except FileNotFoundError:
+            return []
+        return [int(n[len("quarantined-"):]) for n in names
+                if n.startswith("quarantined-") and n[len("quarantined-"):].isdigit()]
+
     def _committed_generations(self) -> List[Tuple[int, str]]:
         return [
             (g, d)
@@ -790,6 +856,7 @@ class ElasticSession:
         the step cursor, fencing the resumed loop against double counts.
         """
         self._raise_writer_error()
+        restore_t0 = time.monotonic()
         world = self._group.world_size
         rank = self._group.rank
         unusable: List[Tuple[int, str]] = []
@@ -817,6 +884,9 @@ class ElasticSession:
                         "so it cannot occupy a retention slot",
                         RuntimeWarning,
                     )
+                    # a marker first, then the removal: a rank whose scan
+                    # comes after the removal still numbers past it
+                    open(self._quarantine_marker(bad_gen), "w").close()
                     shutil.rmtree(bad_dir, ignore_errors=True)
             old_world = int(manifest["world_size"])
             assigned = _assign_shards(old_world, world)[rank]
@@ -832,8 +902,24 @@ class ElasticSession:
             # number would let a fast rank's fresh shard write race the
             # leader's quarantine rmtree of the same directory.
             self._next_gen = 1 + max(
-                [generation] + [g for g, _ in unusable]
+                [generation] + [g for g, _ in unusable] + self._quarantined()
             )
+            seconds = time.monotonic() - restore_t0
+            _obs_counters.note_restore(seconds)
+            if _OBS.enabled:
+                _obs_hist.observe("restore", seconds)
+                _OBS.set_step(self._cursor)
+                _OBS.record(
+                    RestoreEvent(
+                        rank=rank,
+                        step=self._cursor,
+                        generation=generation,
+                        restored_step=self._cursor,
+                        old_world=old_world,
+                        new_world=world,
+                        seconds=seconds,
+                    )
+                )
             return RestoreResult(
                 step=self._cursor,
                 generation=generation,

@@ -39,6 +39,8 @@ import torch
 
 from torcheval_tpu_torch import config
 from torcheval_tpu_torch.metrics.metric import UpdatePlan
+from torcheval_tpu_torch.obs import trace as _obs_trace
+from torcheval_tpu_torch.obs.recorder import RECORDER as _OBS
 
 # Floor for bucket sizes: tiny ragged tails (1..8 rows) share one bucket
 # instead of making buckets 1, 2, 4 and 8.
@@ -89,13 +91,15 @@ class Padded:
 
 class ValidSizes:
     """The int32 valid-extent vector of one bucketed update, not yet
-    materialized."""
+    materialized. ``bucket`` is the update's largest bucket length: a
+    graph captured for it is attributed to that bucket."""
 
-    __slots__ = ("sizes", "device", "_out")
+    __slots__ = ("sizes", "device", "bucket", "_out")
 
-    def __init__(self, sizes: Tuple[int, ...], device: torch.device) -> None:
+    def __init__(self, sizes: Tuple[int, ...], device: torch.device, bucket: int = 0) -> None:
         self.sizes = tuple(int(n) for n in sizes)
         self.device = device
+        self.bucket = int(bucket)
         self._out: Optional[torch.Tensor] = None
 
     def fill(self, out: torch.Tensor) -> torch.Tensor:
@@ -190,6 +194,15 @@ def apply_bucketing(plan, pad_cache: Optional[Dict] = None, *, lazy: bool = Fals
         else:
             padded.append(_pad_to(arg, tuple(shape), pad_cache, lazy))
 
+    # Causal attribution (obs/trace.py), recorder on only: stamp the
+    # bucket length onto the current span frame (the update wrapper's),
+    # as the JAX package does. Only on the single-metric path: in
+    # update_collection the open frame is the panel's, and a capture there
+    # names its bucket through the valid vector instead.
+    bucket = max(buckets.values(), default=0)
+    if pad_cache is None and _OBS.enabled:
+        _obs_trace.annotate(bucket=bucket)
+
     # Always dispatch the masked kernel -- even for exactly-bucket-sized
     # batches -- so each bucket owns ONE kernel (and one CUDA graph).
     extents = tuple(sizes[label] for label in order)
@@ -197,7 +210,7 @@ def apply_bucketing(plan, pad_cache: Optional[Dict] = None, *, lazy: bool = Fals
     if pad_cache is not None and valid_key in pad_cache:
         valid = pad_cache[valid_key]
     else:
-        valid = ValidSizes(extents, device)
+        valid = ValidSizes(extents, device, bucket)
         if not lazy:
             valid = valid.materialize()
         if pad_cache is not None:

@@ -38,16 +38,23 @@ copies of the states), captures, then replays. If that warm-up finds a
 state whose update would change its dtype or shape, the call runs eagerly
 instead and nothing is captured; its next call has new state shapes, so a
 new signature. Not thread-safe: one thread updates a metric at a time.
+
+Each capture is counted as the port's compile event
+(``utils.compile_counter.note_capture``: ``CompileCounter`` and the
+observability recorder's ``CompileEvent``), after the capture has ended,
+with its host seconds and its bucket length.
 """
 
 from __future__ import annotations
 
+import time
 import weakref
 from typing import Any, Callable, Dict, List, Sequence, Set, Tuple
 
 import torch
 
 from torcheval_tpu_torch.metrics._bucket import Padded, ValidSizes, materialize
+from torcheval_tpu_torch.utils import compile_counter
 
 
 def _check_arity(kernel, out, states):
@@ -77,9 +84,19 @@ def _in_place_ok(state, out, transform: bool) -> bool:
     if transform:
         return out.dtype == state.dtype and out.shape == state.shape
     return (
-        torch.result_type(state, out) == state.dtype
+        torch.promote_types(state.dtype, out.dtype) == state.dtype
         and torch.broadcast_shapes(state.shape, out.shape) == state.shape
     )
+
+
+def _add(state, out):
+    """``state + out`` promoted by dtype alone, as JAX promotes: torch's
+    own rule lets a dimensioned float16 operand outrank a 0-d float32
+    state, which would narrow the state to float16."""
+    if isinstance(state, torch.Tensor) and isinstance(out, torch.Tensor):
+        dtype = torch.promote_types(state.dtype, out.dtype)
+        return state.to(dtype) + out.to(dtype)
+    return state + out
 
 
 def _apply(states, outs, transform: bool, donate: bool) -> tuple:
@@ -94,7 +111,7 @@ def _apply(states, outs, transform: bool, donate: bool) -> tuple:
                 s.add_(o)
             new.append(s)
         else:
-            new.append(o if transform else s + o)
+            new.append(o if transform else _add(s, o))
     return tuple(new)
 
 
@@ -368,6 +385,7 @@ def _record(graph, pool, body):
 
 
 def _capture(key, plans, objs, arg_sig, states, device, stream):
+    t0 = time.monotonic()
     statics = [_alloc(o, device) for o in objs]
     pool_key = (device.index, tuple(id(s) for s in states))
     entry = _Graph(statics, objs, tuple(id(s) for s in states), pool_key)
@@ -407,6 +425,12 @@ def _capture(key, plans, objs, arg_sig, states, device, stream):
     pool[1] += 1
     _STATS["captures"] += 1
     _register(key, entry, states)
+    # the port's compile event (utils/compile_counter.py): counted and
+    # handed to the sinks after the capture has ended, never inside it
+    compile_counter.note_capture(
+        time.monotonic() - t0,
+        max((o.bucket for o in objs if isinstance(o, ValidSizes)), default=0),
+    )
     return entry
 
 

@@ -9,7 +9,7 @@ import torch
 
 from torcheval_tpu_torch.metrics.functional.tensor_utils import check_reducible
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
-from torcheval_tpu_torch.utils.convert import DeviceLike
+from torcheval_tpu_torch.utils.convert import DeviceLike, narrow_64
 
 TMax = TypeVar("TMax", bound="Max")
 
@@ -36,7 +36,7 @@ class Max(Metric[torch.Tensor]):
         return self._apply_update_plan(self._update_plan(input))
 
     def _update_plan(self, input):
-        input = self._input_float(input)
+        input = narrow_64(self._input_float(input))
         check_reducible(input, "max")
         return UpdatePlan(_max_transform, ("max",), (input,), transform=True)
 

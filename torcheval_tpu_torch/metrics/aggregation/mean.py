@@ -12,7 +12,7 @@ from torcheval_tpu_torch.metrics.functional.aggregation.mean import (
     _weighted_sum_pair,
 )
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric
-from torcheval_tpu_torch.utils.convert import DeviceLike, resolve_weight
+from torcheval_tpu_torch.utils.convert import DeviceLike, narrow_64, resolve_weight
 
 TMean = TypeVar("TMean", bound="Mean")
 
@@ -32,8 +32,9 @@ class Mean(Metric[torch.Tensor]):
         self._add_state("weights", torch.zeros(()), merge=MergeKind.SUM)
 
     def _update_plan(self, input, *, weight: Union[float, int, torch.Tensor] = 1.0):
-        input = self._input_float(input)
+        input = narrow_64(self._input_float(input))
         is_scalar, weight_t = resolve_weight(weight, input)
+        weight_t = narrow_64(weight_t)
         return (
             _scalar_weight_pair if is_scalar else _weighted_sum_pair,
             ("weighted_sum", "weights"),

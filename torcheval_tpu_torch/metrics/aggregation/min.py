@@ -9,7 +9,7 @@ import torch
 
 from torcheval_tpu_torch.metrics.functional.tensor_utils import check_reducible
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
-from torcheval_tpu_torch.utils.convert import DeviceLike
+from torcheval_tpu_torch.utils.convert import DeviceLike, narrow_64
 
 TMin = TypeVar("TMin", bound="Min")
 
@@ -36,7 +36,7 @@ class Min(Metric[torch.Tensor]):
         return self._apply_update_plan(self._update_plan(input))
 
     def _update_plan(self, input):
-        input = self._input_float(input)
+        input = narrow_64(self._input_float(input))
         check_reducible(input, "min")
         return UpdatePlan(_min_transform, ("min",), (input,), transform=True)
 

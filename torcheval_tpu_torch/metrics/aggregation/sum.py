@@ -9,7 +9,7 @@ import torch
 
 from torcheval_tpu_torch.metrics.functional.aggregation.sum import _weighted_total
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric
-from torcheval_tpu_torch.utils.convert import DeviceLike, resolve_weight
+from torcheval_tpu_torch.utils.convert import DeviceLike, narrow_64, resolve_weight
 
 TSum = TypeVar("TSum", bound="Sum")
 
@@ -28,8 +28,9 @@ class Sum(Metric[torch.Tensor]):
         self._add_state("weighted_sum", torch.zeros(()), merge=MergeKind.SUM)
 
     def _update_plan(self, input, *, weight=1.0):
-        input = self._input_float(input)
+        input = narrow_64(self._input_float(input))
         _, weight_t = resolve_weight(weight, input, int_clause=True)
+        weight_t = narrow_64(weight_t)
         return (_weighted_total, ("weighted_sum",), (input, weight_t), ())
 
     def update(self: TSum, input, *, weight: Union[float, int, torch.Tensor] = 1.0) -> TSum:

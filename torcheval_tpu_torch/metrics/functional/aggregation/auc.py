@@ -14,7 +14,7 @@ from torcheval_tpu_torch.metrics.functional.classification._curve_kernels import
     sort_desc,
 )
 from torcheval_tpu_torch.metrics.functional.tensor_utils import trapezoid
-from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch
+from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, narrow_64, to_torch
 
 
 def _ascending_order(x: torch.Tensor) -> torch.Tensor:
@@ -91,6 +91,10 @@ def auc(x, y, reorder: bool = False, *, device: DeviceLike = None) -> torch.Tens
     tensor([0.5250])
     """
     dev = functional_device(device, x, y)
-    x, y = to_torch(x, device=dev), to_torch(y, device=dev)
+    x, y = narrow_64(to_torch(x, device=dev)), narrow_64(to_torch(y, device=dev))
+    if x.dtype == torch.bool:
+        # the trapezoid subtracts x; the JAX package's subtraction rejects
+        # bool operands with a TypeError
+        raise TypeError(f"auc does not accept a bool x, got x {x.dtype}.")
     _auc_update_input_check(x, y, n_tasks=1 if x.ndim == 1 else x.shape[0])
     return _auc_compute(x, y, reorder)

@@ -10,6 +10,7 @@ import torch
 from torcheval_tpu_torch.utils.convert import (
     DeviceLike,
     functional_device,
+    narrow_64,
     resolve_weight,
     to_torch_float,
 )
@@ -41,8 +42,9 @@ def mean(
     >>> mean(torch.tensor([2., 3.]))
     tensor(2.5000)
     """
-    input = to_torch_float(input, device=functional_device(device, input))
+    input = narrow_64(to_torch_float(input, device=functional_device(device, input)))
     is_scalar, weight_t = resolve_weight(weight, input)
+    weight_t = narrow_64(weight_t)
     pair = _scalar_weight_pair if is_scalar else _weighted_sum_pair
     weighted_sum, weights = pair(input, weight_t)
     return weighted_sum / weights

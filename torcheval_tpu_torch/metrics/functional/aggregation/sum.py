@@ -10,6 +10,7 @@ import torch
 from torcheval_tpu_torch.utils.convert import (
     DeviceLike,
     functional_device,
+    narrow_64,
     resolve_weight,
     to_torch_float,
 )
@@ -35,6 +36,7 @@ def sum(
     >>> sum(torch.tensor([2., 3.]))
     tensor(5.)
     """
-    input = to_torch_float(input, device=functional_device(device, input))
+    input = narrow_64(to_torch_float(input, device=functional_device(device, input)))
     _, weight_t = resolve_weight(weight, input, int_clause=True)
+    weight_t = narrow_64(weight_t)
     return _weighted_total(input, weight_t)

@@ -10,7 +10,12 @@ from typing import Optional, Tuple
 import torch
 
 from torcheval_tpu_torch.metrics.functional.tensor_utils import check_reducible
-from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch_float
+from torcheval_tpu_torch.utils.convert import (
+    DeviceLike,
+    functional_device,
+    narrow_64,
+    to_torch_float,
+)
 
 
 def _psnr_update(input: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -69,7 +74,8 @@ def peak_signal_noise_ratio(
     """
     _psnr_param_check(data_range)
     dev = functional_device(device, input, target)
-    input, target = to_torch_float(input, device=dev), to_torch_float(target, device=dev)
+    input = narrow_64(to_torch_float(input, device=dev))
+    target = narrow_64(to_torch_float(target, device=dev))
     _psnr_input_check(input, target)
     sse, n = _psnr_update(input, target)
     if data_range is None:

@@ -13,7 +13,12 @@ from typing import Optional, Tuple
 import torch
 
 from torcheval_tpu_torch.metrics.functional.tensor_utils import valid_mask, xla_mean
-from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch_float
+from torcheval_tpu_torch.utils.convert import (
+    DeviceLike,
+    functional_device,
+    narrow_64,
+    to_torch_float,
+)
 
 # the JAX package clamps with float64's eps, rounded to float32 in its
 # float32 arithmetic
@@ -73,7 +78,12 @@ def _mean_squared_error_compute(
     sum_squared_error: torch.Tensor, multioutput: str, sum_weight: torch.Tensor
 ) -> torch.Tensor:
     sign = torch.sign(sum_weight)
-    raw_values = sum_squared_error / (torch.clamp(torch.abs(sum_weight), min=_EPS) * sign)
+    # promoted by dtype alone, as JAX does: a (n_output,) float16 sum over
+    # a 0-d float32 weight sum divides in float32
+    dtype = torch.promote_types(sum_squared_error.dtype, sum_weight.dtype)
+    raw_values = sum_squared_error.to(dtype) / (
+        torch.clamp(torch.abs(sum_weight), min=_EPS) * sign
+    ).to(dtype)
     if multioutput == "raw_values":
         return raw_values
     return xla_mean(raw_values)
@@ -82,6 +92,11 @@ def _mean_squared_error_compute(
 def _mean_squared_error_update_input_check(
     input: torch.Tensor, target: torch.Tensor, sample_weight
 ) -> None:
+    if input.ndim == 0 or target.ndim == 0:
+        raise ValueError(
+            "The dimension `input` and `target` should be 1D or 2D, "
+            f"got 0-d shapes {tuple(input.shape)} and {tuple(target.shape)}."
+        )
     if input.ndim >= 3 or target.ndim >= 3:
         raise ValueError(
             "The dimension `input` and `target` should be 1D or 2D, "
@@ -131,8 +146,9 @@ def mean_squared_error(
     """
     _mean_squared_error_param_check(multioutput)
     dev = functional_device(device, input, target)
-    input, target = to_torch_float(input, device=dev), to_torch_float(target, device=dev)
+    input = narrow_64(to_torch_float(input, device=dev))
+    target = narrow_64(to_torch_float(target, device=dev))
     if sample_weight is not None:
-        sample_weight = to_torch_float(sample_weight, device=dev)
+        sample_weight = narrow_64(to_torch_float(sample_weight, device=dev))
     sum_squared_error, sum_weight = _mean_squared_error_update(input, target, sample_weight)
     return _mean_squared_error_compute(sum_squared_error, multioutput, sum_weight)

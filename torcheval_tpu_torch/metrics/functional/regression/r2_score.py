@@ -15,7 +15,12 @@ from typing import Optional, Tuple
 import torch
 
 from torcheval_tpu_torch.metrics.functional.tensor_utils import valid_mask, xla_mean
-from torcheval_tpu_torch.utils.convert import DeviceLike, functional_device, to_torch_float
+from torcheval_tpu_torch.utils.convert import (
+    DeviceLike,
+    functional_device,
+    narrow_64,
+    to_torch_float,
+)
 
 
 def _update(
@@ -49,7 +54,10 @@ def _compute(
     multioutput: str,
     num_regressors: int,
 ) -> torch.Tensor:
-    tss = sum_squared_obs - torch.square(sum_obs) / num_obs
+    # promoted by dtype alone, as JAX does: float16 sums over a 0-d
+    # float32 count compute in float32
+    dtype = torch.promote_types(sum_squared_obs.dtype, num_obs.dtype)
+    tss = sum_squared_obs.to(dtype) - torch.square(sum_obs).to(dtype) / num_obs
     r_squared = 1 - (rss / tss)
     if multioutput == "uniform_average":
         r_squared = xla_mean(r_squared)
@@ -100,6 +108,11 @@ def _r2_score_param_check(multioutput: str, num_regressors: int) -> None:
 
 
 def _r2_score_update_input_check(input: torch.Tensor, target: torch.Tensor) -> None:
+    if input.ndim == 0 or target.ndim == 0:
+        raise ValueError(
+            "The dimension `input` and `target` should be 1D or 2D, "
+            f"got 0-d shapes {tuple(input.shape)} and {tuple(target.shape)}."
+        )
     if input.ndim >= 3 or target.ndim >= 3:
         raise ValueError(
             "The dimension `input` and `target` should be 1D or 2D, "
@@ -132,7 +145,8 @@ def r2_score(
     """
     _r2_score_param_check(multioutput, num_regressors)
     dev = functional_device(device, input, target)
-    input, target = to_torch_float(input, device=dev), to_torch_float(target, device=dev)
+    input = narrow_64(to_torch_float(input, device=dev))
+    target = narrow_64(to_torch_float(target, device=dev))
     _r2_score_update_input_check(input, target)
     sum_squared_obs, sum_obs, rss, num_obs = _update(input, target)
     return _r2_score_compute(

@@ -19,7 +19,7 @@ from torcheval_tpu_torch.metrics.functional.image.psnr import (
 )
 from torcheval_tpu_torch.metrics.functional.tensor_utils import check_reducible
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
-from torcheval_tpu_torch.utils.convert import DeviceLike
+from torcheval_tpu_torch.utils.convert import DeviceLike, narrow_64
 
 TPeakSignalNoiseRatio = TypeVar("TPeakSignalNoiseRatio", bound="PeakSignalNoiseRatio")
 
@@ -65,8 +65,8 @@ class PeakSignalNoiseRatio(Metric[torch.Tensor]):
         return self._apply_update_plan(self._update_plan(input, target))
 
     def _update_plan(self, input, target):
-        input = self._input_float(input)
-        target = self._input_float(target)
+        input = narrow_64(self._input_float(input))
+        target = narrow_64(self._input_float(target))
         _psnr_input_check(input, target)
         if self.auto_range:
             check_reducible(target, "min")

@@ -26,9 +26,14 @@ declarative merge kinds -- in eager PyTorch:
 - Under ``config.validate_inputs`` every float input of ``update`` is
   checked for NaN/Inf (``_guard_finite``); off by default, since the check
   reads the input back to the host.
+- Observability (``torcheval_tpu_torch.obs``): every concrete ``update``
+  and ``compute`` is wrapped (``_instrumented``). With the recorder off
+  the wrapper costs one attribute read; on, the call gets a span, a
+  latency digest entry and an ``UpdateEvent``/``ComputeEvent``, and an
+  update stamps ``obs_step``.
 
-Left for later slices: shard bookkeeping, routing outboxes, mesh
-shardings and the observability wrappers.
+Left for later slices: shard bookkeeping, routing outboxes and mesh
+shardings.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from __future__ import annotations
 import copy
 import enum
 import functools
+import time
 import warnings
 from abc import ABC, abstractmethod
 from typing import Any, Dict, Generic, Iterable, List, NamedTuple, TypeVar, Union
@@ -43,6 +49,10 @@ from typing import Any, Dict, Generic, Iterable, List, NamedTuple, TypeVar, Unio
 import torch
 
 from torcheval_tpu_torch import config
+from torcheval_tpu_torch.obs import hist as _obs_hist
+from torcheval_tpu_torch.obs import trace as _obs_trace
+from torcheval_tpu_torch.obs.events import ComputeEvent, UpdateEvent
+from torcheval_tpu_torch.obs.recorder import RECORDER as _OBS
 from torcheval_tpu_torch.utils.convert import (
     DeviceLike,
     canonicalize_device,
@@ -119,13 +129,72 @@ def _shield_compute_output(metric: "Metric", out: Any) -> Any:
     return _clone_state(out)
 
 
-def _shielded(fn):
-    @functools.wraps(fn)
-    def compute(self, *args, **kwargs):
-        return _shield_compute_output(self, fn(self, *args, **kwargs))
+def _instrumented(fn, phase: str, cls_name: str):
+    """Wrap a subclass's ``update``/``compute`` with observability (and,
+    for ``compute``, the donation output shield: ``_shield_compute_output``).
 
-    compute._shielded = True
-    return compute
+    Recorder OFF (the default): one attribute read, then the original
+    function. Recorder ON: the call is timed on the host clock (on the
+    card that is the time to enqueue its kernels, not their device time),
+    opened as a ``torch.profiler.record_function`` range and a
+    causal-tracing span frame (``obs/trace.py``: a CUDA-graph capture or a
+    retry inside parents to this update), fed into the per-family latency
+    digest (``obs/hist.py``) and recorded as an ``UpdateEvent``/
+    ``ComputeEvent``; an update also stamps ``obs_step`` (the recorder's
+    step cursor) on the metric, cleared by ``reset()`` and
+    ``load_state_dict``. All of it is host bookkeeping around the call: no
+    host sync, no device allocation, no collective, and nothing between a
+    capture's begin and end (a capture happens inside the call).
+    """
+    label = f"torcheval.{phase}/{cls_name}"
+    is_compute = phase == "compute"
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        if not _OBS.enabled:
+            out = fn(self, *args, **kwargs)
+            return _shield_compute_output(self, out) if is_compute else out
+        # inline frame management (not trace.Scope): this is THE hot
+        # instrumented path
+        frame = _obs_trace.push(label)
+        t0 = time.monotonic()
+        try:
+            with torch.profiler.record_function(label):
+                out = fn(self, *args, **kwargs)
+        except BaseException as e:
+            _obs_trace.capture_error(e)
+            raise
+        finally:
+            _obs_trace.pop(frame)
+        seconds = time.monotonic() - t0
+        name = type(self).__name__
+        _obs_hist.observe(f"{phase}/{name}", seconds)
+        if phase == "update":
+            self.obs_step = _OBS.step_cursor
+            _OBS.record(
+                UpdateEvent(
+                    metric=name,
+                    seconds=seconds,
+                    trace=frame.trace_id,
+                    span=frame.span_id,
+                    parent=frame.parent_id,
+                )
+            )
+        else:
+            out = _shield_compute_output(self, out)
+            _OBS.record(
+                ComputeEvent(
+                    metric=name,
+                    seconds=seconds,
+                    trace=frame.trace_id,
+                    span=frame.span_id,
+                    parent=frame.parent_id,
+                )
+            )
+        return out
+
+    wrapper._obs_instrumented = True
+    return wrapper
 
 
 class Metric(Generic[TComputeReturn], ABC):
@@ -142,18 +211,22 @@ class Metric(Generic[TComputeReturn], ABC):
         self._device: torch.device = canonicalize_device(device)
 
     def __init_subclass__(cls, **kwargs: Any) -> None:
-        """Wrap a concrete ``compute`` defined on this class with the
-        donation shield (``_shield_compute_output``); inherited ones were
-        wrapped where they were defined."""
+        """Instrument a concrete ``update``/``compute`` defined on this
+        class (``_instrumented``: observability, and the donation shield
+        on ``compute``); inherited ones were wrapped where they were
+        defined. Abstract stubs are left alone, and wrapping is
+        idempotent."""
         super().__init_subclass__(**kwargs)
-        fn = cls.__dict__.get("compute")
-        if (
-            fn is not None
-            and callable(fn)
-            and not getattr(fn, "__isabstractmethod__", False)
-            and not getattr(fn, "_shielded", False)
-        ):
-            cls.compute = _shielded(fn)
+        for name in ("update", "compute"):
+            fn = cls.__dict__.get(name)
+            if (
+                fn is None
+                or not callable(fn)
+                or getattr(fn, "__isabstractmethod__", False)
+                or getattr(fn, "_obs_instrumented", False)
+            ):
+                continue
+            setattr(cls, name, _instrumented(fn, name, cls.__name__))
 
     # Donation: while True -- and ``config.update_donation_enabled`` holds
     # for this metric's device (on for CUDA by default) -- updates write
@@ -368,9 +441,10 @@ class Metric(Generic[TComputeReturn], ABC):
                 live.copy_(default, non_blocking=True)
             else:
                 setattr(self, name, self._place_state(_clone_state(default)))
-        # a provenance left by a prior (possibly degraded) sync describes
-        # the state this reset discarded
+        # a provenance left by a prior (possibly degraded) sync, and the
+        # step an update stamped, describe the state this reset discarded
         self.__dict__.pop("sync_provenance", None)
+        self.__dict__.pop("obs_step", None)
         return self
 
     # ---------------------------------------------------------- serialization
@@ -409,6 +483,7 @@ class Metric(Generic[TComputeReturn], ABC):
         # restored state replaces whatever a prior sync produced; the sync
         # path stamps its own provenance afterwards
         self.__dict__.pop("sync_provenance", None)
+        self.__dict__.pop("obs_step", None)
 
     # ---------------------------------------------------------------- devices
 

@@ -20,7 +20,7 @@ from torcheval_tpu_torch.metrics.functional.regression.mean_squared_error import
     _update_weighted_masked,
 )
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
-from torcheval_tpu_torch.utils.convert import DeviceLike
+from torcheval_tpu_torch.utils.convert import DeviceLike, narrow_64
 
 TMeanSquaredError = TypeVar("TMeanSquaredError", bound="MeanSquaredError")
 
@@ -57,10 +57,10 @@ class MeanSquaredError(Metric[torch.Tensor]):
         )
 
     def _update_plan(self, input, target, *, sample_weight=None):
-        input = self._input_float(input)
-        target = self._input_float(target)
+        input = narrow_64(self._input_float(input))
+        target = narrow_64(self._input_float(target))
         if sample_weight is not None:
-            sample_weight = self._input_float(sample_weight)
+            sample_weight = narrow_64(self._input_float(sample_weight))
         _mean_squared_error_update_input_check(input, target, sample_weight)
         names = ("sum_squared_error", "sum_weight")
         if sample_weight is None:

@@ -18,7 +18,7 @@ from torcheval_tpu_torch.metrics.functional.regression.r2_score import (
     _update_masked as _r2_update_kernel_masked,
 )
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
-from torcheval_tpu_torch.utils.convert import DeviceLike
+from torcheval_tpu_torch.utils.convert import DeviceLike, narrow_64
 
 TR2Score = TypeVar("TR2Score", bound="R2Score")
 
@@ -56,8 +56,8 @@ class R2Score(Metric[torch.Tensor]):
         self._add_state("num_obs", torch.zeros(()), merge=MergeKind.SUM)
 
     def _update_plan(self, input, target):
-        input = self._input_float(input)
-        target = self._input_float(target)
+        input = narrow_64(self._input_float(input))
+        target = narrow_64(self._input_float(target))
         _r2_score_update_input_check(input, target)
         return UpdatePlan(
             _r2_update_kernel,

@@ -36,6 +36,7 @@ from torcheval_tpu_torch.resilience import (
     SyncTimeoutError,
     quorum_count,
 )
+from torcheval_tpu_torch.utils.convert import bfloat16_numpy_dtype, tensor_to_numpy
 
 # {metric_name: {state_name: TState}}
 MetricStates = Dict[str, Dict[str, Any]]
@@ -88,7 +89,7 @@ def metrics_traversal_order(metric_states: MetricStates) -> List[Tuple[str, str]
 
 def _as_numpy(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return tensor_to_numpy(x)
     return np.asarray(x)
 
 
@@ -111,7 +112,7 @@ def _encode_array(a: np.ndarray):
 def _decode_array(buf: np.ndarray, offset: int, entry) -> Tuple[np.ndarray, int]:
     """Inverse of ``_encode_array`` for one gathered entry."""
     shape, dtype, enc = entry
-    dtype = np.dtype(dtype)
+    dtype = bfloat16_numpy_dtype() if dtype == "bfloat16" else np.dtype(dtype)
     size = int(np.prod(shape, dtype=np.int64))
     if enc is None:
         nbytes = size * dtype.itemsize

@@ -16,15 +16,22 @@ group -- one CUDA-graph replay on the card -- and the rest as another),
 ``classwise_converter``,
 ``clone_metric(s)``, ``reset_metrics`` and ``to_device``.
 
-Left for later slices: the observability recorder, ``adopt_synced`` (for
-sharded metrics and tables), the sync plane, admission control and the
-wire ladder.
+Observability (``torcheval_tpu_torch.obs``), recorder on only: a sync
+runs inside a ``torcheval.sync`` span, records a ``SyncEvent`` mirroring
+its provenance with the wire bytes and a cross-rank flow ordinal, and a
+panel update is one span and one ``UpdateEvent`` (``fused`` = the metrics
+its plans covered). ``sync_and_compute(_collection)`` feed host-scalar
+values to an armed ``obs.monitor``; a tensor value is never read.
+
+Left for later slices: ``adopt_synced`` (for sharded metrics and tables),
+the sync plane, admission control and the wire ladder.
 """
 
 from __future__ import annotations
 
 import copy
 import logging
+import time
 from typing import Any, Dict, Iterable, List, Optional, TypeVar, Union
 
 import numpy as np
@@ -40,12 +47,16 @@ from torcheval_tpu_torch.metrics import synclib
 from torcheval_tpu_torch.metrics._bucket import apply_bucketing
 from torcheval_tpu_torch.metrics._fuse import fused_accumulate_group, graphed_update_possible
 from torcheval_tpu_torch.metrics.metric import Metric, TState, UpdatePlan
+from torcheval_tpu_torch.obs import hist as _obs_hist
+from torcheval_tpu_torch.obs import trace as _obs_trace
+from torcheval_tpu_torch.obs.events import SyncEvent, UpdateEvent
+from torcheval_tpu_torch.obs.recorder import RECORDER as _OBS
 from torcheval_tpu_torch.resilience import (
     ResilientGroup,
     SyncProvenance,
     default_sync_health,
 )
-from torcheval_tpu_torch.utils.convert import shared_conversion_cache
+from torcheval_tpu_torch.utils.convert import numpy_to_tensor, shared_conversion_cache
 
 _logger: logging.Logger = logging.getLogger(__name__)
 
@@ -134,7 +145,10 @@ def sync_and_compute(
     a dead rank costs a bounded wait instead of a hang, and the value
     reflects the surviving ranks (``get_synced_metric(...).sync_provenance``
     names them)."""
-    return get_synced_metric(metric, process_group, on_failure=on_failure).compute()
+    synced = get_synced_metric(metric, process_group, on_failure=on_failure)
+    value = synced.compute()
+    _maybe_observe_computed(f"computed/{type(synced).__name__}", value)
+    return value
 
 
 def sync_and_compute_collection(
@@ -146,7 +160,32 @@ def sync_and_compute_collection(
     and compute every merged metric. ``on_failure``: see
     :func:`sync_and_compute`."""
     synced = get_synced_metric_collection(metrics, process_group, on_failure=on_failure)
-    return {name: m.compute() for name, m in synced.items()}
+    values = {name: m.compute() for name, m in synced.items()}
+    for name, value in values.items():
+        _maybe_observe_computed(f"computed/{name}", value)
+    return values
+
+
+def _maybe_observe_computed(key: str, value: Any) -> None:
+    """Feed a computed value into the armed SLO/anomaly monitor
+    (``obs.monitor``) — ONLY when it is already a host scalar (a Python or
+    numpy number). A tensor result is never read: on the card that would
+    synchronize the stream; callers who want drift detection on tensor
+    values call ``Monitor.observe`` with the value they read at their own
+    latency budget.
+
+    Series keys, as in the JAX package: collection syncs key by the
+    caller's dict name (``computed/<name>``), single-metric
+    ``sync_and_compute`` by the class name (``computed/<ClassName>``)."""
+    from torcheval_tpu_torch.obs.monitor import current_monitor
+
+    monitor = current_monitor()
+    if monitor is None:
+        return
+    if isinstance(value, (bool, np.bool_)):
+        value = int(value)
+    if isinstance(value, (int, float, np.integer, np.floating)):
+        monitor.observe(key, float(value))
 
 
 def get_synced_metric(
@@ -207,7 +246,17 @@ def get_synced_metric_collection(
     else:
         payload = {name: m._sync_state_dict() for name, m in metrics.items()}
         template = metrics
-    per_rank_states = synclib.sync_states(payload, group)
+
+    # causal tracing (recorder on only): the sync runs inside a span frame,
+    # so resilience retries emitted underneath parent to it, and the
+    # SyncEvent carries a cross-rank flow ordinal: the N-th sync issued
+    # from this thread, the same sync on every rank by lockstep
+    sync_t0, sync_flow, sync_on = 0.0, 0, _OBS.enabled
+    if sync_on:
+        sync_flow = _obs_trace.next_flow_id()
+        sync_t0 = time.monotonic()
+    with _obs_trace.scope_or_null("torcheval.sync", sync_on) as sync_frame:
+        per_rank_states = synclib.sync_states(payload, group)
 
     # the world size comes from the sync itself, not the group: a
     # re-formation during this sync takes effect from the next one
@@ -225,6 +274,29 @@ def get_synced_metric_collection(
             "Metric sync degraded: merged state reflects ranks %s of %d "
             "(policy %r); result may be stale.",
             list(ranks), world, provenance.policy,
+        )
+    if _OBS.enabled and sync_frame is not None:
+        # the SyncEvent mirrors the provenance field for field and adds
+        # the wire bytes synclib read off its metadata exchange
+        sync_seconds = time.monotonic() - sync_t0
+        _obs_hist.observe("sync", sync_seconds)
+        _OBS.record(
+            SyncEvent(
+                rank=group.rank,
+                ranks=provenance.ranks,
+                world_size=provenance.world_size,
+                degraded=provenance.degraded,
+                policy=provenance.policy,
+                reformed=provenance.reformed,
+                sent_bytes=per_rank_states.sent_bytes,
+                recv_bytes=per_rank_states.recv_bytes,
+                metrics=len(template),
+                seconds=sync_seconds,
+                flow=sync_flow,
+                trace=sync_frame.trace_id,
+                span=sync_frame.span_id,
+                parent=sync_frame.parent_id,
+            )
         )
 
     merged: Dict[str, Metric] = {}
@@ -274,8 +346,7 @@ def get_synced_state_dict_collection(
 def _restore_state_types(state_dict: Dict[str, Any]) -> Dict[str, TState]:
     """numpy payloads from the wire -> tensors; scalars stay native."""
 
-    def tensor(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, copy=True))
+    tensor = numpy_to_tensor
 
     restored: Dict[str, TState] = {}
     for name, value in state_dict.items():
@@ -346,51 +417,74 @@ def update_collection(
     >>> metrics["acc"].compute()
     tensor(1.)
     """
+    obs_on = _OBS.enabled
+    t0 = time.monotonic() if obs_on else 0.0
     items = list(metrics.values() if isinstance(metrics, dict) else metrics)
     fallback: List[Metric] = []
     groups: Dict[bool, list] = {False: [], True: []}  # bucketed -> members
     pad_cache: dict = {}  # one pad per (tensor, bucket) across the panel
-    with shared_conversion_cache():
-        for metric in items:
-            plan = metric._update_plan(*args, **kwargs)
-            if plan is None:
-                fallback.append(metric)
-                continue
-            bucketed = False
-            if isinstance(plan, UpdatePlan):
-                lazy = graphed_update_possible((metric,))
-                rewritten = apply_bucketing(plan, pad_cache, lazy=lazy)
-                bucketed = rewritten is not plan
-                plan = rewritten
-                kernel, names, dynamic, config = (
-                    plan.kernel, plan.state_names, plan.dynamic, plan.config
+    # the whole panel is ONE span: fallback metrics' own update spans (and
+    # any graph capture of the group) parent to it
+    with _obs_trace.scope_or_null(
+        "torcheval.update_collection", obs_on
+    ) as panel_frame:
+        with shared_conversion_cache():
+            for metric in items:
+                plan = metric._update_plan(*args, **kwargs)
+                if plan is None:
+                    fallback.append(metric)
+                    continue
+                bucketed = False
+                if isinstance(plan, UpdatePlan):
+                    lazy = graphed_update_possible((metric,))
+                    rewritten = apply_bucketing(plan, pad_cache, lazy=lazy)
+                    bucketed = rewritten is not plan
+                    plan = rewritten
+                    kernel, names, dynamic, config = (
+                        plan.kernel, plan.state_names, plan.dynamic, plan.config
+                    )
+                    transform, finalize = plan.transform, plan.finalize
+                else:
+                    kernel, names, dynamic, *rest = plan
+                    config = rest[0] if rest else ()
+                    transform, finalize = False, None
+                states = tuple(getattr(metric, n) for n in names)
+                groups[bucketed].append(
+                    (metric, names, finalize, (kernel, states, dynamic, config, transform))
                 )
-                transform, finalize = plan.transform, plan.finalize
-            else:
-                kernel, names, dynamic, *rest = plan
-                config = rest[0] if rest else ()
-                transform, finalize = False, None
-            states = tuple(getattr(metric, n) for n in names)
-            groups[bucketed].append(
-                (metric, names, finalize, (kernel, states, dynamic, config, transform))
+            # fallbacks validate inside their own update: after every plan
+            for metric in fallback:
+                metric.update(*args, **kwargs)
+        for bucketed, members in groups.items():
+            if not members:
+                continue
+            group_metrics = [m for m, _, _, _ in members]
+            donate = all(m._donation_active() for m in group_metrics)
+            graph = bucketed and graphed_update_possible(group_metrics)
+            new_states_group = fused_accumulate_group(
+                [p for _, _, _, p in members], donate=donate, graph=graph
             )
-        # fallbacks validate inside their own update: after every plan
-        for metric in fallback:
-            metric.update(*args, **kwargs)
-    for bucketed, members in groups.items():
-        if not members:
-            continue
-        group_metrics = [m for m, _, _, _ in members]
-        donate = all(m._donation_active() for m in group_metrics)
-        graph = bucketed and graphed_update_possible(group_metrics)
-        new_states_group = fused_accumulate_group(
-            [p for _, _, _, p in members], donate=donate, graph=graph
+            for (metric, names, finalize, _), new_states in zip(members, new_states_group):
+                for name, value in zip(names, new_states):
+                    setattr(metric, name, value)
+                if finalize is not None:
+                    finalize()
+    if obs_on and panel_frame is not None:
+        # ONE event for the whole panel (plan-fused metrics bypass their
+        # own `update`, so this is their record; fallback metrics recorded
+        # their own UpdateEvents above)
+        seconds = time.monotonic() - t0
+        _obs_hist.observe("update/update_collection", seconds)
+        _OBS.record(
+            UpdateEvent(
+                metric="update_collection",
+                seconds=seconds,
+                fused=len(items) - len(fallback),
+                trace=panel_frame.trace_id,
+                span=panel_frame.span_id,
+                parent=panel_frame.parent_id,
+            )
         )
-        for (metric, names, finalize, _), new_states in zip(members, new_states_group):
-            for name, value in zip(names, new_states):
-                setattr(metric, name, value)
-            if finalize is not None:
-                finalize()
     return metrics
 
 

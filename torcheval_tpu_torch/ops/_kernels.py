@@ -15,6 +15,11 @@ machine may have no ``nvcc``.
 can show that its main path went through the kernels. The count is taken
 under a lock: ranks emulated as threads of one process launch from
 several threads, and a bare ``+= 1`` on a dict entry can lose increments.
+
+``load`` builds and loads under a lock of its own, for the same reason:
+two rank threads reaching a kernel on a cold build directory must not both
+start ``nvcc``. Every build writes its library and its log under names of
+its own (``tempfile``) and renames them into place when it is done.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import os
 import shutil
 import struct
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, List
@@ -76,10 +82,11 @@ _SIGNATURES = {
     },
 }
 
-LAUNCHES: Dict[str, int] = {"fused_auc_hist": 0}
+LAUNCHES: Dict[str, int] = {"fused_auc_hist": 0}  # tev: guarded-by=_LAUNCHES_LOCK
 _LAUNCHES_LOCK = threading.Lock()
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[str, ctypes.CDLL] = {}  # tev: guarded-by=_LOAD_LOCK
+_LOAD_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -116,31 +123,38 @@ def _library_path(name: str) -> Path:
 
 def _start_build(name: str):
     """Start ``nvcc`` for one source; returns (process, log file, temporary
-    path, final path), or None when the library is already built."""
+    library path, temporary log path, final path), or None when the library
+    is already built. The temporary names are unique to this build, so two
+    builds (threads or processes) never share a file."""
     lib = _library_path(name)
     if lib.exists():
         return None
     nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    log = lib.with_suffix(".log").open("w")
+    fd, tmp = tempfile.mkstemp(prefix=lib.stem + ".", suffix=".so.tmp", dir=_BUILD_DIR)
+    os.close(fd)
+    fd, tmp_log = tempfile.mkstemp(prefix=lib.stem + ".", suffix=".log.tmp", dir=_BUILD_DIR)
+    log = os.fdopen(fd, "w")
     proc = subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+        [nvcc, *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")],
         stdout=log, stderr=subprocess.STDOUT,
     )
-    return proc, log, tmp, lib
+    return proc, log, Path(tmp), Path(tmp_log), lib
 
 
 def _finish_build(name: str, started) -> None:
-    proc, log, tmp, lib = started
+    proc, log, tmp, tmp_log, lib = started
     rc = proc.wait()
     log.close()
+    # atomic renames: a concurrent reader sees a whole file or none
+    os.replace(tmp_log, lib.with_suffix(".log"))
     if rc != 0:
+        tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed ({rc}) building {name}.cu:\n"
             + lib.with_suffix(".log").read_text()
         )
-    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
+    os.replace(tmp, lib)
 
 
 def build_all() -> List[str]:
@@ -165,20 +179,26 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _LOADED.get(name)
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    One thread builds and loads; the others wait for it and share the
+    library."""
+    lib = _LOADED.get(name)  # tev: disable=guarded-field -- lock-free probe on the launch path; a miss falls through to the locked check below, which one thread wins
     if lib is not None:
         return lib
-    job = _start_build(name)
-    if job is not None:
-        _finish_build(name, job)
-    lib = ctypes.CDLL(str(_library_path(name)))
-    for fn_name, (restype, argtypes) in _SIGNATURES[name].items():
-        fn = getattr(lib, fn_name)
-        fn.restype = restype
-        fn.argtypes = argtypes
-    _LOADED[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is not None:
+            return lib
+        job = _start_build(name)
+        if job is not None:
+            _finish_build(name, job)  # tev: disable=blocking-under-lock -- waiting for the one nvcc is the point: the lock keeps a second thread from starting its own build, and no code under it takes another lock
+        lib = ctypes.CDLL(str(_library_path(name)))
+        for fn_name, (restype, argtypes) in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _LOADED[name] = lib
+        return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -48,8 +48,14 @@ completion is harvested instead of reissuing the collective, and the next
 collective on the caller's thread is fenced until the straggler is done,
 so every rank keeps issuing collectives in the same order.
 
-Left out, for the observability slice: the event recorder and the flight
-recorder hooks of the JAX module (its ``_OBS``/``_FLIGHT`` branches).
+Observability (``torcheval_tpu_torch.obs``), each one attribute read when
+off: with the recorder on, every lifecycle step (retry cause,
+degradation, re-formation) is a ``RetryEvent`` and a collective runs in a
+``torcheval.collective`` span feeding the ``collective`` latency digest;
+with the flight recorder on, a collective is ONE ``FlightRecord`` on the
+caller's ring, opened on the caller's thread and issued per attempt,
+while the deadline worker runs the inner gather with recording
+suppressed, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -63,6 +69,11 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 from torcheval_tpu_torch.distributed import LocalReplicaGroup, ProcessGroup, _as_numpy
+from torcheval_tpu_torch.obs import flight as _flight
+from torcheval_tpu_torch.obs import hist as _obs_hist
+from torcheval_tpu_torch.obs.events import RetryEvent
+from torcheval_tpu_torch.obs.flight import FLIGHT as _FLIGHT
+from torcheval_tpu_torch.obs.recorder import RECORDER as _OBS
 
 __all__ = [
     "PartialGatherError",
@@ -86,7 +97,7 @@ DEFAULT_DEGRADING_TIMEOUT = 300.0
 # Health of every config-driven (auto-wrapped) sync: those wrappers are
 # constructed per toolkit call, so their counters would be unreachable and
 # reset every sync without a process-wide record to accumulate into.
-_DEFAULT_HEALTH = None
+_DEFAULT_HEALTH = None  # tev: guarded-by=_DEFAULT_HEALTH_LOCK
 _DEFAULT_HEALTH_LOCK = threading.Lock()
 
 
@@ -676,6 +687,7 @@ class ResilientGroup(ProcessGroup):
         self._active = sub
         self._local_mode = isinstance(sub.unwrap(), LocalReplicaGroup)
         self.reform_count += 1
+        self._note_event("reform", detail=f"survivors {sorted(survivors)}")
         self._missing_streak, self._streak = (), 0
         with self.health._lock:
             self.health.reforms += 1
@@ -683,6 +695,30 @@ class ResilientGroup(ProcessGroup):
             self.health.world_size = sub.world_size
             self.health.consecutive_missing = ()
             self.health.consecutive_missing_count = 0
+
+    # ------------------------------------------------------------- observers
+
+    def _note_event(self, reason: str, attempt: int = 0, detail: str = "") -> None:
+        """Record one resilience lifecycle event (retry cause, degradation
+        outcome, re-formation) when the observability recorder is on: the
+        event-stream twin of the :class:`SyncHealth` counters. One
+        attribute read when off. Timeout/failure events carry the
+        flight-ring tail when the flight recorder is on: *which*
+        collective in the sequence stalled."""
+        if _OBS.enabled:
+            flight_tail = ""
+            if _FLIGHT.enabled and reason in ("timeout", "failed"):
+                flight_tail = _FLIGHT.tail_text()
+            _OBS.record(
+                RetryEvent(
+                    rank=self.rank,
+                    reason=reason,
+                    attempt=attempt,
+                    policy=self.policy,
+                    detail=detail,
+                    flight=flight_tail,
+                )
+            )
 
     # -------------------------------------------------------------- deadline
 
@@ -723,6 +759,63 @@ class ResilientGroup(ProcessGroup):
         self,
         fn: Callable[[], List[Any]],
         local_only: Callable[[], Tuple[List[Any], List[int]]],
+        op: str = "collective",
+        nbytes: int = 0,
+    ) -> Tuple[List[Any], List[int]]:
+        """Observability shell around :meth:`_resilient_impl`: with the
+        recorder on, the whole collective (every attempt and the
+        degradation decision) runs inside ONE ``torcheval.collective``
+        span, which the ``RetryEvent``\\ s underneath parent to, and its
+        wall time feeds the ``collective`` latency digest. With the flight
+        recorder on, the whole collective is ONE flight record — enqueued
+        here on the caller's thread, issued per attempt, completed/failed
+        with the surviving ranks — visible mid-flight to the stall
+        watchdog; a raised :class:`SyncTimeoutError` carries the ring tail
+        as ``e.flight_tail``. Both off: one attribute read each."""
+        record = None
+        if _FLIGHT.enabled:
+            record = _FLIGHT.start(
+                op, payload_bytes=nbytes, rank=self.rank,
+                world_size=self.world_size, state="enqueued",
+            )
+            if record is not None:
+                inner = fn
+                # the inner gather may run on the deadline WORKER thread,
+                # whose own thread-local depth guard cannot see this
+                # record: suppress explicitly so a wrapped plain group does
+                # not record the same logical collective twice
+                fn = lambda: _flight.suppressed(inner)  # noqa: E731
+        try:
+            if not _OBS.enabled:
+                result = self._resilient_impl(fn, local_only, record)
+            else:
+                t0 = time.monotonic()
+                try:
+                    with _OBS.span("torcheval.collective"):
+                        result = self._resilient_impl(fn, local_only, record)
+                finally:
+                    _obs_hist.observe("collective", time.monotonic() - t0)
+        except BaseException as e:  # noqa: BLE001 — recorded, re-raised
+            _FLIGHT.fail(record, f"{type(e).__name__}: {e}")
+            if record is not None and isinstance(e, SyncTimeoutError):
+                e.flight_tail = _FLIGHT.tail_text()
+            raise
+        values, ranks = result
+        _FLIGHT.complete(
+            record,
+            ranks=tuple(ranks),
+            detail=(
+                "" if len(ranks) == self.world_size
+                else f"degraded to ranks {list(ranks)}"
+            ),
+        )
+        return result
+
+    def _resilient_impl(
+        self,
+        fn: Callable[[], List[Any]],
+        local_only: Callable[[], Tuple[List[Any], List[int]]],
+        flight_record=None,
     ) -> Tuple[List[Any], List[int]]:
         """Run one collective with retries, then apply the degradation
         policy. Returns ``(payloads, participating_ranks)``, rank-aligned
@@ -748,6 +841,7 @@ class ResilientGroup(ProcessGroup):
             with h._lock:
                 h.attempts += 1
                 h.timeouts += 1
+            self._note_event("timeout", detail="abandoned collective still in flight")
             return self._degrade(None, local_only)
         for attempt in range(self.retries + 1):
             delay = 0.0
@@ -764,16 +858,19 @@ class ResilientGroup(ProcessGroup):
                     if not done.wait(delay + (self.timeout or 0.0)):
                         with h._lock:
                             h.timeouts += 1
+                        self._note_event("timeout", attempt, "late original still running")
                         continue
                     self._late = None
                     result = _harvest(box)
                 else:
                     if delay:
                         time.sleep(delay)
+                    _FLIGHT.issued(flight_record)
                     result = self._bounded(fn)
             except PartialGatherError as e:
                 with h._lock:
                     h.partial_gathers += 1
+                self._note_event("partial-gather", attempt, f"ranks {sorted(e.values)}")
                 partial = dict(e.values)
                 # peer loss is not transient: a quorum of survivors is
                 # usable at once, without burning the retry budget
@@ -785,10 +882,12 @@ class ResilientGroup(ProcessGroup):
             except TransientSyncError:
                 with h._lock:
                     h.transient_errors += 1
+                self._note_event("transient", attempt)
                 continue
             except SyncTimeoutError:
                 with h._lock:
                     h.timeouts += 1
+                self._note_event("timeout", attempt)
                 continue
             return list(result), list(range(world))
         return self._degrade(partial, local_only)
@@ -817,17 +916,24 @@ class ResilientGroup(ProcessGroup):
         h = self.health
         if self.policy == "local":
             vals, ranks = local_only()
+            self._note_event("degraded-local", detail=f"ranks {list(ranks)}")
             return list(vals), list(ranks)
         if self.policy == "quorum":
             survivors = self._with_own(partial, local_only)
             ranks = sorted(survivors)
             if len(ranks) >= self._quorum_count():
+                self._note_event("degraded-quorum", detail=f"ranks {ranks}")
                 return [survivors[r] for r in ranks], ranks
+            self._note_event(
+                "failed",
+                detail=f"quorum not met: {len(ranks)}/{self.world_size}",
+            )
             raise SyncTimeoutError(
                 f"metric sync quorum not met: {len(ranks)}/{self.world_size} "
                 f"ranks responded, quorum requires >= {self._quorum_count()} "
                 f"(fraction {self.quorum})"
             )
+        self._note_event("failed", detail="policy 'raise'")
         raise SyncTimeoutError(
             f"metric sync failed after {self.retries + 1} attempt(s) "
             f"({h.timeouts} timeouts, {h.transient_errors} transient errors "
@@ -850,12 +956,16 @@ class ResilientGroup(ProcessGroup):
         return self._resilient(
             lambda: self._active.allgather_object(obj),
             lambda: self._local_object(obj),
+            "allgather_object",
+            _flight.payload_nbytes(obj),
         )
 
     def allgather_array_with_ranks(self, x: Any) -> Tuple[List[Any], List[int]]:
         return self._resilient(
             lambda: self._active.allgather_array(x),
             lambda: self._local_array(x),
+            "allgather_array",
+            _flight.payload_nbytes(x),
         )
 
     def _full_or_raise(self, gathered: Tuple[List[Any], List[int]]) -> List[Any]:

@@ -1,8 +1,10 @@
 """Utilities: input coercion, cross-package state loading, random test
-data and metric checkpoints (``save_metric_state``/``load_metric_state``,
+data, CUDA-graph capture counting (``CompileCounter``) and metric
+checkpoints (``save_metric_state``/``load_metric_state``,
 from ``utils.checkpoint``, imported on first use: the metrics import this
 package, and the checkpoint module imports the metrics)."""
 
+from torcheval_tpu_torch.utils.compile_counter import CompileCounter
 from torcheval_tpu_torch.utils.convert import (
     load_numpy_state_dict,
     numpy_state_dict,
@@ -15,6 +17,7 @@ from torcheval_tpu_torch.utils.random_data import (
 )
 
 __all__ = [
+    "CompileCounter",
     "get_rand_data_binary",
     "get_rand_data_binned_binary",
     "get_rand_data_multiclass",

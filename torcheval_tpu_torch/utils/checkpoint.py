@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from torcheval_tpu_torch.metrics.metric import Metric
+from torcheval_tpu_torch.utils.convert import tensor_to_numpy
 
 MetricOrCollection = Union[Metric, Dict[str, Metric]]
 
@@ -61,7 +62,7 @@ def _host(t: torch.Tensor) -> np.ndarray:
     """A tensor as a read-only host array: read-only, as the JAX package's
     ``np.asarray`` of a device array is, so that it pickles to the same
     bytes (numpy pickles a writeable array's buffer as a bytearray)."""
-    arr = t.detach().cpu().numpy()
+    arr = tensor_to_numpy(t)
     arr.flags.writeable = False
     return arr
 

@@ -182,9 +182,39 @@ def resolve_weight(
     )
 
 
+def bfloat16_numpy_dtype() -> np.dtype:
+    """numpy's bfloat16: ``ml_dtypes.bfloat16``, the type the JAX package
+    reads its bfloat16 arrays out as (imported on first use: only
+    bfloat16 states need it)."""
+    import ml_dtypes
+
+    return np.dtype(ml_dtypes.bfloat16)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor read out to host numpy. numpy has no bfloat16 of its own,
+    so a bfloat16 tensor leaves as an ``ml_dtypes.bfloat16`` array holding
+    its 16-bit patterns unchanged: the JAX package's numpy form, so the
+    bytes of a sync payload or a checkpoint shard are the same."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(bfloat16_numpy_dtype())
+    return t.numpy()
+
+
+def numpy_to_tensor(a: Any) -> torch.Tensor:
+    """Inverse of :func:`tensor_to_numpy`: a host array (copied, so the
+    tensor owns its memory) as a CPU tensor; an ``ml_dtypes.bfloat16``
+    array comes back as bfloat16 bit for bit."""
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _to_numpy(value: Any) -> Any:
     if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
+        return tensor_to_numpy(value)
     if isinstance(value, list):
         return [_to_numpy(v) for v in value]
     if isinstance(value, dict):
@@ -214,18 +244,17 @@ def load_numpy_state_dict(metric, state: Dict[str, Any]) -> None:
     for name, value in state.items():
         current = getattr(metric, name, None)
         if isinstance(current, torch.Tensor):
-            arr = np.array(value, copy=True)
-            t = torch.from_numpy(arr)
+            t = numpy_to_tensor(value)
             if t.dtype != current.dtype and name not in buffers:
                 raise TypeError(
                     f"state {name!r} of {type(metric).__name__} is "
-                    f"{current.dtype}, got a {arr.dtype} array"
+                    f"{current.dtype}, got a {np.asarray(value).dtype} array"
                 )
             converted[name] = t
         elif isinstance(value, list):
             # a list state (retrieval precision's per-query buffers): the
             # elements' dtypes come with the data
-            converted[name] = [torch.from_numpy(np.array(v, copy=True)) for v in value]
+            converted[name] = [numpy_to_tensor(v) for v in value]
         elif isinstance(value, np.generic):
             converted[name] = value.item()
         elif isinstance(value, np.ndarray) and value.ndim == 0:
