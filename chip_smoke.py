@@ -265,6 +265,39 @@ phases, printing one JSON line for each:
    trace loads and the JSONL holds one line an event. Reported: ms a
    batch, median and mean, in each mode; host microseconds of one
    ``StreamingBinaryAUROC.update`` off and on; the sync warnings counted.
+16. ``shard_quality``: sharded metric state and the data-quality layer.
+   A ``MulticlassConfusionMatrix`` at ImageNet-21K-P width (the winter-21
+   release: 10,450 classes, 522,500 validation images; the matrix rounded
+   up to 10,452, a multiple of the shard world) fed seeded float32 logits
+   of (1,024, 10,450) a batch (two -inf columns appended), and a ``HistogramBinnedAUROC`` at
+   2^20 thresholds over phase 2's Criteo stream: each family sharded over
+   ``ThreadWorld(4)`` ranks on the card (``ShardContext(rank, 4)``, a
+   contiguous quarter of the stream a rank; the AUROC ranks adopt the
+   synced state every 8 steps, so an outbox stays below the state it
+   routes into) beside one replicated metric fed the whole stream. The
+   synced value, the adopted one and the value after a snapshot at world
+   4 restored at world 2 must each equal the replicated one bitwise; after
+   the adopt every outbox is empty and a rank pins at most logical/4 + 64
+   KiB; a rank's sync payload is below the replicated one.
+   ``sync_states_in_jit`` and ``donated_sync_step`` over a real NCCL group
+   of world 1 and over two gloo processes (``launcher.launch``), held
+   bitwise to the eager merge. A ragged stream into a sharded confusion
+   matrix under shape bucketing, its outbox pre-sized: bitwise equal to
+   the eager stream, captures within ``bucket_bound``, none on a second
+   pass. Then ``watch_inputs``: the DLRM panel's scores over 300 Criteo
+   batches and phase 13's ImageNet panel as a ragged bucketed (graphed)
+   stream, each beside the same panel unwatched in one loop: every state
+   bitwise equal after every update, the same host syncs, the same
+   captures, and the sketch's counter, histogram and register lanes
+   bitwise equal to a standalone ``InputSketch`` (moments within
+   ``SKETCH_MOMENT_RTOL``); a reference frozen on 20 batches and 20
+   shifted ones trip a ``DriftSpec`` with one ``DriftEvent``, and the
+   health server's ``/metrics`` carries the ``quality_value`` histograms
+   and ``/report`` the ``[quality]`` table. Reported: update ms a batch
+   sharded against replicated, sync seconds, synced compute ms, payload,
+   per-rank and logical bytes, peak bytes, restore seconds; watched
+   against unwatched ms a batch, host microseconds of one watched update,
+   and the sketch fold's device ms and launches an update.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -272,7 +305,7 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 15 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 16 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -365,7 +398,11 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     WordInformationLost,
     WordInformationPreserved,
 )
-from torcheval_tpu_torch.metrics import _fuse, toolkit  # noqa: E402
+from torcheval_tpu_torch.metrics import _fuse, sharded, shardspec, toolkit  # noqa: E402
+from torcheval_tpu_torch.metrics.metric import MergeKind  # noqa: E402
+from torcheval_tpu_torch.metrics.shardspec import ShardContext, ShardSpec  # noqa: E402
+from torcheval_tpu_torch.obs import quality  # noqa: E402
+from torcheval_tpu_torch.obs.sketch import InputSketch  # noqa: E402
 from torcheval_tpu_torch.metrics._bucket import bucket_bound, bucket_length  # noqa: E402
 from torcheval_tpu_torch.metrics.functional import (  # noqa: E402
     auc,
@@ -948,8 +985,8 @@ def _exact_oracle(scores, labels):
 
 def _profile(fn, device, reps=1, ops=()):
     """Device time of one call of ``fn`` (every CUDA kernel's self time
-    in a torch.profiler trace of ``reps`` calls, over ``reps``), its five
-    costliest kernels and, in ``op_ms``, the device time under each aten
+    in a torch.profiler trace of ``reps`` calls, over ``reps``), its kernel
+    launches a call, its five costliest kernels and, in ``op_ms``, the device time under each aten
     op named in ``ops``. A trace that shows no kernel, or no device time
     under one of ``ops``, is taken again, up to ``PROFILE_ATTEMPTS``
     traces in all, the last failing."""
@@ -975,6 +1012,7 @@ def _profile(fn, device, reps=1, ops=()):
         kernels.sort(reverse=True)
         if kernels and kernels[0][0] > 0 and all(v > 0 for v in op_ms.values()):
             out = {"device_ms": sum(k[0] for k in kernels),
+                   "launches": sum(k[1] for k in kernels),
                    "top_kernels": [[k[2][:80], k[0], k[1]] for k in kernels[:5]]}
             if ops:
                 out["op_ms"] = op_ms
@@ -5020,6 +5058,515 @@ def phase_obs(device, n=CRITEO_EVAL, batch=CTR_BATCH, batches=OBS_BATCHES, num_b
     return out
 
 
+# ------------------------------------------------------- shard_quality
+
+IMAGENET21K_CLASSES = 10_450  # ImageNet-21K-P, winter-21 release (Ridnik et al. 2021)
+IMAGENET21K_VAL = 522_500
+SQ_WORLD = 4
+SQ_BATCHES = 300  # Criteo batches of the watched DLRM panel
+SQ_THRESHOLDS = 1 << 20
+# the JAX package's per-rank bound (bench.py): a rank pins at most
+# logical/world plus this much once its outbox is drained
+SHARD_SLACK_BYTES = 64 * 1024
+SKETCH_BINS = 64
+# watched against standalone sketch moments: float32 sums over another
+# reduction shape (a bucketed pad), relative to each moment
+SKETCH_MOMENT_RTOL = 1e-5
+
+
+def _payload_bytes(sd):
+    return sum(v.numel() * v.element_size() if isinstance(v, torch.Tensor) else 8
+               for v in sd.values())
+
+
+def _first(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _quarters(nb, world):
+    """Contiguous batch-index ranges, one a rank."""
+    q = -(-nb // world)
+    return [range(r * q, min((r + 1) * q, nb)) for r in range(world)]
+
+
+def _shard_stream(device, make, batch_of, nb, world, restore_world, seed, directory, timing_batches,
+                  drain_every=None):
+    """One sharded family at a published scale: a replicated metric fed
+    the whole stream (the oracle), ``world`` ``ThreadWorld`` ranks each fed
+    a contiguous quarter into a sharded instance and synced, snapshotted,
+    adopted; then a ``ThreadWorld(restore_world)`` restore. Every synced
+    value must equal the oracle's bitwise. ``drain_every``: every rank
+    adopts the synced state every that many steps of the stream (the
+    drain that keeps an outbox, which grows with the samples, below the
+    state it routes into)."""
+    from torcheval_tpu_torch.obs.memory import logical_state_bytes, per_rank_state_bytes
+
+    out = {}
+    _reset_peak(device)
+    oracle = make(None)
+    for i in range(nb):
+        oracle.update(*batch_of(i))
+    want = _first(oracle.compute()).clone()
+    replicated_payload = _payload_bytes(oracle._sync_state_dict())
+    quarters = _quarters(nb, world)
+
+    steps = max(len(q) for q in quarters)
+
+    def ranks(g):
+        m = make(ShardContext(g.rank, world))
+        mine = list(quarters[g.rank])
+        drains = 0
+        for k in range(steps):
+            if k < len(mine):
+                m.update(*batch_of(mine[k]))
+            if drain_every and (k + 1) % drain_every == 0 and k + 1 < steps:
+                toolkit.adopt_synced(m, g)  # every rank, in step
+                drains += 1
+        _sync(device)
+        payload = _payload_bytes(m._sync_state_dict())
+        outbox = sum(int(getattr(m, n.obh)) for n in m._routed_states.values())
+        t0 = time.perf_counter()
+        synced = toolkit.get_synced_metric(m, g)
+        value, compute_s = _timed_compute(synced, device)
+        sync_s = time.perf_counter() - t0 - compute_s
+        _check(torch.equal(_first(value), want), f"rank {g.rank}: synced value != the oracle")
+        session = ElasticSession({"m": m}, directory, process_group=g, interval=10**9)
+        session.snapshot()
+        session.close()
+        adopted = toolkit.adopt_synced(m, g)
+        _check(torch.equal(_first(adopted.compute()), want), f"rank {g.rank}: adopted value")
+        _check(m._shard_rank == g.rank and m._shard_world == world
+               and all(int(getattr(m, n.obh)) == 0 for n in m._routed_states.values()),
+               f"rank {g.rank}: adopt_synced left an outbox or a foreign shard")
+        logical = sum(logical_state_bytes(m).values())
+        per_rank = sum(per_rank_state_bytes(m).values())
+        _check(per_rank <= logical // world + SHARD_SLACK_BYTES,
+               f"rank {g.rank}: {per_rank} bytes, logical {logical} over {world}")
+        _check(payload < replicated_payload,
+               f"rank {g.rank}: a {payload}-byte sync payload, replicated {replicated_payload}")
+        _sync(device)
+        return {"sync_s": sync_s, "compute_ms": compute_s * 1e3, "payload": payload,
+                "outbox_entries": outbox, "per_rank": per_rank, "logical": logical,
+                "drains": drains}
+
+    per = ThreadWorld(world, timeout=600.0).run(ranks)
+
+    def restore(g):
+        m = make(ShardContext(g.rank, restore_world))
+        session = ElasticSession({"m": m}, directory, process_group=g, interval=10**9)
+        t0 = time.perf_counter()
+        session.restore()
+        seconds = time.perf_counter() - t0
+        session.close()
+        _check(m._shard_world == restore_world and m._shard_rank == g.rank,
+               f"restored rank {g.rank} holds shard {m._shard_rank} of {m._shard_world}")
+        value = toolkit.sync_and_compute(m, g)
+        _check(torch.equal(_first(value), want), f"restored rank {g.rank}: value != the oracle")
+        return seconds
+
+    restore_s = ThreadWorld(restore_world, timeout=600.0).run(restore)
+    out["peak_bytes"] = _stream_peak(device)
+
+    # update ms a batch, sharded against replicated, interleaved from a
+    # drained queue (rank 0's shard; the replicated metric fresh)
+    sh, rep = make(ShardContext(0, world)), make(None)
+    ms = {"sharded": [], "replicated": []}
+    for i in range(timing_batches):
+        args = batch_of(i)
+        order = (("sharded", sh), ("replicated", rep)) if i % 2 == 0 else (("replicated", rep), ("sharded", sh))
+        for name, m in order:
+            _sync(device)
+            t0 = time.perf_counter()
+            m.update(*args)
+            _sync(device)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    out.update({
+        "batches": nb, "world": world, "drains_a_rank": per[0]["drains"],
+        "update_ms_median": {k: _median(v) for k, v in ms.items()},
+        "sync_seconds": [p["sync_s"] for p in per],
+        "synced_compute_ms": [p["compute_ms"] for p in per],
+        "payload_bytes": {"sharded": [p["payload"] for p in per], "replicated": replicated_payload},
+        "outbox_entries": [p["outbox_entries"] for p in per],
+        "per_rank_bytes": [p["per_rank"] for p in per], "logical_bytes": per[0]["logical"],
+        "restore_world": restore_world, "restore_seconds": restore_s,
+    })
+    return out
+
+
+def _shard_bucket(device, num_classes, world, variable, seed):
+    """A ragged stream into one rank's sharded confusion matrix under
+    shape bucketing (one CUDA-graph replay an update on the card), the
+    outbox pre-sized so no growth step adds a capture: bitwise equal to
+    the same stream fed eagerly, captures within ``bucket_bound``, none on
+    the second pass."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    schedule = [int(v) for v in rng.permutation(variable)] * 2
+    batches = [_classify_batch(gen, m, num_classes, device) for m in schedule]
+    eager = MulticlassConfusionMatrix(num_classes, device=device, shard=ShardContext(0, world))
+    graphed = MulticlassConfusionMatrix(num_classes, device=device, shard=ShardContext(0, world))
+    shardspec.ensure_outbox_capacity(graphed, "confusion_matrix", sum(schedule) + max(schedule))
+    counts, half = [], len(schedule) // 2
+    for k, (x, y) in enumerate(batches):
+        eager.update(x, y)
+        c0 = _captures()
+        with config.shape_bucketing():
+            graphed.update(x, y)
+        counts.append(_captures() - c0)
+        _check(torch.equal(eager.confusion_matrix, graphed.confusion_matrix),
+               f"bucketed sharded update {k} differs from eager")
+    cnt = int(eager.confusion_matrix__obh)
+    _check(int(graphed.confusion_matrix__obh) == cnt == int(graphed.confusion_matrix__obn),
+           "the device cursor and its host mirror disagree")
+    _check(torch.equal(eager.confusion_matrix__obi[:cnt], graphed.confusion_matrix__obi[:cnt]),
+           "the bucketed outbox differs from the eager one")
+    bound = bucket_bound(max(schedule))
+    _check(sum(counts) <= bound and sum(counts[half:]) == 0,
+           f"{sum(counts)} captures (bound {bound}), {sum(counts[half:])} on the second pass")
+    return {"schedule": schedule[:half], "captures": sum(counts), "bound": bound,
+            "outbox_capacity": int(graphed.confusion_matrix__obi.shape[0])}
+
+
+def _sync_case(rank, world, device, group, seed, num_classes=64, steps=3, n=512):
+    """``sharded.sync_states_in_jit`` (SUM, MAX, EXTEND with a valid
+    bound, an owner-partitioned SUM) and ``donated_sync_step`` (a
+    replicated and an owner-partitioned carry) on this rank's states over
+    ``group``, each held bitwise to the eager merge (``merge_state`` in
+    rank order) of every rank's metrics, rebuilt here from their seeds."""
+
+    def rank_metrics(r):
+        gen = torch.Generator(device=device).manual_seed(seed * 7919 + r)
+        acc, mx = MulticlassAccuracy(device=device), Max(device=device)
+        cm = MulticlassConfusionMatrix(num_classes, device=device)
+        batches = []
+        for _ in range(steps):
+            x, y = _classify_batch(gen, n, num_classes, device)
+            acc.update(x, y)
+            cm.update(x, y)
+            mx.update(x.reshape(-1))
+            batches.append((x, y))
+        buf = torch.full((64, 2), -1.0, device=device)
+        buf[: 5 + 3 * r] = torch.arange(2 * (5 + 3 * r), dtype=torch.float32,
+                                        device=device).reshape(-1, 2) + 100 * r
+        return {"acc": acc, "max": mx, "cm": cm}, batches, buf
+
+    mine, batches, buf = rank_metrics(rank)
+    states = {"num_correct": mine["acc"].num_correct, "num_total": mine["acc"].num_total,
+              "max": mine["max"].max, "buf": buf, "cm": mine["cm"].confusion_matrix}
+    specs = {"num_correct": MergeKind.SUM, "num_total": MergeKind.SUM, "max": MergeKind.MAX,
+             "buf": MergeKind.EXTEND, "cm": MergeKind.SUM}
+    bound = 5 + 3 * (world - 1)
+    _sync(device)
+    t0 = time.perf_counter()
+    synced = sharded.sync_states_in_jit(states, group, specs, extend_valid={"buf": bound},
+                                        shard_specs={"cm": ShardSpec(0)})
+    _sync(device)
+    seconds = time.perf_counter() - t0
+
+    others = [rank_metrics(r) for r in range(world)]
+    merged = {}
+    for k in mine:
+        target = toolkit.clone_metric(others[0][0][k])
+        target.merge_state([o[0][k] for o in others[1:]])
+        merged[k] = target
+    rows = num_classes // world
+    own = slice(rank * rows, (rank + 1) * rows)
+    keep = 1 << (bound - 1).bit_length()
+    want = {"num_correct": merged["acc"].num_correct, "num_total": merged["acc"].num_total,
+            "max": merged["max"].max, "cm": merged["cm"].confusion_matrix[own],
+            "buf": torch.cat([o[2][:keep] for o in others])}
+    for k, v in want.items():
+        _check(torch.equal(synced[k], v), f"sync_states_in_jit {k} != the eager merge")
+
+    step = sharded.donated_sync_step(lambda x, y: {"n": torch.full((1,), float(y.numel()), device=device),
+                                                   "mx": x.amax().reshape(1)},
+                                     group, {"n": MergeKind.SUM, "mx": MergeKind.MAX})
+    cm_step = sharded.donated_sync_step(
+        lambda x, y: {"cm": MulticlassConfusionMatrix(num_classes, device=device).update(x, y).confusion_matrix},
+        group, {"cm": MergeKind.SUM}, shard_specs={"cm": ShardSpec(0)})
+    carry = {"n": torch.zeros(1, device=device), "mx": torch.full((1,), -math.inf, device=device)}
+    cm_carry = {"cm": torch.zeros((rows, num_classes), dtype=torch.int32, device=device)}
+    tensor = carry["n"]
+    for x, y in batches:
+        carry = step(carry, x, y)
+        cm_carry = cm_step(cm_carry, x, y)
+    _check(carry["n"] is tensor and float(carry["n"]) == float(steps * n * world),
+           "the donated carry was not updated in place")
+    _check(torch.equal(carry["mx"], merged["max"].max.reshape(1)), "donated MAX carry")
+    _check(torch.equal(cm_carry["cm"], want["cm"]), "donated owner-partitioned carry")
+    return {"rank": rank, "world": world, "seconds": seconds, "bitwise": sorted(want) + ["carry"]}
+
+
+def _shard_worker(config_json):
+    """One gloo process of the shard_quality phase (``chip_smoke.py
+    --shard-worker <json>``, started by ``launcher.launch``): ``_sync_case``
+    on CPU tensors over ``MultiHostGroup``; writes its result with
+    ``torch.save``."""
+    cfg = json.loads(config_json)
+    rank = launcher.init_from_env(timeout=120.0)
+    try:
+        group = MultiHostGroup()
+        result = _sync_case(rank, group.world_size, torch.device("cpu"), group, cfg["seed"])
+        torch.save(result, os.path.join(cfg["dir"], f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _in_step_sync(device, seed, mp):
+    """``sync_states_in_jit`` over a real NCCL group of world 1 (the card;
+    NCCL refuses two ranks on one card) and, with ``mp``, over two gloo
+    processes through ``launcher.launch``."""
+    out = {}
+    if torch.device(device).type == "cuda":
+        _check(not dist.is_initialized(), "torch.distributed is already initialized")
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{launcher.free_port()}",
+                                rank=0, world_size=1)
+        try:
+            out["nccl_world1"] = _sync_case(0, 1, device, dist.group.WORLD, seed)
+        finally:
+            dist.destroy_process_group()
+    if mp:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            launcher.launch(os.path.abspath(__file__),
+                            ["--shard-worker", json.dumps({"dir": d, "seed": seed})],
+                            nproc=MP_WORLD, timeout=300)
+            got = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                   for r in range(MP_WORLD)]
+        out["gloo_world2"] = {"launch_seconds": time.perf_counter() - t0,
+                              "sync_seconds": [g["seconds"] for g in got],
+                              "bitwise": got[0]["bitwise"]}
+    return out
+
+
+def _sketch_lanes_check(what, watched, standalone):
+    """The watched sketch's counter, histogram and register lanes bitwise
+    equal to a standalone ``InputSketch`` over the same stream; the
+    moments within ``SKETCH_MOMENT_RTOL``."""
+    for name in ("hist", "counts", "registers"):
+        _check(torch.equal(getattr(watched, name), getattr(standalone, name)),
+               f"{what}: the watched {name} lane differs from the standalone sketch")
+    a, b = watched.moments.double().cpu(), standalone.moments.double().cpu()
+    _check(a[0] == b[0] and a[3] == b[3] and a[4] == b[4]
+           and torch.allclose(a[1:3], b[1:3], rtol=SKETCH_MOMENT_RTOL, atol=0.0),
+           f"{what}: moments {a.tolist()} against {b.tolist()}")
+
+
+def _metric_states_equal(a, b):
+    """Every state of ``a`` (the unwatched metric) bitwise in ``b``."""
+    return all(torch.equal(v, getattr(b, k)) if isinstance(v, torch.Tensor) else v == getattr(b, k)
+               for k, v in a.state_dict().items())
+
+
+def _quality_dlrm(device, seed, n, batch, batches, num_bins, syncs):
+    """The DLRM panel with its scores watched (``watch_inputs`` on the
+    ``ne`` member: 65,536 sketched elements a batch) beside the same panel
+    unwatched, in one interleaved loop from a drained queue: every metric
+    state bitwise equal after every update, the same host syncs, the
+    sketch lanes equal to a standalone ``InputSketch``."""
+    cuda = torch.device(device).type == "cuda"
+    plain, watched = _obs_panel(device, num_bins), _obs_panel(device, num_bins)
+    watch = quality.watch_inputs(watched["ne"], bounds=(0.0, 1.0), num_bins=SKETCH_BINS,
+                                 label="dlrm_scores")
+    standalone = InputSketch(bounds=(0.0, 1.0), num_bins=SKETCH_BINS, device=device)
+    # one throwaway update first, counted apart: a process's first counted
+    # region reports a one-time synchronization that is no update's
+    with _sync_warnings(cuda, syncs, "dlrm_first"):
+        _elastic_feed(_obs_panel(device, num_bins), *_elastic_batch(device, seed, 0, n, batch), False)
+    _sync(device)
+    ms = {"unwatched": [], "watched": []}
+    for i in range(batches):
+        s, y = _elastic_batch(device, seed, i, n, batch)
+        order = (("unwatched", plain), ("watched", watched))
+        for name, panel in (order if i % 2 == 0 else order[::-1]):
+            _sync(device)
+            t0 = time.perf_counter()
+            with _sync_warnings(cuda, syncs, f"dlrm_{name}"):
+                _elastic_feed(panel, s, y, False)
+            _sync(device)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        standalone.update(s)
+        for k in plain:
+            _check(_metric_states_equal(plain[k], watched[k]),
+                   f"batch {i}: the watched panel's {k} differs from the unwatched one")
+    _sketch_lanes_check("dlrm", watch.sketch("dlrm_scores/0"), standalone)
+    _check(syncs.get("dlrm_watched", 0) == syncs.get("dlrm_unwatched", 0),
+           f"watching changed the host syncs: {syncs}")
+    return watch, {"batches": batches, "sketched_elements_a_batch": batch,
+                   "ms_median": {k: _median(v) for k, v in ms.items()},
+                   "ms_mean": {k: sum(v) / len(v) for k, v in ms.items()}}
+
+
+def _quality_host_and_fold(device, seed, batch, reps):
+    """Host microseconds of one ``BinaryNormalizedEntropy.update`` watched
+    and unwatched (no synchronize around it, interleaved), and on the card
+    the sketch fold's device ms and kernel launches an update: profiled
+    standalone (``InputSketch.update``) and as the difference of a watched
+    and an unwatched update."""
+    s, y = _elastic_batch(device, seed, 0, batch, batch)
+    plain = BinaryNormalizedEntropy(device=device)
+    watched = BinaryNormalizedEntropy(device=device)
+    watch = quality.watch_inputs(watched, bounds=(0.0, 1.0), num_bins=SKETCH_BINS, label="host_us")
+    times = {"unwatched": [], "watched": []}
+    for i in range(reps):
+        for name, m in (("unwatched", plain), ("watched", watched)):
+            t0 = time.perf_counter()
+            m.update(s, y)
+            times[name].append((time.perf_counter() - t0) * 1e6)
+        if i % 16 == 15:
+            _sync(device)
+    _sync(device)
+    out = {"host_us_median": {k: _median(v) for k, v in times.items()}}
+    if torch.device(device).type == "cuda":
+        sk = InputSketch(bounds=(0.0, 1.0), num_bins=SKETCH_BINS, device=device)
+        fold = _profile(lambda: sk.update(s), device, reps=20)
+        prof = {name: _profile(lambda m=m: m.update(s, y), device, reps=20)
+                for name, m in (("unwatched", plain), ("watched", watched))}
+        out["fold"] = {"standalone_device_ms": fold["device_ms"],
+                       "standalone_launches": fold["launches"],
+                       "top_kernels": fold["top_kernels"],
+                       "watched_minus_unwatched_device_ms":
+                           prof["watched"]["device_ms"] - prof["unwatched"]["device_ms"],
+                       "watched_minus_unwatched_launches":
+                           prof["watched"]["launches"] - prof["unwatched"]["launches"],
+                       "elements": int(s.numel())}
+    watch.close()
+    return out
+
+
+def _quality_imagenet(device, seed, num_classes, variable, syncs):
+    """Phase 13's ImageNet panel as a ragged stream under shape bucketing
+    (on the card, one CUDA-graph replay an update), its ``acc`` member's
+    logits watched, beside the same panel unwatched: states bitwise equal
+    after every update, the same captures (within ``bucket_bound``, none
+    on the second pass) and host syncs, lanes equal to a standalone
+    sketch."""
+    cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    schedule = [int(v) for v in rng.permutation(variable)] * 2
+    plain, watched = _classify_panel(device, num_classes), _classify_panel(device, num_classes)
+    watch = quality.watch_inputs(watched["acc"], bounds=(-8.0, 8.0), num_bins=SKETCH_BINS,
+                                 label="imagenet_logits")
+    standalone = InputSketch(bounds=(-8.0, 8.0), num_bins=SKETCH_BINS, device=device)
+    captures = {"unwatched": [], "watched": []}
+    half = len(schedule) // 2
+    for k, m in enumerate(schedule):
+        x, y = _classify_batch(gen, m, num_classes, device)
+        for name, panel in (("unwatched", plain), ("watched", watched)):
+            c0 = _captures()
+            with config.shape_bucketing(), _sync_warnings(cuda, syncs, f"imagenet_{name}"):
+                toolkit.update_collection(panel, x, y)
+            captures[name].append(_captures() - c0)
+        standalone.update(x)
+        for key in plain:
+            _check(_metric_states_equal(plain[key], watched[key]),
+                   f"update {k}: the watched ImageNet panel's {key} differs")
+    bound = bucket_bound(max(schedule))
+    got = {k: sum(v) for k, v in captures.items()}
+    _check(got["watched"] == got["unwatched"] <= bound,
+           f"captures watched {got['watched']}, unwatched {got['unwatched']} (bound {bound})")
+    _check(sum(captures["watched"][half:]) == 0, "the watched panel captured on the second pass")
+    _check(syncs.get("imagenet_watched", 0) == syncs.get("imagenet_unwatched", 0),
+           f"watching changed the host syncs: {syncs}")
+    _sketch_lanes_check("imagenet", watch.sketch("imagenet_logits/0"), standalone)
+    return watch, {"schedule": schedule[:half], "captures": got, "bound": bound}
+
+
+def _quality_drift(device, seed, n, batch, ref_batches):
+    """``freeze_reference`` after ``ref_batches`` Criteo score batches,
+    then as many shifted ones (sqrt of each score): one ``Monitor.check``
+    must trip the ``DriftSpec`` and record one ``DriftEvent``; the health
+    server's ``/metrics`` then carries the ``quality_value`` histogram
+    family and ``/report`` the ``[quality]`` table."""
+    mean = Mean(device=device)
+    watch = quality.watch_inputs(mean, bounds=(0.0, 1.0), num_bins=SKETCH_BINS, label="drift_scores")
+    rec = obs.recorder()
+    out = {}
+    with config.observability(serve=0, slos=[]):
+        srv = obs.current_server()
+        for i in range(ref_batches):
+            mean.update(_elastic_batch(device, seed, i, n, batch)[0])
+        watch.freeze_reference()
+        watch.add_drift(quality.DriftSpec(min_count=batch))
+        for i in range(ref_batches, 2 * ref_batches):
+            mean.update(torch.sqrt(_elastic_batch(device, seed, i, n, batch)[0]))
+        e0 = rec.log.total
+        raised = obs.Monitor(cooldown=0.0).check()
+        drifts = [e for e in _new_events(rec, e0) if e.kind == "drift"]
+        _check(len(drifts) == 1 and drifts[0].series == "drift_scores/0" and drifts[0].breach,
+               f"drift events {[(e.series, e.breach) for e in drifts]}")
+        _check(any(r["name"] == "quality/drift_scores/0" for r in raised), "no drift alert raised")
+        _, metrics = _http_get(srv.url + "/metrics")
+        _, report = _http_get(srv.url + "/report")
+        families = _prometheus_families(metrics)
+        _check(families.get("torcheval_tpu_quality_value") == "histogram",
+               "/metrics has no quality_value histogram family")
+        _check("[quality]" in report and "drift_scores/0" in report, "/report has no [quality] table")
+        out = {"scores": watch.score("drift_scores/0"), "breach": drifts[0].breach,
+               "alerts": sorted(r["alert"] for r in raised if r["name"].startswith("quality/"))}
+    watch.close()
+    return out
+
+
+def phase_shard_quality(device, cm_n=IMAGENET21K_VAL, num_classes=IMAGENET21K_CLASSES,
+                        cm_batch=1024, ctr_n=CRITEO_EVAL, ctr_batch=CTR_BATCH,
+                        thresholds=SQ_THRESHOLDS, world=SQ_WORLD, restore_world=2,
+                        timing_batches=20, bucket_classes=1000, variable=VARIABLE_BATCH,
+                        quality_batches=SQ_BATCHES, num_bins=NUM_BINS, host_reps=200,
+                        drift_batches=20, auroc_drain_every=8, mp=True, seed=16):
+    """Sharded state and the data-quality layer on the card (see the
+    module docstring)."""
+    t0 = time.perf_counter()
+    out = {"phase": "shard_quality", "device": str(device)}
+    k1 = _kernels.LAUNCHES["fused_auc_hist"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the matrix is sized to the shard world (the JAX package's rule:
+        # round the configuration up, never pad silently); the logits'
+        # extra columns are -inf, so those classes never occur
+        width = -(-num_classes // world) * world
+
+        def cm_batch_of(i):
+            gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + i)
+            x, y = _classify_batch(gen, min(cm_batch, cm_n - i * cm_batch), num_classes, device)
+            return F.pad(x, (0, width - num_classes), value=-math.inf), y
+
+        out["confusion_matrix"] = _shard_stream(
+            device, lambda ctx: MulticlassConfusionMatrix(width, device=device, shard=ctx),
+            cm_batch_of, -(-cm_n // cm_batch), world, restore_world, seed,
+            os.path.join(tmp, "cm"), timing_batches)
+        out["confusion_matrix"].update(num_classes=num_classes, matrix_width=width)
+        out["histogram_auroc"] = _shard_stream(
+            device, lambda ctx: HistogramBinnedAUROC(threshold=thresholds, device=device, shard=ctx),
+            lambda i: _elastic_batch(device, seed + 1, i, ctr_n, ctr_batch),
+            -(-ctr_n // ctr_batch), world, restore_world, seed + 1,
+            os.path.join(tmp, "auroc"), timing_batches, drain_every=auroc_drain_every)
+        out["histogram_auroc"]["thresholds"] = thresholds
+    out["in_step_sync"] = _in_step_sync(device, seed + 2, mp)
+    out["bucket"] = _shard_bucket(device, bucket_classes, world, variable, seed + 3)
+
+    syncs = {}
+    watches = []
+    try:
+        watch, out["dlrm"] = _quality_dlrm(device, seed + 4, ctr_n, ctr_batch, quality_batches,
+                                           num_bins, syncs)
+        watches.append(watch)
+        out["host_and_fold"] = _quality_host_and_fold(device, seed + 5, ctr_batch, host_reps)
+        watch, out["imagenet"] = _quality_imagenet(device, seed + 6, bucket_classes, variable, syncs)
+        watches.append(watch)
+        out["drift"] = _quality_drift(device, seed + 7, ctr_n, ctr_batch, drift_batches)
+    finally:
+        for watch in watches:
+            watch.close()
+    out["sync_warnings"] = {k: v for k, v in syncs.items() if k != "where"}
+    out["k1_launches"] = _kernels.LAUNCHES["fused_auc_hist"] - k1
+    if torch.device(device).type == "cuda":
+        want = len(_STREAMING) * (2 * quality_batches + 1)  # two panels and the warm-up
+        _check(out["k1_launches"] == want, f"K1 launched {out['k1_launches']} times, want {want}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -5266,12 +5813,16 @@ def main(argv=None) -> int:
     parser.add_argument("--sweep", action="store_true",
                         help="time every launch design over every batch size in the timing phase")
     parser.add_argument("--elastic-worker", help=argparse.SUPPRESS)
+    parser.add_argument("--shard-worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if args.elastic_worker is not None:  # one process of the elastic phase's launcher step
         _elastic_worker(args.elastic_worker)
+        return 0
+    if args.shard_worker is not None:  # one gloo process of the shard_quality phase
+        _shard_worker(args.shard_worker)
         return 0
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -5311,6 +5862,8 @@ def main(argv=None) -> int:
     _emit(elastic)
     obs_phase = phase_obs(device, seed=args.seed + 15)
     _emit(obs_phase)
+    shard_quality = phase_shard_quality(device, seed=args.seed + 16)
+    _emit(shard_quality)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -5332,6 +5885,7 @@ def main(argv=None) -> int:
         "launches_bucket_criteo": bucket["criteo"]["k1_launches"],
         "launches_elastic": elastic["k1_launches"],
         "launches_obs": obs_phase["k1_launches"],
+        "launches_shard_quality": shard_quality["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

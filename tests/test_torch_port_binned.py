@@ -398,8 +398,21 @@ def test_histogram_auroc_equals_dense_counters_at_a_million_bins():
 
 
 def test_histogram_auroc_shard_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item A6"):
-        TM.HistogramBinnedAUROC(threshold=4, device=CPU, shard=object())
+    """Sharded since the sharded-state slice: rank 1 of 2 keeps its half
+    of the (2T,) histogram and routes the rest, state for state and bit
+    for bit as the JAX package does."""
+    rng = np.random.default_rng(5)
+    s, y = rng.random(40).astype(np.float32), rng.integers(0, 2, 40)
+    tm = TM.HistogramBinnedAUROC(threshold=4, device=CPU, shard=TM.ShardContext(1, 2))
+    jm = JM.HistogramBinnedAUROC(threshold=4, shard=JM.ShardContext(1, 2))
+    tm.update(torch.from_numpy(s), torch.from_numpy(y))
+    jm.update(jnp.asarray(s), jnp.asarray(y))
+    assert tuple(tm.hist.shape) == (4,)
+    for name, value in jm.state_dict().items():
+        ours = getattr(tm, name)
+        ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
+        assert ours.tobytes() == np.asarray(value).tobytes(), name
+    assert tm.compute()[0].numpy().tobytes() == np.asarray(jm.compute()[0]).tobytes()
 
 
 def test_threshold_moves_with_the_metric():

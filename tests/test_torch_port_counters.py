@@ -392,5 +392,17 @@ def test_classes_default_to_cuda(make):
 
 
 def test_sharded_confusion_matrix_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item A6"):
-        TM.MulticlassConfusionMatrix(3, device=CPU, shard=object())
+    """Sharded since the sharded-state slice: rank 1 of 3 keeps its row of
+    the matrix and routes the other cells, as the JAX package does."""
+    rng = np.random.default_rng(6)
+    x, y = rng.integers(0, 3, 30), rng.integers(0, 3, 30)
+    tm = TM.MulticlassConfusionMatrix(3, device=CPU, shard=TM.ShardContext(1, 3))
+    jm = JM.MulticlassConfusionMatrix(3, shard=JM.ShardContext(1, 3))
+    tm.update(torch.from_numpy(x), torch.from_numpy(y))
+    jm.update(jnp.asarray(x), jnp.asarray(y))
+    assert tuple(tm.confusion_matrix.shape) == (1, 3)
+    for name, value in jm.state_dict().items():
+        ours = getattr(tm, name)
+        ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
+        assert ours.tobytes() == np.asarray(value).tobytes(), name
+    assert tm.compute().numpy().tobytes() == np.asarray(jm.compute()).tobytes()

@@ -508,8 +508,22 @@ def test_calibration_rows_drop_out_of_range_ids():
 
 
 def test_sharded_calibration_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item A6"):
-        TM.WeightedCalibration(num_tasks=4, device=CPU, shard=object())
+    """Sharded since the sharded-state slice: rank 0 of 2 keeps two of the
+    four task rows and routes foreign rows through the float outbox lane,
+    bit for bit as the JAX package does."""
+    rng = np.random.default_rng(7)
+    p, y = rng.random(24).astype(np.float32), rng.integers(0, 2, 24).astype(np.float32)
+    w, ids = rng.random(24).astype(np.float32), rng.integers(0, 4, 24)
+    tm = TM.WeightedCalibration(num_tasks=4, device=CPU, shard=TM.ShardContext(0, 2))
+    jm = JM.WeightedCalibration(num_tasks=4, shard=JM.ShardContext(0, 2))
+    tm.update(torch.from_numpy(p), torch.from_numpy(y), torch.from_numpy(w),
+              task_ids=torch.from_numpy(ids))
+    jm.update(jnp.asarray(p), jnp.asarray(y), jnp.asarray(w), task_ids=jnp.asarray(ids))
+    assert tuple(tm.weighted_input_sum.shape) == (2,)
+    for name, value in jm.state_dict().items():
+        ours = getattr(tm, name)
+        ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
+        assert ours.tobytes() == np.asarray(value).tobytes(), name
 
 
 @pytest.mark.parametrize("bad", [

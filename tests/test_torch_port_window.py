@@ -231,8 +231,23 @@ def test_mse_lifetime_states_promote_like_jax():
 
 
 def test_windowed_ctr_shard_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item A6"):
-        TM.WindowedClickThroughRate(num_tasks=4, device=CPU, shard=object())
+    """Sharded since the sharded-state slice: rank 1 of 2 keeps task rows
+    2-3 of the rings and lifetime totals, as the JAX package does."""
+    rng = np.random.default_rng(8)
+    tm = TM.WindowedClickThroughRate(num_tasks=4, max_num_updates=3, device=CPU,
+                                     shard=TM.ShardContext(1, 2))
+    jm = JM.WindowedClickThroughRate(num_tasks=4, max_num_updates=3, shard=JM.ShardContext(1, 2))
+    for _ in range(4):
+        x = rng.integers(0, 2, (4, 10)).astype(np.float32)
+        tm.update(torch.from_numpy(x))
+        jm.update(jnp.asarray(x))
+    assert tuple(tm.windowed_click_total.shape) == (2, 3)
+    for name, value in jm.state_dict().items():
+        ours = getattr(tm, name)
+        ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
+        assert ours.tobytes() == np.asarray(value).tobytes(), name
+    for a, b in zip(tm.compute(), jm.compute()):
+        assert a.numpy().tobytes() == np.asarray(b).tobytes()
 
 
 @pytest.mark.parametrize("bad", [dict(num_tasks=0), dict(max_num_updates=0)])

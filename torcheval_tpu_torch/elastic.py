@@ -56,9 +56,11 @@ one ``torcheval.snapshot`` span and a ``SnapshotEvent``, a restore a
 ``RestoreEvent``, each fed to the latency digests; the registry's
 ``snapshots`` tallies move whether or not the recorder is on.
 
+Sharded metrics (``Metric(shard=...)``) restore at a new world size by
+merging every old shard and re-slicing (``_restore_metrics``).
+
 Left for later slices: the ``plane=`` and ``federation=`` riders, which
-raise ``NotImplementedError`` unless ``None``; sharded-state
-redistribution.
+raise ``NotImplementedError`` unless ``None``.
 """
 
 from __future__ import annotations
@@ -953,15 +955,27 @@ class ElasticSession:
         world-size-change resume). Ranks with no assignment keep freshly
         reset metrics, the merge identity.
 
+        SHARDED metrics (``Metric(shard=...)``) redistribute otherwise
+        when the world size changed: their payloads are slices of ONE
+        logical state plus outboxes that may target any slice, so every
+        new rank merges ALL old shards (the reassembling merge rebuilds the
+        logical state once) and re-slices to its own new shard
+        (``_reshard_to_own``); slices partition the cells, so every
+        contribution lands once. At an unchanged world size each shard
+        loads as it is.
+
         ``load_state_dict`` replaces the state tensors, so the CUDA graphs
         that wrote the old ones (``metrics/_fuse.py``) are dropped with
         them and a bucketed update after the restore captures anew."""
         from torcheval_tpu_torch.metrics.toolkit import _restore_state_types, clone_metric
 
+        world_changed = len(shards) != self._group.world_size
         for name, metric in self.metrics.items():
             metric.reset()
+            sharded = bool(getattr(metric, "_sharded_states", None))
+            metric_assigned = tuple(range(len(shards))) if sharded and world_changed else assigned
             states = []
-            for old_rank in assigned:
+            for old_rank in metric_assigned:
                 state = shards[old_rank]["metrics"].get(name)
                 if state is None:
                     raise RuntimeError(
@@ -984,3 +998,5 @@ class ElasticSession:
                 peers.append(peer)
             if peers:
                 metric.merge_state(peers)
+            if sharded and world_changed:
+                metric._reshard_to_own()

@@ -25,6 +25,10 @@ Mechanics, as in the JAX package:
   It is made on the metric's device without a host round trip: its values
   come from shapes, which the host knows.
 
+The input sketches' fold (``obs/sketch.py``) and every quality-watched
+plan (``obs/quality.py``) carry masked twins too: they turn the valid
+vector into per-element weights, so padded rows add nothing to a sketch.
+
 ``apply_bucketing(..., lazy=True)`` hands out :class:`Padded` and
 :class:`ValidSizes` placeholders instead of tensors; the CUDA-graph path
 copies them into its static input buffers, and :func:`materialize` turns

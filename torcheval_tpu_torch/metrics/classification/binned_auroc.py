@@ -7,7 +7,9 @@
 - ``HistogramBinnedAUROC`` keeps one ``(2T,)`` int32 histogram (negatives
   in ``[0, T)``, positives in ``[T, 2T)``), updated by one
   ``segment_count`` a batch: exact under any merge order, and practical at
-  a million thresholds.
+  a million thresholds. With ``shard=ShardContext(rank, world)`` each rank
+  keeps ``2T/world`` cells and routes the rest through an outbox
+  (``metrics/shardspec.py``).
 
 Compute returns ``(auroc, threshold)``.
 """
@@ -19,7 +21,6 @@ from typing import Optional, Tuple
 import torch
 
 from torcheval_tpu_torch.metrics.classification.auprc import _BufferedPairMetric
-from torcheval_tpu_torch.metrics.classification.confusion_matrix import _no_shard
 from torcheval_tpu_torch.metrics.functional.classification.auroc import (
     _binary_auroc_update_input_check,
     _multiclass_auroc_update_input_check,
@@ -29,6 +30,7 @@ from torcheval_tpu_torch.metrics.functional.classification.binned_auroc import (
     _binary_binned_auroc_compute_jit,
     _binary_binned_auroc_param_check,
     _hist_binned_auroc_compute,
+    _hist_binned_flat_index,
     _hist_binned_update,
     _multiclass_binned_auroc_compute_jit,
     _multiclass_binned_auroc_param_check,
@@ -37,7 +39,9 @@ from torcheval_tpu_torch.metrics.functional.classification.binned_precision_reca
     ThresholdLike,
 )
 from torcheval_tpu_torch.metrics.functional.tensor_utils import create_threshold_tensor
+from torcheval_tpu_torch.metrics import shardspec
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
+from torcheval_tpu_torch.metrics.shardspec import ShardSpec
 from torcheval_tpu_torch.utils.convert import DeviceLike, narrow_64
 
 
@@ -85,8 +89,9 @@ class HistogramBinnedAUROC(Metric[Tuple[torch.Tensor, torch.Tensor]]):
     log T) updates. Each sample counts in the bin of the last threshold at
     or below its score; compute rebuilds the per-threshold tp/fp by integer
     suffix sums, so the result is bitwise the same however the histogram
-    was accumulated or merged. ``shard`` must be ``None``: sharded state is
-    not ported yet.
+    was accumulated or merged. ``shard`` (a ``ShardContext``) partitions
+    the histogram over the shard world: owned cells are counted in place,
+    the rest go to an outbox, and a sync ships ``shard + outbox``.
 
     >>> import torch
     >>> from torcheval_tpu_torch.metrics import HistogramBinnedAUROC
@@ -105,8 +110,7 @@ class HistogramBinnedAUROC(Metric[Tuple[torch.Tensor, torch.Tensor]]):
         device: DeviceLike = None,
         shard=None,
     ) -> None:
-        _no_shard(shard, type(self).__name__)
-        super().__init__(device=device)
+        super().__init__(device=device, shard=shard)
         threshold = create_threshold_tensor(threshold, device=self.device)
         _binary_binned_auroc_param_check(1, threshold)
         self.threshold = threshold
@@ -115,18 +119,46 @@ class HistogramBinnedAUROC(Metric[Tuple[torch.Tensor, torch.Tensor]]):
             "hist",
             torch.zeros((2 * self.num_thresholds,), dtype=torch.int32),
             merge=MergeKind.SUM,
+            shard=ShardSpec(axis=0),
         )
+        shardspec.enable_routing(self, "hist")
 
     def _update_plan(self, input, target):
         input, target = self._input(input), self._input(target)
         _binary_auroc_update_input_check(input, target, 1)
-        return UpdatePlan(_hist_binned_update, ("hist",), (narrow_64(input), target, self.threshold))
+        input = narrow_64(input)
+        if not self._route_active("hist"):
+            return UpdatePlan(_hist_binned_update, ("hist",), (input, target, self.threshold))
+        names = self._routed_states["hist"]
+        n = int(target.shape[0])
+        shardspec.ensure_outbox_capacity(self, "hist", n)
+        start, stop = self._shard_ctx.shard_range(2 * self.num_thresholds)
+
+        def finalize():
+            setattr(self, names.obh, getattr(self, names.obh) + n)
+
+        # the threshold grid has no ragged axis; only the samples pad
+        return UpdatePlan(
+            shardspec.route_scatter_kernel(_hist_binned_flat_index, start, stop),
+            ("hist", names.obi, names.obn),
+            (input, target, self.threshold),
+            (),
+            transform=True,
+            finalize=finalize,
+            masked_kernel=shardspec.route_scatter_kernel_masked(
+                _hist_binned_flat_index, start, stop
+            ),
+            batch_axes=(("batch",), ("batch",), None),
+        )
 
     def update(self, input, target) -> "HistogramBinnedAUROC":
         return self._apply_update_plan(self._update_plan(input, target))
 
     def compute(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        return _hist_binned_auroc_compute(self.hist, self.num_thresholds), self.threshold
+        return (
+            _hist_binned_auroc_compute(self._logical_state("hist"), self.num_thresholds),
+            self.threshold,
+        )
 
 
 class MulticlassBinnedAUROC(_BufferedPairMetric):

@@ -32,8 +32,14 @@ declarative merge kinds -- in eager PyTorch:
   latency digest entry and an ``UpdateEvent``/``ComputeEvent``, and an
   update stamps ``obs_step``.
 
-Left for later slices: shard bookkeeping, routing outboxes and mesh
-shardings.
+- Sharded state (``metrics/shardspec.py``): ``Metric(shard=
+  ShardContext(rank, world))`` keeps each state registered with
+  ``_add_state(..., shard=ShardSpec(0))`` as this rank's slice of axis 0.
+  Routed states carry an outbox of foreign contributions, the sync ships
+  the shard plus the trimmed outbox, and ``merge_state`` reassembles the
+  logical state from shard carriers (``_merge_sharded``). The JAX
+  package's mesh form (``out_shardings`` on the fused update) has no torch
+  counterpart (see ``shardspec``).
 """
 
 from __future__ import annotations
@@ -42,9 +48,10 @@ import copy
 import enum
 import functools
 import time
+import types
 import warnings
 from abc import ABC, abstractmethod
-from typing import Any, Dict, Generic, Iterable, List, NamedTuple, TypeVar, Union
+from typing import Any, Dict, Generic, Iterable, List, NamedTuple, Optional, TypeVar, Union
 
 import torch
 
@@ -205,10 +212,17 @@ class Metric(Generic[TComputeReturn], ABC):
     registered merge kinds unless overridden.
     """
 
-    def __init__(self, *, device: DeviceLike = None) -> None:
+    def __init__(self, *, device: DeviceLike = None, shard: Optional[Any] = None) -> None:
         self._state_name_to_default: Dict[str, TState] = {}
         self._state_name_to_merge_kind: Dict[str, MergeKind] = {}
         self._device: torch.device = canonicalize_device(device)
+        # sharded state (metrics/shardspec.py): `shard` is this instance's
+        # ShardContext; `_sharded_states` the ShardInfo a sharded state,
+        # `_routed_states` the outbox names of routed ones
+        self._shard_ctx = shard
+        self._sharded_states: Dict[str, Any] = {}
+        self._routed_states: Dict[str, Any] = {}
+        self._shard_bookkeeping_registered = False
 
     def __init_subclass__(cls, **kwargs: Any) -> None:
         """Instrument a concrete ``update``/``compute`` defined on this
@@ -239,6 +253,21 @@ class Metric(Generic[TComputeReturn], ABC):
     def _donation_active(self) -> bool:
         return self._donated_update and config.update_donation_enabled(self._device)
 
+    # class-level fallbacks, so instances that skipped ``__init__`` (and
+    # pickles of replicated metrics) read as replicated. Read-only
+    # mappings: a write through such an instance raises instead of landing
+    # on the class and making every metric "sharded".
+    _shard_ctx = None
+    _sharded_states: Dict[str, Any] = types.MappingProxyType({})
+    _routed_states: Dict[str, Any] = types.MappingProxyType({})
+    _shard_bookkeeping_registered = False
+
+    # CUSTOM states that must ALSO merge in the sharded reassembly, which
+    # otherwise keeps CUSTOM non-sharded states at self's value (the
+    # rank-identical configuration scalars): obs/quality.py lists the
+    # input sketches' moments here.
+    _custom_mergeable_states: frozenset = frozenset()
+
     # ------------------------------------------------------------------ state
 
     @property
@@ -246,16 +275,51 @@ class Metric(Generic[TComputeReturn], ABC):
         return self._device
 
     def _add_state(
-        self, name: str, default: TState, *, merge: MergeKind = MergeKind.CUSTOM
+        self,
+        name: str,
+        default: TState,
+        *,
+        merge: MergeKind = MergeKind.CUSTOM,
+        shard: Optional[Any] = None,
     ) -> None:
         """Register a state variable. ``default`` is a tensor, a list of
         tensors, a dict with tensor values, an int, or a float; it is
         snapshotted for ``reset()`` and the live value (an independent
-        copy) is placed on ``self.device``."""
+        copy) is placed on ``self.device``.
+
+        ``shard`` (a ``shardspec.ShardSpec``) declares the state
+        partitioned over the metric's shard context: the registered default
+        becomes this rank's slice of axis 0 (only axis 0 shards), and that
+        slice is what snapshots and syncs ship. Without a shard context it
+        is ignored, so one class serves replicated and sharded use."""
+        if shard is not None and self._shard_ctx is not None:
+            if not isinstance(default, torch.Tensor):
+                raise TypeError(f"sharded state {name!r} requires an array default")
+            if shard.axis != 0:
+                raise ValueError(
+                    "eager sharding currently partitions axis 0 only "
+                    f"(state {name!r} declared axis {shard.axis})"
+                )
+            default, info = self._shard_ctx.prepare_state(name, default, shard)
+            self._sharded_states[name] = info
+            self._ensure_shard_bookkeeping()
         self._check_state_variable_type(name, default)
         self._state_name_to_default[name] = _clone_state(default)
         self._state_name_to_merge_kind[name] = merge
         setattr(self, name, self._place_state(_clone_state(default)))
+
+    def _ensure_shard_bookkeeping(self) -> None:
+        """Register ``_shard_rank``/``_shard_world`` once a sharded metric:
+        which shard the live tensors hold (this rank's own normally;
+        ``-1``/``0`` after a reassembling merge made the instance logical).
+        They are plain int states, so snapshots and sync payloads describe
+        themselves."""
+        ctx = self._shard_ctx
+        if ctx is None or self._shard_bookkeeping_registered:
+            return
+        self._shard_bookkeeping_registered = True
+        self._add_state("_shard_rank", int(ctx.rank), merge=MergeKind.CUSTOM)
+        self._add_state("_shard_world", int(ctx.world), merge=MergeKind.CUSTOM)
 
     def _place_state(self, value: TState, device: DeviceLike = None) -> TState:
         device = device or self._device
@@ -382,8 +446,13 @@ class Metric(Generic[TComputeReturn], ABC):
 
     def merge_state(self: TSelf, metrics: Iterable[TSelf]) -> TSelf:
         """Merge peer replicas' states into self, by the registered merge
-        kinds, one peer at a time in the order given."""
-        for other in list(metrics):
+        kinds, one peer at a time in the order given. A shard carrier
+        (``Metric(shard=...)``) reassembles the logical state from its
+        peers' shards instead (``_merge_sharded``)."""
+        metrics = list(metrics)
+        if self._sharded_states and self._is_shard_carrier():
+            return self._merge_sharded(metrics)
+        for other in metrics:
             for name, kind in self._state_name_to_merge_kind.items():
                 mine = getattr(self, name)
                 theirs = self._place_state(getattr(other, name))
@@ -418,6 +487,270 @@ class Metric(Generic[TComputeReturn], ABC):
             "MergeKind.CUSTOM but does not override merge_state or "
             "_merge_custom_state."
         )
+
+    # ----------------------------------------------------------- sharded state
+
+    def _is_shard_carrier(self) -> bool:
+        """True while the live sharded states hold ONE rank's slice; False
+        on replicated instances and after a reassembling merge made the
+        instance logical."""
+        return bool(self._sharded_states) and int(getattr(self, "_shard_world", 0)) > 0
+
+    def _own_shard_active(self) -> bool:
+        """True when the live states hold this rank's configured shard, the
+        precondition of the sharded update plans. A carrier of a FOREIGN
+        shard (a sync or restore clone) must not be updated; a logical
+        instance updates through the dense plans."""
+        if not self._is_shard_carrier():
+            return False
+        ctx = self._shard_ctx
+        if ctx is None:
+            return False
+        rk = int(getattr(self, "_shard_rank"))
+        wd = int(getattr(self, "_shard_world"))
+        if rk == ctx.rank and wd == ctx.world:
+            return True
+        raise RuntimeError(
+            f"{type(self).__name__} holds shard {rk} of world {wd} but is "
+            f"configured as rank {ctx.rank} of world {ctx.world}; foreign "
+            "shard carriers are merge/sync intermediates and cannot be "
+            "updated"
+        )
+
+    def _route_active(self, name: str) -> bool:
+        """Whether ``update()`` takes the routed plan for ``name``: routed,
+        this rank's own shard live, and a world above 1 (at world 1 every
+        cell is owned, and the dense plan is the better one)."""
+        return (
+            name in self._routed_states
+            and self._shard_ctx is not None
+            and self._shard_ctx.world > 1
+            and self._own_shard_active()
+        )
+
+    def _carried(self, carrier) -> tuple:
+        return int(getattr(carrier, "_shard_rank", -1)), int(getattr(carrier, "_shard_world", 0))
+
+    def _merge_sharded(self: TSelf, metrics: List[TSelf]) -> TSelf:
+        """Reassemble the logical state from shard carriers: ``self`` and
+        every peer carry one rank's slice (named by their
+        ``_shard_rank``/``_shard_world``). Each sharded state: every
+        carrier's slice added into a fresh logical tensor, then every
+        carrier's outbox applied in ascending carried-rank order; counters
+        are integers, so the result equals the replicated merge bitwise.
+        Other states merge by their kinds, but CUSTOM ones keep ``self``'s
+        value (rank-identical configuration) unless listed in
+        ``_custom_mergeable_states``. Afterwards ``self`` is logical
+        (``_shard_rank == -1``)."""
+        from torcheval_tpu_torch.metrics import shardspec
+
+        carriers = sorted([self] + list(metrics), key=lambda c: self._carried(c)[0])
+        worlds = {self._carried(c)[1] for c in carriers} - {0}
+        if len(worlds) > 1:
+            raise RuntimeError(
+                f"cannot merge shard carriers from different worlds {sorted(worlds)}"
+            )
+        merged: Dict[str, torch.Tensor] = {}
+        for name, info in self._sharded_states.items():
+            names = self._routed_states.get(name)
+            if names is not None and names.is_value_lane:
+                merged[name] = self._merge_value_routed_state(name, info, names, carriers)
+                continue
+            logical = torch.zeros(info.logical_shape, dtype=info.dtype, device=self._device)
+            for c in carriers:
+                value = self._place_state(getattr(c, name))
+                rk, wd = self._carried(c)
+                if rk < 0 or wd <= 0:
+                    # an already-logical carrier folds in whole
+                    logical += value
+                    continue
+                start, stop = self._shard_ctx.shard_range(info.logical_shape[0], rk, wd)
+                logical[start:stop] += value
+            if names is not None:
+                flat = logical.view(-1)
+                for c in carriers:
+                    cnt = int(getattr(c, names.obh, 0))
+                    shardspec.apply_outbox_counts(flat, getattr(c, names.obi)[:cnt])
+            merged[name] = logical
+        skip = set(self._sharded_states) | self._routed_aux_names()
+        skip.update(("_shard_rank", "_shard_world"))
+        for other in carriers:
+            if other is self:
+                continue
+            for name, kind in self._state_name_to_merge_kind.items():
+                if name in skip or (
+                    kind is MergeKind.CUSTOM and name not in self._custom_mergeable_states
+                ):
+                    continue
+                mine = getattr(self, name)
+                theirs = self._place_state(getattr(other, name))
+                setattr(self, name, self._merge_one(name, kind, mine, theirs))
+        for name, value in merged.items():
+            setattr(self, name, value)
+        self._clear_outboxes()
+        self._shard_rank = -1
+        self._shard_world = 0
+        return self
+
+    def _value_lane_contribution(self, carrier, name, info, names, logical) -> torch.Tensor:
+        """``logical`` plus one carrier's float-lane outbox, folded a batch
+        at a time (``shardspec.apply_outbox_values``)."""
+        from torcheval_tpu_torch.metrics import shardspec
+
+        cnt = int(getattr(carrier, names.obh, 0))
+        if not cnt:
+            return logical
+        nb = int(getattr(carrier, names.obbh, 0))
+        bounds = shardspec.complete_bounds(getattr(carrier, names.obb)[:nb].tolist(), cnt)
+        col = names.states.index(name)
+        return shardspec.apply_outbox_values(
+            logical.reshape(-1),
+            self._place_state(getattr(carrier, names.obi))[:cnt],
+            self._place_state(getattr(carrier, names.obv))[:cnt, col],
+            bounds,
+        ).reshape(info.logical_shape)
+
+    def _merge_value_routed_state(self, name: str, info, names, carriers) -> torch.Tensor:
+        """One float-lane state's reassembly: the sum over carriers, in
+        carried-rank order, of each carrier's slice placed in a fresh
+        logical tensor plus its outbox folded a batch at a time."""
+        logical = torch.zeros(info.logical_shape, dtype=info.dtype, device=self._device)
+        for c in carriers:
+            value = self._place_state(getattr(c, name))
+            rk, wd = self._carried(c)
+            if rk < 0 or wd <= 0:
+                contrib = value
+            else:
+                start, stop = self._shard_ctx.shard_range(info.logical_shape[0], rk, wd)
+                contrib = torch.zeros(info.logical_shape, dtype=info.dtype, device=self._device)
+                contrib[start:stop] = value
+                contrib = self._value_lane_contribution(c, name, info, names, contrib)
+            logical = logical + contrib
+        return logical
+
+    def _routed_aux_names(self) -> set:
+        out = set()
+        for names in self._routed_states.values():
+            out.update((names.obi, names.obn, names.obh))
+            if names.is_value_lane:
+                out.update((names.obv, names.obb, names.obc, names.obbh))
+        return out
+
+    def _empty_outboxes(self) -> Dict[str, TState]:
+        """Every outbox state at its empty default, on ``self.device``."""
+        out: Dict[str, TState] = {}
+        for names in self._routed_states.values():
+            out[names.obi] = torch.zeros((0,), dtype=torch.int32, device=self._device)
+            out[names.obn] = torch.zeros((), dtype=torch.int32, device=self._device)
+            out[names.obh] = 0
+            if names.is_value_lane:
+                out[names.obv] = torch.zeros(
+                    (0, len(names.states)), dtype=torch.float32, device=self._device
+                )
+                out[names.obb] = torch.zeros((0,), dtype=torch.int32, device=self._device)
+                out[names.obc] = torch.zeros((), dtype=torch.int32, device=self._device)
+                out[names.obbh] = 0
+        return out
+
+    def _clear_outboxes(self) -> None:
+        for name, value in self._empty_outboxes().items():
+            setattr(self, name, value)
+
+    def _logical_state(self, name: str) -> torch.Tensor:
+        """The logically full view of one state: the live state on
+        replicated and logical instances; on a shard carrier, its slice
+        placed at the carried range plus its own outbox, exactly what this
+        rank observed, so an un-synced ``compute()`` equals a replicated
+        metric's local one. Not retained."""
+        value = getattr(self, name)
+        info = self._sharded_states.get(name) if self._sharded_states else None
+        if info is None or not self._is_shard_carrier():
+            return value
+        from torcheval_tpu_torch.metrics import shardspec
+
+        rk, wd = self._carried(self)
+        start, stop = self._shard_ctx.shard_range(info.logical_shape[0], rk, wd)
+        logical = torch.zeros(info.logical_shape, dtype=info.dtype, device=value.device)
+        logical[start:stop] = value
+        names = self._routed_states.get(name)
+        if names is not None and names.is_value_lane:
+            logical = self._value_lane_contribution(self, name, info, names, logical)
+        elif names is not None:
+            cnt = int(getattr(self, names.obh, 0))
+            shardspec.apply_outbox_counts(logical.view(-1), getattr(self, names.obi)[:cnt])
+        return logical
+
+    def _reshard_to_own(self: TSelf) -> TSelf:
+        """Re-slice a logical instance to this rank's configured shard, the
+        last step of a world-size-change restore: the merge rebuilt the
+        logical state from every old rank's shard and outbox, and each new
+        rank keeps its slice (slices partition the cells)."""
+        ctx = self._shard_ctx
+        if not self._sharded_states or ctx is None:
+            return self
+        rk, wd = self._carried(self)
+        if rk == ctx.rank and wd == ctx.world:
+            return self
+        if rk >= 0 and wd == 1:
+            # a world-1 carrier's shard IS the logical state, and its
+            # outboxes stay empty (every cell is owned)
+            if any(int(getattr(self, n.obh, 0)) != 0 for n in self._routed_states.values()):
+                raise RuntimeError(
+                    "world-1 shard carrier has pending outbox entries; refusing to reshard"
+                )
+        elif rk >= 0:
+            raise RuntimeError(
+                "reshard requires a desharded (merged) logical state or "
+                f"this rank's own shard; live state carries shard {rk} of "
+                f"world {wd}"
+            )
+        for name, info in self._sharded_states.items():
+            start, stop = ctx.shard_range(info.logical_shape[0])
+            setattr(self, name, getattr(self, name)[start:stop].clone())
+        self._clear_outboxes()
+        self._shard_rank = ctx.rank
+        self._shard_world = ctx.world
+        return self
+
+    def _adopt_shard_payload(self, state_dict: Dict[str, TState]) -> Dict[str, TState]:
+        """Normalize an incoming snapshot for a sharded instance. A payload
+        with ``_shard_rank >= 0`` is taken as is (the instance becomes that
+        rank's carrier: sync clones, same-world restores). A LOGICAL payload
+        (``_shard_rank == -1``, or no descriptor and logical shapes) is
+        re-sliced to this rank's shard with empty outboxes: a merged result
+        or a world-size-change restore landing in a working metric."""
+        ctx = self._shard_ctx
+        # payloads without outbox states (a replicated writer's) load into
+        # a routed instance with empty ones
+        for name, value in self._empty_outboxes().items():
+            state_dict.setdefault(name, value)
+        rk = state_dict.get("_shard_rank")
+        if rk is None:
+            # no descriptor: infer from shapes, all or nothing
+            shapes = []
+            for name, info in self._sharded_states.items():
+                value = state_dict.get(name)
+                if value is None:
+                    continue
+                shapes.append(
+                    tuple(value.shape) == tuple(info.logical_shape)
+                    and tuple(info.logical_shape) != tuple(getattr(self, name).shape)
+                )
+            logical = bool(shapes) and all(shapes)
+        else:
+            logical = int(rk) < 0
+        if not logical:
+            return state_dict
+        for name, info in self._sharded_states.items():
+            value = state_dict.get(name)
+            if value is None:
+                continue
+            start, stop = ctx.shard_range(info.logical_shape[0])
+            state_dict[name] = value[start:stop]
+        state_dict["_shard_rank"] = ctx.rank
+        state_dict["_shard_world"] = ctx.world
+        state_dict.update(self._empty_outboxes())
+        return state_dict
 
     # ------------------------------------------------------------------ reset
 
@@ -459,14 +792,34 @@ class Metric(Generic[TComputeReturn], ABC):
     def _sync_state_dict(self) -> Dict[str, TState]:
         """What a sync ships of this metric: ``state_dict()`` unless a
         subclass trims it (buffered metrics send their valid prefix, not
-        their capacity). Checkpoints keep using ``state_dict()``."""
-        return self.state_dict()
+        their capacity). A routed sharded metric ships each outbox cut to
+        the power of two covering its entries, so its wire is the shard
+        plus O(entries), never the capacity nor the logical state.
+        Checkpoints keep using ``state_dict()``."""
+        sd = self.state_dict()
+        for names in self._routed_states.values():
+            cnt = int(getattr(self, names.obh, 0))
+            keep = 1 << (cnt - 1).bit_length() if cnt > 0 else 0
+            for key in (names.obi, names.obv) if names.is_value_lane else (names.obi,):
+                if sd[key].shape[0] > keep:
+                    sd[key] = sd[key][:keep]
+            if names.is_value_lane:
+                nb = int(getattr(self, names.obbh, 0))
+                bkeep = 1 << (nb - 1).bit_length() if nb > 0 else 0
+                if sd[names.obb].shape[0] > bkeep:
+                    sd[names.obb] = sd[names.obb][:bkeep]
+        return sd
 
     def load_state_dict(
         self, state_dict: Dict[str, TState], strict: bool = True
     ) -> None:
         """Load a snapshot; the metric keeps copies, never the caller's
-        tensors."""
+        tensors. A sharded instance takes a shard carrier's snapshot as is,
+        or re-slices a logical one to its own shard
+        (``_adopt_shard_payload``)."""
+        state_dict = dict(state_dict)
+        if self._sharded_states and self._shard_ctx is not None:
+            state_dict = self._adopt_shard_payload(state_dict)
         registered = set(self._state_name_to_default)
         provided = set(state_dict)
         if strict and registered != provided:

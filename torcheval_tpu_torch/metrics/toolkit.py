@@ -23,8 +23,12 @@ panel update is one span and one ``UpdateEvent`` (``fused`` = the metrics
 its plans covered). ``sync_and_compute(_collection)`` feed host-scalar
 values to an armed ``obs.monitor``; a tensor value is never read.
 
-Left for later slices: ``adopt_synced`` (for sharded metrics and tables),
-the sync plane, admission control and the wire ladder.
+``adopt_synced`` drains a sharded metric: it syncs, then loads the merged
+state back, so each rank re-slices to its shard with an empty outbox.
+
+Left for later slices: the keyed tables' drain hooks (``_pre_adopt_commit``,
+``_hash_partitioned``), the sync plane, admission control and the wire
+ladder.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from torcheval_tpu_torch.utils.convert import numpy_to_tensor, shared_conversion
 _logger: logging.Logger = logging.getLogger(__name__)
 
 __all__ = [
+    "adopt_synced",
     "sync_and_compute",
     "sync_and_compute_collection",
     "get_synced_metric",
@@ -359,6 +364,66 @@ def _restore_state_types(state_dict: Dict[str, Any]) -> Dict[str, TState]:
         else:
             restored[name] = value
     return restored
+
+
+def _adoptable(m: Metric) -> bool:
+    """Metrics whose merged state may be loaded back without counting it
+    twice at the next sync: sharded ones (disjoint shards re-slice).
+    Replicated metrics are not: every rank would hold the global totals,
+    and the next SUM sync would multiply them by the world size."""
+    return bool(getattr(m, "_sharded_states", None))
+
+
+def adopt_synced(
+    metric: Union[MetricOrReplicas, Dict[str, Metric]],
+    process_group: Optional[ProcessGroup] = None,
+    on_failure: Optional[str] = None,
+) -> Union[Metric, Dict[str, Metric]]:
+    """Sync, then load the merged state back into the working metric: the
+    drain point of a SHARDED metric. Its outbox collects foreign
+    contributions between syncs (O(batch x steps) entries), and a plain
+    ``sync_and_compute`` leaves the working metric as it was; adopting
+    re-slices the merged logical state to this rank's shard and empties
+    the outbox, so per-rank bytes return to ``size/world``. Returns the
+    synced (logical) metric, to ``compute()`` without a second exchange.
+
+    Takes a metric, a replica list, or a ``{name: Metric}`` collection
+    (drained in one exchange). Replicated members raise ``TypeError``:
+    adopting their merged state would double-count it at the next sync."""
+    if isinstance(metric, dict):
+        for name, m in metric.items():
+            if not _adoptable(m):
+                raise TypeError(
+                    f"adopt_synced requires sharded or table metrics; "
+                    f"collection member {name!r} ({type(m).__name__}) is "
+                    "replicated — adopting the merged state would "
+                    "double-count it at the next sync (use "
+                    "sync_and_compute / get_synced_metric instead)"
+                )
+        synced_coll = get_synced_metric_collection(metric, process_group, on_failure=on_failure)
+        for name, synced in synced_coll.items():
+            # read before loading: at world 1 `synced` IS the working
+            # metric, and load_state_dict drops its provenance
+            provenance = synced.sync_provenance
+            metric[name].load_state_dict(synced.state_dict())
+            metric[name].sync_provenance = provenance
+        return synced_coll
+    targets = metric if isinstance(metric, (list, tuple)) else [metric]
+    for m in targets:
+        if not _adoptable(m):
+            raise TypeError(
+                f"adopt_synced requires sharded or table metrics; "
+                f"{type(m).__name__} is replicated — adopting the merged "
+                "state would double-count it at the next sync (use "
+                "sync_and_compute / get_synced_metric instead)"
+            )
+    synced = get_synced_metric(metric, process_group, on_failure=on_failure)
+    payload = synced.state_dict()
+    provenance = synced.sync_provenance
+    for m in targets:
+        m.load_state_dict(payload)
+        m.sync_provenance = provenance
+    return synced
 
 
 def clone_metric(metric: TMetric) -> TMetric:

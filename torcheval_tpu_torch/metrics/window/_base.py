@@ -15,6 +15,13 @@ stays a host int that the plan's ``finalize`` advances after the states
 are set. Merge packs every replica's valid columns into an enlarged
 buffer, as the reference's concatenating merge does; column order never
 matters because every consumer is a sum.
+
+Sharded windows (``shard=ShardContext(rank, world)``, ``metrics/
+shardspec.py``): the rings and lifetime vectors partition by TASK rows.
+Every rank must observe the SAME update stream (the counters are per task,
+not per example); each keeps its owned rows, the plan slices the counter
+vectors to them, and the merge places disjoint rows
+(``Metric._merge_sharded``), equal to the one metric that saw the stream.
 """
 
 from __future__ import annotations
@@ -24,15 +31,18 @@ from typing import Iterable, List, Optional, Sequence, TypeVar
 import torch
 
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
+from torcheval_tpu_torch.metrics.shardspec import ShardSpec
 
 TWindowed = TypeVar("TWindowed", bound="WindowedTaskCounterMetric")
 
 
-def _window_transform(kernel, n_counters: int, lifetime: bool):
+def _window_transform(kernel, n_counters: int, lifetime: bool, row_slice=None):
     """The transform body of one windowed update over the names-ordered
     state tuple ``(lifetime..., rings...)``: ``kernel(*args)`` gives the
     update's counters, which add into the lifetime states and are written
-    into ring column ``col`` in place."""
+    into ring column ``col`` in place. ``row_slice`` (a sharded window):
+    the counters span every task and are cut to this rank's
+    ``[start, stop)`` rows first; a 0-d counter broadcasts as before."""
 
     def transform(states, col, *args):
         deltas = kernel(*args)
@@ -43,6 +53,8 @@ def _window_transform(kernel, n_counters: int, lifetime: bool):
                 f"kernel {kernel.__name__} returned {len(deltas)} "
                 f"counter values for {n_counters} counters"
             )
+        if row_slice is not None:
+            deltas = tuple(d if d.ndim == 0 else d[row_slice[0] : row_slice[1]] for d in deltas)
         if lifetime:
             lt, rings = states[:n_counters], states[n_counters:]
             new_lt = tuple(v + d for v, d in zip(lt, deltas))
@@ -118,16 +130,19 @@ class WindowedTaskCounterMetric(RingCursorSerializationMixin, Metric):
         self._add_state("max_num_updates", max_num_updates, merge=MergeKind.CUSTOM)
         self.next_inserted = 0
         self._add_state("total_updates", 0, merge=MergeKind.CUSTOM)
+        # sharded by task rows under a shard context, ignored without one
+        ring_shard = ShardSpec(axis=0)
         if enable_lifetime:
             if lifetime_defaults is None:
                 lifetime_defaults = [torch.zeros(num_tasks) for _ in counter_names]
             for name, default in zip(counter_names, lifetime_defaults):
-                self._add_state(name, default, merge=MergeKind.CUSTOM)
+                self._add_state(name, default, merge=MergeKind.CUSTOM, shard=ring_shard)
         for name in counter_names:
             self._add_state(
                 f"windowed_{name}",
                 torch.zeros((num_tasks, max_num_updates)),
                 merge=MergeKind.CUSTOM,
+                shard=ring_shard,
             )
 
     # ------------------------------------------------------------- accumulate
@@ -143,13 +158,16 @@ class WindowedTaskCounterMetric(RingCursorSerializationMixin, Metric):
             tuple(counter_names) if self.enable_lifetime else ()
         ) + tuple(f"windowed_{n}" for n in counter_names)
         col = self.next_inserted
+        row_slice = None
+        if self._sharded_states and self._own_shard_active():
+            row_slice = self._shard_ctx.shard_range(self.num_tasks)
 
         def finalize():
             self.next_inserted = (col + 1) % self.max_num_updates
             self.total_updates += 1
 
         return UpdatePlan(
-            _window_transform(kernel, len(counter_names), self.enable_lifetime),
+            _window_transform(kernel, len(counter_names), self.enable_lifetime, row_slice),
             names,
             (col,) + tuple(dynamic),
             tuple(config),
@@ -176,8 +194,14 @@ class WindowedTaskCounterMetric(RingCursorSerializationMixin, Metric):
         as in the reference, so a later update overwrites that column of
         the enlarged buffer, which need not be the oldest. The JAX package
         keeps this too, and the port's tests pin it against that package.
+
+        A shard carrier reassembles instead (``Metric._merge_sharded``):
+        the carriers hold disjoint task rows of one window, so the merge
+        places rows rather than concatenating columns.
         """
         metrics = list(metrics)
+        if self._sharded_states and self._is_shard_carrier():
+            return Metric.merge_state(self, metrics)
         merged_cols = self.max_num_updates + sum(m.max_num_updates for m in metrics)
         cur_size = min(self.total_updates, self.max_num_updates)
         new_bufs = {}

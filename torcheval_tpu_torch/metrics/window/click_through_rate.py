@@ -7,7 +7,6 @@ from typing import Tuple, TypeVar, Union
 
 import torch
 
-from torcheval_tpu_torch.metrics.classification.confusion_matrix import _no_shard
 from torcheval_tpu_torch.metrics.functional.ranking.click_through_rate import (
     _click_through_rate_compute,
     resolve_ctr_weights,
@@ -26,7 +25,11 @@ class WindowedClickThroughRate(WindowedTaskCounterMetric):
     ``enable_lifetime=True``, else the windowed value.
 
     Args:
-        shard: only ``None`` (sharded state is not ported yet).
+        shard: a ``ShardContext``: the rings and lifetime totals partition
+            by task rows, and every rank must feed the SAME update stream
+            (owner-partitioned); a sharded instance's ``compute()`` covers
+            its own ``num_tasks/world`` tasks, and a sync reassembles the
+            whole ``(num_tasks,)`` result.
 
     >>> import torch
     >>> from torcheval_tpu_torch.metrics import WindowedClickThroughRate
@@ -47,8 +50,7 @@ class WindowedClickThroughRate(WindowedTaskCounterMetric):
         device: DeviceLike = None,
         shard=None,
     ) -> None:
-        _no_shard(shard, "WindowedClickThroughRate")
-        super().__init__(device=device)
+        super().__init__(device=device, shard=shard)
         self._init_window_states(
             ("click_total", "weight_total"),
             num_tasks=num_tasks,

@@ -27,9 +27,11 @@ signal has one home here:
   traces, the cross-rank gathers, and ``/metrics``, ``/healthz``,
   ``/flight``, ``/report`` over HTTP.
 
-The data-quality layer of the JAX package (``obs/sketch.py``,
-``obs/quality.py``: ``InputSketch``, ``watch_inputs``, ...) is not ported
-yet (ROADMAP item A5b): its names raise ``AttributeError`` saying so.
+- **Data quality** (``sketch``, ``quality``): mergeable input sketches
+  (``InputSketch``) and ``watch_inputs``, which folds them into a watched
+  metric's own update, with drift scoring against a frozen reference
+  (``DriftSpec``). These names load lazily: the modules import the metric
+  core, which imports this package.
 
 Enable with ``config.observability(...)``, ``obs.enable()``, or env
 ``TORCHEVAL_TPU_OBSERVABILITY=1`` (a ``*.jsonl`` value also attaches the
@@ -85,9 +87,8 @@ from torcheval_tpu_torch.obs.monitor import (
     register_check_hook,
     unregister_check_hook,
 )
-# The JAX package's data-quality layer (obs/sketch.py, obs/quality.py),
-# loaded lazily there. Not ported yet: each name raises AttributeError
-# saying so, rather than a bare "no attribute".
+# The data-quality layer (obs/sketch.py, obs/quality.py), loaded lazily:
+# both import the metric core, which imports this package.
 _LAZY_QUALITY = {
     "QUALITY": "quality",
     "DriftSpec": "quality",
@@ -108,10 +109,9 @@ def __getattr__(name):
         raise AttributeError(
             f"module 'torcheval_tpu_torch.obs' has no attribute {name!r}"
         )
-    raise AttributeError(
-        f"torcheval_tpu_torch.obs.{name} belongs to the data-quality layer "
-        f"(obs/{module}.py), which is not ported yet (ROADMAP item A5b)"
-    )
+    import importlib
+
+    return getattr(importlib.import_module(f"torcheval_tpu_torch.obs.{module}"), name)
 
 
 from torcheval_tpu_torch.obs.server import (
@@ -160,31 +160,37 @@ from torcheval_tpu_torch.obs.recorder import (
 from torcheval_tpu_torch.obs.trace import trace_path
 
 __all__ = [
-    "FLIGHT",
-    "SCHEMA_VERSION",
     "AlertEvent",
     "AnalysisEvent",
     "CompileEvent",
     "ComputeEvent",
     "CounterRegistry",
     "DriftEvent",
+    "DriftSpec",
     "Event",
     "EventLog",
     "EwmaStat",
+    "FLIGHT",
     "FailoverEvent",
     "FlightDiff",
     "FlightRecord",
     "FlightRecorder",
+    "InputSketch",
     "JsonlWriter",
     "LatencyHistogram",
     "MemoryEvent",
     "Monitor",
     "ObsServer",
     "PlaneSyncEvent",
+    "QUALITY",
+    "QualityWatch",
     "Recorder",
     "RegionSyncEvent",
     "RestoreEvent",
     "RetryEvent",
+    "SCHEMA_VERSION",
+    "SketchConfig",
+    "SketchSummary",
     "SloSpec",
     "SnapshotEvent",
     "SpanEvent",
@@ -193,8 +199,10 @@ __all__ = [
     "SyncEvent",
     "UpdateEvent",
     "WireTierEvent",
+    "active_watches",
     "arm_monitor",
     "arm_watchdog",
+    "chan_merge",
     "current_monitor",
     "current_server",
     "current_watchdog",
@@ -213,21 +221,23 @@ __all__ = [
     "gather_observability",
     "gather_traces",
     "healthz_payload",
+    "hll_estimate",
     "latency_snapshot",
     "logical_state_bytes",
     "memory_report",
     "metric_update_costs",
+    "per_rank_state_bytes",
     "program_costs",
     "read_jsonl",
     "recorder",
     "register_check_hook",
     "render_prometheus",
     "span",
-    "per_rank_state_bytes",
     "start_server",
     "state_bytes",
     "stop_server",
     "trace_path",
     "track_metrics",
     "unregister_check_hook",
+    "watch_inputs",
 ]

@@ -4,9 +4,10 @@ Chrome/Perfetto traces, and the cross-rank gathers.
 Counterpart of ``torcheval_tpu/obs/export.py``: the same JSONL lines, the
 same Prometheus family names (prefix ``torcheval_tpu``) and the same
 Chrome trace layout, so dashboards and readers built for one package read
-the other. The data-quality sections (``quality`` histograms and report
-table) come with ``obs/quality.py`` and are absent until it is ported.
-Nothing here reads a CUDA tensor: every number exported is host data.
+the other, including the data-quality sections (the ``quality_value``
+histograms and the report's ``[quality]`` table, from the armed
+``obs/quality.py`` watches). Apart from those sketch readbacks, which are
+scrape-cadence by design, every number exported is host data.
 
 Ways out of the recorder/registry, matched to their consumers:
 
@@ -247,10 +248,45 @@ def _render_histograms(histograms, prefix: str) -> List[str]:
 
 
 def _render_quality_histograms(prefix: str) -> List[str]:
-    """The armed quality watches' value sketches as Prometheus histogram
-    families, in the JAX package (``obs/quality.py``). The data-quality
-    layer is not ported yet, so there are none: this section is absent."""
-    return []
+    """The armed quality watches' value sketches as Prometheus
+    ``histogram`` families: one labelled series set a watched input
+    (``input=<series>``), cumulative ``_bucket{le=<edge>}`` over the
+    sketch's value-space edges with the below-range lane in every bucket,
+    and ``+Inf`` covering below + bins + above (NaN/Inf ride the
+    ``quality`` gauges). ``_sum`` is mean x count of the finite samples,
+    from the streaming moments. Reads the small sketch states back:
+    scrape cadence, never the step path."""
+    from torcheval_tpu_torch.obs import quality as _quality
+    from torcheval_tpu_torch.obs.sketch import _CNT_ABOVE, _CNT_BELOW
+
+    watches = _quality.active_watches()
+    if not watches:
+        return []
+    family = _prom_name(f"{prefix}_quality_value")
+    lines: List[str] = [f"# TYPE {family} histogram"]
+    emitted = False
+    for watch in watches:
+        edges = watch.config.edges()
+        for series in watch.series:
+            states = watch._states(series)
+            label = _prom_label_value(series)
+            below = float(states["cnt"][_CNT_BELOW])
+            above = float(states["cnt"][_CNT_ABOVE])
+            cumulative = below
+            for edge, count in zip(edges[1:], states["hist"]):
+                cumulative += float(count)
+                lines.append(
+                    f'{family}_bucket{{input="{label}",'
+                    f'le="{format(float(edge), ".9g")}"}} '
+                    f"{format(cumulative, '.12g')}"
+                )
+            total = cumulative + above
+            lines.append(f'{family}_bucket{{input="{label}",le="+Inf"}} {format(total, ".12g")}')
+            mom = states["mom"]
+            lines.append(f'{family}_sum{{input="{label}"}} {float(mom[0]) * float(mom[1])}')
+            lines.append(f'{family}_count{{input="{label}"}} {format(total, ".12g")}')
+            emitted = True
+    return lines if emitted else []
 
 
 def render_prometheus(
@@ -353,9 +389,44 @@ def format_report(
 
 
 def _quality_report_lines() -> List[str]:
-    """The ``format_report`` input-quality table, in the JAX package
-    (``obs/quality.py``). Not ported yet: the section is absent."""
-    return []
+    """The ``format_report`` input-quality table: a line a watched input
+    with count, mean±std, range, conservative p50/p99, NaN/zero tallies
+    and the distinct estimate, and the last drift scores. Empty when
+    nothing is watched. Reads the sketch states back (scrape cadence)."""
+    import math as _math
+
+    from torcheval_tpu_torch.obs import quality as _quality
+
+    watches = _quality.active_watches()
+    if not watches:
+        return []
+    lines = ["\n[quality] (input sketches; p50/p99 conservative bin edges)"]
+    for watch in watches:
+        for series in watch.series:
+            sk = watch.sketch(series)
+            summary = sk.compute()
+            std = _math.sqrt(summary.var) if summary.count else 0.0
+            p50 = sk.quantile(0.5)
+            p99 = sk.quantile(0.99)
+            q = f"p50<={p50:.4g} p99<={p99:.4g}" if p50 is not None else "p50/p99=n/a"
+            lines.append(
+                f"  {series}  n={summary.count:.0f}"
+                f"  mean={summary.mean:.4g}±{std:.4g}"
+                f"  range=[{summary.min:.4g}, {summary.max:.4g}]  {q}"
+                f"  nan={summary.nan} inf={summary.posinf + summary.neginf}"
+                f" zero={summary.zero} neg={summary.negative}"
+                f"  distinct~{summary.distinct:.0f}"
+            )
+            with watch._lock:
+                scores = watch._scores.get(series)
+            if scores:
+                lines.append(
+                    f"    drift: psi={scores['psi']:.4g}"
+                    f" ks={scores['ks']:.4g} z={scores['z']:.4g}"
+                    f" (window n={scores['count']:.0f}"
+                    f" vs ref n={scores['ref_count']:.0f})"
+                )
+    return lines
 
 
 def _check_rank_scoped(group, what: str) -> Optional[Dict[str, Any]]:

@@ -11,10 +11,11 @@ metric's state pin, and what does one update cost?*
   touching the device; int/float scalars count as 8). Works on any
   constructed metric, fed or not.
 - :func:`per_rank_state_bytes` / :func:`logical_state_bytes` — what this
-  rank pins against what one unsharded replica would. The port has no
-  sharded state yet, so the two equal :func:`state_bytes`; a metric that
-  supplies the JAX package's ``_logical_state_nbytes`` hook reports
-  through it.
+  rank pins against what one unsharded replica would: a sharded state
+  (``Metric(shard=...)``) counts its live slice per rank and its
+  registered logical shape logically; routed outboxes are per-rank
+  overhead and count as they are. A metric that supplies the JAX
+  package's ``_logical_state_nbytes`` hook reports through it.
 - :func:`program_costs` / :func:`metric_update_costs` — the JAX package
   lowers and compiles an update without running it and reads XLA's
   memory and cost analyses. Eager torch has no such analysis, so what
@@ -83,20 +84,26 @@ def state_bytes(metric) -> Dict[str, int]:
 
 
 def per_rank_state_bytes(metric) -> Dict[str, int]:
-    """Per-state bytes THIS rank pins. With no sharded state in the port
-    yet, every state is whole on every rank: :func:`state_bytes`."""
+    """Per-state bytes THIS rank pins: the live walk, since a sharded
+    state lives as this rank's slice (the JAX package's mesh-sharded
+    per-device division has no counterpart here)."""
     return state_bytes(metric)
 
 
 def logical_state_bytes(metric) -> Dict[str, int]:
     """Per-state bytes of the LOGICAL (unsharded) state — what one
-    replica would pin. A metric with a ``_logical_state_nbytes`` hook (the
-    JAX package's keyed tables) supplies its own accounting; everything
-    else equals the live walk."""
+    replica would pin. Sharded states report their registered logical
+    shape; routed outboxes are per-rank overhead and count as they are. A
+    metric with a ``_logical_state_nbytes`` hook (the JAX package's keyed
+    tables) supplies its own accounting."""
     hook = getattr(metric, "_logical_state_nbytes", None)
     if hook is not None:
         return dict(hook())
-    return state_bytes(metric)
+    out = state_bytes(metric)
+    for name, info in (getattr(metric, "_sharded_states", None) or {}).items():
+        item = torch.empty((), dtype=info.dtype).element_size()
+        out[name] = int(info.logical_size * item)
+    return out
 
 
 def memory_report(
@@ -108,7 +115,8 @@ def memory_report(
     "logical_bytes": ..., "per_rank_bytes": ..., "sharded": bool,
     "states": {state: bytes}}}``. ``logical_bytes`` is what one
     unsharded replica would pin; ``per_rank_bytes`` is what THIS rank
-    pins (equal while nothing is sharded). Pure metadata walk — no update
+    pins (equal for replicated metrics; ``~logical/world + outbox`` for
+    sharded ones). Pure metadata walk — no update
     runs, no device read, no collective. When the observability recorder
     is on, one :class:`~torcheval_tpu_torch.obs.events.MemoryEvent` per
     metric lands in the event stream.

@@ -177,6 +177,28 @@ def validate_state_dict(
             if default.numel() == 0:
                 continue  # lazy sentinel: dtype/shape fixed by first append
             d, v = _as_array(default), _as_array(value)
+            info = (getattr(metric, "_sharded_states", None) or {}).get(name)
+            if info is not None:
+                # a sharded state: the payload may be ANY world's slice of
+                # the logical state (a world-size-change restore loads old
+                # shards, a merged result is logical) -- dtype, rank and
+                # the other dims must match; the shard dim may be any
+                # size up to the logical one
+                logical = tuple(info.logical_shape)
+                if not (
+                    v.dtype == d.dtype
+                    and v.ndim == len(logical)
+                    and tuple(v.shape[1:]) == logical[1:]
+                    and 0 < v.shape[0] <= logical[0]
+                ):
+                    raise RuntimeError(
+                        f"{context}: sharded state '{leaf}' holds "
+                        f"{_leaf_desc(value)} but {what} registered a "
+                        f"state of logical shape {logical} "
+                        f"({d.dtype}) — was the checkpoint written by a "
+                        "differently-configured metric?"
+                    )
+                continue
             if v.dtype != d.dtype or v.shape != d.shape:
                 raise RuntimeError(
                     f"{context}: state '{leaf}' holds {_leaf_desc(value)} "
