@@ -260,7 +260,8 @@ phases, printing one JSON line for each:
    rank and a 4->4 restore (a ``SnapshotEvent`` and a ``RestoreEvent`` a
    rank, the recorder's step cursor the session's); ``/metrics``,
    ``/healthz``, ``/flight`` and ``/report`` over loopback (the exposition
-   parses, its panel-update count equals the calls made, the unported
+   parses, its panel-update count equals the calls made, the admission
+   source reads no armed table, the unported
    sources read absent, the server stops at scope exit); then the Chrome
    trace loads and the JSONL holds one line an event. Reported: ms a
    batch, median and mean, in each mode; host microseconds of one
@@ -299,13 +300,53 @@ phases, printing one JSON line for each:
    against unwatched ms a batch, host microseconds of one watched update,
    and the sketch fold's device ms and launches an update.
 
+17. ``serving``: the serving stack (``torcheval_tpu_torch.table`` and
+   ``torcheval_tpu_torch.streaming``). ``panel``: a ``TablePanel`` of
+   ``ctr``, ``weighted_calibration``, ``ne`` and ``windowed_ne`` (a window
+   of 4 drain epochs) keyed by one DLRM categorical feature of 590,152 rows
+   (MLPerf DLRM-DCNv2's per-feature embedding size), ids
+   ``floor(590,152 u^4)``, over phase 2's Criteo rows, each batch of 65,536
+   split into a quarter a rank of ``ThreadWorld(4)`` and drained with
+   ``toolkit.adopt_synced`` every 16 batches, beside a world-1 panel fed
+   the same rows; the first 96 batches (**cut** from 1,361). Per-key CTR
+   bitwise against an int64 oracle and between the worlds; every
+   accumulated column (NE, calibration, the windowed ring) within
+   ``_float_bound`` of float64 oracles; per-rank bytes after the adopt
+   within [logical/8, logical/2]; a rank's sync payload below the world-1
+   panel's. ``ncf``: ``MetricTable("hit_rate", k=10)`` keyed by user over
+   MLPerf NCF (138,493 users x 1,000 candidates, batches of 4,096, phase 9's
+   planted rows), every user bitwise against the int64 rank count.
+   ``admission``: the panel armed with an ``AdmissionController`` under
+   ``OverloadSchedule``: calm 512-row requests, then a sustained 10x QPS
+   and 10x key-cardinality spike (the JAX package's bench config 19),
+   drained every step: the ladder escalates, latches at ``sampled`` and
+   returns to ``full``; every keep verdict equals a numpy copy of
+   ``admission_keep``; a spike step's admitted keys read their full-ingest
+   CTR bitwise and calibration and NE within the float32 bound; no graph
+   is captured after the warm-up across the rung changes; ``/healthz``
+   reads ``shedding`` and stays healthy. ``decode``: ``StreamTable`` ranks
+   of ``ThreadWorld(4)`` with 10,000 requests in flight, 4,096 active rows
+   a step routed to each request's owning rank, tokens over Llama-3's
+   128,256-entry vocabulary, log-probs -U(0.01, 3), output lengths
+   U(64, 512) (finished requests retired and replaced): ``logprob`` +
+   ``token_edit`` for 200 steps with an ``ElasticSession`` snapshot at
+   world 4 restored at world 2 midway, then a ragged tail down to an empty
+   step; then the same plus ``ngram`` (n = 4) for 50 steps (both counts
+   **cut**). 64 sampled requests bitwise equal to standalone
+   ``StreamingPerplexity``, ``StreamingTokenEditStats`` and
+   ``StreamingNgramOverlap`` before and after the restore; captures within
+   ``bucket_bound`` while warming, then none. Reported: ingest host µs
+   and device ms a rank's batch (eager and graphed, with launches), keys
+   a second, drain seconds, logical, per-rank and peak bytes, the p99s,
+   decode rows a second and the n-gram mirror's host µs a step. K1 0.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 16 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 17 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -315,6 +356,7 @@ import contextlib
 import copy
 import importlib
 import json
+import logging
 import math
 import multiprocessing
 import os
@@ -434,11 +476,29 @@ from torcheval_tpu_torch.metrics.image.fid import (  # noqa: E402
 )
 from torcheval_tpu_torch.models.inception import FEATURE_DIM, init_inception_params  # noqa: E402
 from torcheval_tpu_torch.ops import _kernels, topk  # noqa: E402
+from torcheval_tpu_torch.obs.memory import memory_report  # noqa: E402
+from torcheval_tpu_torch.obs.server import healthz_payload  # noqa: E402
 from torcheval_tpu_torch.resilience import ResilientGroup, SyncTimeoutError  # noqa: E402
+from torcheval_tpu_torch.streaming import (  # noqa: E402
+    StreamingNgramOverlap,
+    StreamingPerplexity,
+    StreamingTokenEditStats,
+)
+from torcheval_tpu_torch.table import (  # noqa: E402
+    AdmissionController,
+    MetricTable,
+    ServingBudget,
+    StreamTable,
+    TablePanel,
+    admission_keep,
+    hash_keys,
+    owner_of,
+)
 from torcheval_tpu_torch.utils.test_utils import (  # noqa: E402
     FaultInjectionGroup,
     FaultSpec,
     InjectedCrash,
+    OverloadSchedule,
     SnapshotCrashPlan,
     ThreadWorld,
     corrupt_shard,
@@ -5021,8 +5081,11 @@ def phase_obs(device, n=CRITEO_EVAL, batch=CTR_BATCH, batches=OBS_BATCHES, num_b
             _check(all(health[k] == {"armed": 0} for k in ("federation", "syncplane", "failover"))
                    and not health["admission"]["shedding"],
                    "an unported source does not read absent")
-            _check(not any(re.match(r"torcheval_tpu_(admission|wire|quality)_", f) for f in families),
+            _check(not any(re.match(r"torcheval_tpu_(wire|quality)_", f) for f in families),
                    "an unported source exported a family")
+            # the admission source (ported in PR 13's slice) reads no armed table
+            _check(re.search(r"^torcheval_tpu_admission_armed 0$", metrics, re.M) is not None,
+                   "the admission source reads an armed table")
             _check(report.startswith("torcheval_tpu observability report"), "bad /report")
             url, recorded = srv.url, rec.log.total
             out["server"] = {"healthz_status": status, "status": health["status"],
@@ -5567,6 +5630,675 @@ def phase_shard_quality(device, cm_n=IMAGENET21K_VAL, num_classes=IMAGENET21K_CL
     return out
 
 
+# ------------------------------------------------------------ 17. serving
+
+SERVING_WORLD = 4
+# the categorical feature of 590,152 rows in MLPerf DLRM-DCNv2's per-feature
+# embedding sizes (torchrec examples/dlrm dlrm_main.py,
+# --num_embeddings_per_feature)
+DLRM_FEATURE_ROWS = 590_152
+SERVING_BATCHES = 96  # Criteo batches of the keyed panel: cut from 1,361 for the phase budget
+SERVING_DRAIN_EVERY = 16
+SERVING_WINDOW = 4  # drain epochs of the panel's windowed NE member
+SERVING_MEMBERS = ("ctr", "weighted_calibration", "ne",
+                   ("windowed_ne", "windowed_ne", {"window": SERVING_WINDOW}))
+DECODE_REQUESTS = 10_000  # requests in flight (the JAX package's decode acceptance size)
+DECODE_ACTIVE = 4096  # decode rows a step
+DECODE_STEPS = 200  # logprob + token_edit arm: cut for the phase budget
+NGRAM_STEPS = 50  # the same plus ngram (n = 4): cut for the phase budget
+DECODE_SAMPLED = 64  # requests held to standalone metrics
+DECODE_LEN = (64, 512)  # output lengths, U(64, 512)
+# ragged active-set sizes of the decode tail, ending in an empty step
+DECODE_TAIL = (1900, 1000, 600, 200, 100, 50, 20, 9, 3, 0)
+_MASK64 = (1 << 64) - 1
+
+
+@contextlib.contextmanager
+def _quiet_world1_syncs():
+    """World-1 adopts drain every step here; the toolkit's "world size is
+    1" warning would print once each."""
+    log = logging.getLogger("torcheval_tpu_torch.metrics.toolkit")
+    level = log.level
+    log.setLevel(logging.ERROR)
+    try:
+        yield
+    finally:
+        log.setLevel(level)
+
+
+def _splitmix64_np(x):
+    """splitmix64 over uint64 numpy values (wrapping products)."""
+    x = (x + np.uint64(0x9E3779B97F4A7C15)) & np.uint64(_MASK64)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def _keep_np(hashed, epoch, p):
+    """The admission keep verdict written out anew: a key is kept for the
+    whole drain epoch when ``splitmix64(hash ^ splitmix64(epoch)) <
+    p * 2^64``."""
+    if p >= 1.0:
+        return np.ones(hashed.shape, bool)
+    if p <= 0.0:
+        return np.zeros(hashed.shape, bool)
+    with np.errstate(over="ignore"):
+        salt = _splitmix64_np(np.asarray([int(epoch) & _MASK64], np.uint64))[0]
+        z = _splitmix64_np(hashed ^ salt)
+    return z < np.uint64(min(int(p * 2.0**64), _MASK64))
+
+
+def _ids_of_hashes(hashes, universe):
+    """The integer keys in ``[0, universe)`` behind table key hashes."""
+    all_h = hash_keys(np.arange(universe, dtype=np.int64))
+    order = np.argsort(all_h, kind="stable")
+    pos = np.searchsorted(all_h[order], hashes)
+    _check(bool(np.all(all_h[order][np.minimum(pos, universe - 1)] == hashes)),
+           "a table key is not one of the stream's ids")
+    return order[pos]
+
+
+def _serving_batch(device, seed, i, batch, rows):
+    """One Criteo batch keyed by a DLRM categorical feature: ids
+    ``floor(rows * u^4)`` (phase 9's heavy head), clicks and sigmoid
+    scores of N(-3.5, 1.5) logits (phase 2's stream)."""
+    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + i)
+    u = torch.rand((batch,), generator=gen, device=device, dtype=torch.float64)
+    ids = torch.floor(rows * u**4).to(torch.int64)
+    _, s, y = _click_logits(gen, (batch,), device)
+    return ids, s, y
+
+
+def _panel_bundle(s, y):
+    return {"ctr": (y,), "weighted_calibration": (s, y), "ne": (s, y), "windowed_ne": (s, y)}
+
+
+def _panel_oracle_states(t):
+    """The accumulated columns of a drained panel, by key id (float64)."""
+    n = int(t.n_keys)
+    cols = {}
+    for f in ("ctr__click", "ctr__weight", "weighted_calibration__weighted_input",
+              "weighted_calibration__weighted_target", "ne__total_entropy", "ne__num_examples",
+              "ne__num_positive"):
+        cols[f] = getattr(t, f"col_{f}")[:n]
+    for f in ("total_entropy", "num_examples", "num_positive"):
+        cols[f"windowed_ne__{f}"] = getattr(t, f"ring_windowed_ne__{f}")[:n].sum(-1)
+    return cols
+
+
+def _serving_panel(device, rows, batch, batches, world, drain_every, seed):
+    """The keyed DLRM panel over ``ThreadWorld(world)`` ranks (a quarter of
+    each batch a rank) beside one world-1 panel fed the same rows, drained
+    every ``drain_every`` batches, held to integer and float64 oracles."""
+    _reset_peak(device)
+    panels = [TablePanel(SERVING_MEMBERS, shard=ShardContext(r, world), device=device)
+              for r in range(world)]
+    single = TablePanel(SERVING_MEMBERS, device=device)
+    epochs = -(-batches // drain_every)
+    cnt = torch.zeros(rows, dtype=torch.int64, device=device)
+    clk = torch.zeros(rows, dtype=torch.int64, device=device)
+    s64 = torch.zeros(rows, dtype=torch.float64, device=device)
+    ce64 = torch.zeros(rows, dtype=torch.float64, device=device)
+    ep_cnt = torch.zeros((epochs, rows), dtype=torch.int64, device=device)
+    ep_clk = torch.zeros((epochs, rows), dtype=torch.int64, device=device)
+    ep_ce = torch.zeros((epochs, rows), dtype=torch.float64, device=device)
+    host_us, drain_s, payload, logical, world1_s = [], [], {}, None, 0.0
+    quarter = -(-batch // world)
+    _sync(device)
+    t0 = time.perf_counter()
+    merged = None
+    for i in range(batches):
+        ids, s, y = _serving_batch(device, seed, i, batch, rows)
+        keys = ids.cpu().numpy()
+        for r, p in enumerate(panels):
+            sl = slice(r * quarter, min((r + 1) * quarter, batch))
+            t_in = time.perf_counter()
+            p.ingest(keys[sl], **_panel_bundle(s[sl], y[sl]))
+            host_us.append((time.perf_counter() - t_in) * 1e6)
+        t_w1 = time.perf_counter()
+        single.ingest(keys, **_panel_bundle(s, y))
+        world1_s += time.perf_counter() - t_w1
+        e = i // drain_every
+        yi = y.to(torch.int64)
+        ce = _ce64(s, y, False)
+        for acc, v in ((cnt, torch.ones_like(ids)), (clk, yi), (s64, s.double()), (ce64, ce)):
+            acc.index_add_(0, ids, v)
+        ep_cnt[e].index_add_(0, ids, torch.ones_like(ids))
+        ep_clk[e].index_add_(0, ids, yi)
+        ep_ce[e].index_add_(0, ids, ce)
+        if (i + 1) % drain_every == 0 or i + 1 == batches:
+            payload = {"ranks": [_payload_bytes(p._sync_state_dict()) for p in panels],
+                       "world1": _payload_bytes(single._sync_state_dict())}
+            _sync(device)
+            t_d = time.perf_counter()
+            merged = ThreadWorld(world, timeout=600.0).run(
+                lambda g: toolkit.adopt_synced(panels[g.rank], g))[0]
+            _sync(device)
+            drain_s.append(time.perf_counter() - t_d)
+            toolkit.adopt_synced(single)
+    _sync(device)
+    stream_s = time.perf_counter() - t0
+    peak = _stream_peak(device)
+
+    # per-key values and states against the oracles and the world-1 panel
+    mv, sv = merged.compute(), single.compute()
+    _check(np.array_equal(mv.keys, sv.keys), "world-4 and world-1 key sets differ")
+    ids_of_key = torch.from_numpy(_ids_of_hashes(mv.keys, rows)).to(device)
+    want_ctr = clk[ids_of_key].to(torch.float32) / (
+        cnt[ids_of_key].to(torch.float32) + torch.finfo(torch.float32).tiny)
+    _check(torch.equal(mv.values["ctr"], want_ctr), "per-key CTR != the int64 oracle")
+    _check(torch.equal(mv.values["ctr"], sv.values["ctr"]), "world-4 CTR != the world-1 panel's")
+    # the windowed member covers each key's last SERVING_WINDOW epochs with traffic
+    has = ep_cnt[:, ids_of_key] > 0
+    from_end = torch.flip(torch.cumsum(torch.flip(has.to(torch.int64), [0]), 0), [0])
+    in_window = has & (from_end <= SERVING_WINDOW)
+    win = {
+        "total_entropy": (ep_ce[:, ids_of_key] * in_window).sum(0),
+        "num_examples": (ep_cnt[:, ids_of_key] * in_window).sum(0).double(),
+        "num_positive": (ep_clk[:, ids_of_key] * in_window).sum(0).double(),
+    }
+    oracle = {
+        "ctr__click": clk[ids_of_key].double(), "ctr__weight": cnt[ids_of_key].double(),
+        "weighted_calibration__weighted_input": s64[ids_of_key],
+        "weighted_calibration__weighted_target": clk[ids_of_key].double(),
+        "ne__total_entropy": ce64[ids_of_key], "ne__num_examples": cnt[ids_of_key].double(),
+        "ne__num_positive": clk[ids_of_key].double(),
+    }
+    oracle.update({f"windowed_ne__{k}": v for k, v in win.items()})
+    # one batch delta a rank's ingest or outbox batch, one add a carrier
+    updates = 2 * batches * world
+    errs = {}
+    for name, table in (("world4", merged), ("world1", single)):
+        cols = _panel_oracle_states(table)
+        ok, worst = _float_bound([cols[k] for k in oracle], [oracle[k] for k in oracle],
+                                 quarter if name == "world4" else batch, updates)
+        _check(ok, f"{name} panel columns outside the float32 summation bound")
+        errs[name] = worst
+    wc64 = s64[ids_of_key] / clk[ids_of_key].double()
+    pos = clk[ids_of_key] > 0
+    ne64 = (ce64[ids_of_key] / cnt[ids_of_key]) / _entropy64(clk[ids_of_key].double(), cnt[ids_of_key].double())
+    value_err = {
+        "calibration": _rel_err(mv.values["weighted_calibration"][pos], wc64[pos]),
+        "ne": _rel_err(mv.values["ne"], ne64),
+        "calibration_world4_vs_world1": _rel_err(mv.values["weighted_calibration"][pos],
+                                                 sv.values["weighted_calibration"][pos]),
+        "ne_world4_vs_world1": _rel_err(mv.values["ne"], sv.values["ne"]),
+    }
+    # bytes after the last adopt, and the payload of a rank before it
+    reports = [memory_report({"p": p})["p"] for p in panels]
+    logical = reports[0]["logical_bytes"]
+    per_rank = [rep["per_rank_bytes"] for rep in reports]
+    for b in per_rank:
+        _check(logical / (2 * world) <= b <= 2 * logical / world,
+               f"per-rank bytes {b} outside [logical/{2 * world}, 2 logical/{world}] of {logical}")
+    _check(max(payload["ranks"]) < payload["world1"], "a rank's sync payload is not below world 1's")
+    for p in panels:
+        _check(int(p.out_h) == 0 and int(p._owner_rank) == panels.index(p), "a rank did not drain")
+
+    # one rank's ingest: device time and launches, eager and graphed
+    timing = None
+    if torch.device(device).type == "cuda":
+        ids, s, y = _serving_batch(device, seed, batches, batch, rows)
+        keys = ids.cpu().numpy()[:quarter]
+        bundle = _panel_bundle(s[:quarter], y[:quarter])
+        tp = TablePanel(SERVING_MEMBERS, shard=ShardContext(0, world), device=device)
+        timing = {}
+        for mode, fn in (("eager", lambda: tp.update(keys, **bundle)),
+                         ("graphed", lambda: tp.ingest(keys, **bundle))):
+            fn()
+            timing[mode] = {"host_ms": _host_ms(fn, device, 20), "event_ms": _time_ms(fn, device, 20),
+                            **_profile(fn, device, reps=5)}
+    return {
+        "rows": rows, "batch": batch, "batches": batches, "cut_from": -(-CRITEO_EVAL // batch),
+        "world": world, "drain_every": drain_every, "keys": int(mv.keys.size),
+        "ingest_host_us_median": _median(host_us), "ingest_host_us_p99": float(np.percentile(host_us, 99)),
+        "keys_per_s": batches * batch / (sum(host_us) / 1e6), "stream_s": stream_s, "drain_s": drain_s,
+        "world1_ingest_s": world1_s,
+        "logical_bytes": logical, "per_rank_bytes": per_rank, "payload_bytes": payload,
+        "peak_bytes": peak, "columns_max_rel_err": errs, "value_max_rel_err": value_err,
+        "ctr_bitwise": True, "ingest": timing,
+    }
+
+
+def _serving_ncf(device, users, candidates, batch, k, seed):
+    """``MetricTable("hit_rate", k=k)`` keyed by user over MLPerf NCF's
+    evaluation, every user's hit rate bitwise against an int64 rank count."""
+    t = MetricTable("hit_rate", k=k, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    want, walls = np.zeros(users, np.float32), []
+    for start in range(0, users, batch):
+        n = min(batch, users - start)
+        scores, target = _ncf_batch(gen, n, candidates, device)
+        t0 = time.perf_counter()
+        t.ingest(np.arange(start, start + n), scores, target)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        tt = target.cpu().numpy()
+        tt = np.where(tt < 0, tt + candidates, tt)
+        ok = (tt >= 0) & (tt < candidates)
+        picked = scores[torch.arange(n, device=device), torch.from_numpy(np.where(ok, tt, 0)).to(device)]
+        picked = torch.where(torch.from_numpy(ok).to(device), picked, torch.full_like(picked, float("nan")))
+        rank = (scores > picked[:, None]).sum(-1, dtype=torch.int64).cpu().numpy()
+        want[start:start + n] = (rank < k).astype(np.float32)
+    tv = t.compute()
+    _check(tv.keys.size == users, "NCF table lost users")
+    got = tv.values.cpu().numpy()
+    _check(got.dtype == np.float32 and got.tobytes() == want[_ids_of_hashes(tv.keys, users)].tobytes(),
+           "per-user hit rates != the int64 rank oracle")
+    return {"users": users, "candidates": candidates, "batch": batch, "k": k, "bitwise": True,
+            f"hr@{k}": float(want.mean()), "ingest_ms_median": _median(walls),
+            "ingest_ms_first": walls[0]}
+
+
+def _admission_calls(batch, chunk, device):
+    """One scheduled step as ``chunk``-row requests (the QPS multiplier
+    is more requests, not bigger ones), payloads on the device."""
+    p = torch.from_numpy(batch.kwargs["preds"]).to(device)
+    y = torch.from_numpy(batch.kwargs["targets"]).to(device)
+    n = batch.keys.shape[0]
+    return [(batch.keys[s:s + chunk], p[s:s + chunk], y[s:s + chunk]) for s in range(0, n, chunk)]
+
+
+def _serving_admission(device, calm_steps, spike_steps, tail_steps, rows, keyspace, seed):
+    """The keyed panel armed with an ``AdmissionController`` under a
+    sustained 10x QPS and 10x key-cardinality spike in ``rows``-row
+    requests, drained every step (the JAX package's bench config 19)."""
+    budget = ServingBudget(max_keys=keyspace, max_outbox=4 * keyspace)
+
+    def controller():
+        return AdmissionController(budget, sample_p=0.1, floor_p=0.01, check_every=1,
+                                   cooldown_drains=2, enter_pressure=0.9, exit_pressure=0.1)
+
+    panel = TablePanel(SERVING_MEMBERS, device=device, admission=controller())
+    probe = None
+    sched = {
+        "calm": OverloadSchedule.sustained(calm_steps, 1.0, base_rows=rows, base_keys=keyspace,
+                                           seed=seed, family="weighted_calibration"),
+        "prefix": OverloadSchedule.sustained(4, 10.0, cardinality=10.0, base_rows=rows,
+                                             base_keys=keyspace, seed=seed + 1,
+                                             family="weighted_calibration"),
+        "spike": OverloadSchedule.sustained(spike_steps, 10.0, cardinality=10.0, base_rows=rows,
+                                            base_keys=keyspace, seed=seed + 2,
+                                            family="weighted_calibration"),
+        "tail": OverloadSchedule.sustained(tail_steps, 1.0, base_rows=rows, base_keys=keyspace,
+                                           seed=seed + 3, family="weighted_calibration"),
+    }
+    walls = {k: [] for k in sched}
+    rungs = {k: [] for k in sched}
+    captures = {k: 0 for k in sched}
+    keep_checks = 0
+    shedding_seen = False
+    try:
+        for name, schedule in sched.items():
+            if name == "spike":
+                _warm_admitted_buckets(panel, 10 * keyspace, rows, device)
+            for b in schedule.batches():
+                c0 = _captures()
+                calls = _admission_calls(b, rows, device)
+                for keys, p, y in calls:
+                    hashed = hash_keys(keys)
+                    frac = panel.admission.sampled_fraction(int(panel.admission_rung))
+                    want = _keep_np(hashed, int(panel.epoch), frac)
+                    got = admission_keep(hashed, int(panel.epoch), frac)
+                    _check(np.array_equal(got, want), "admission_keep != its numpy copy")
+                    before = int(panel.admitted_rows_total)
+                    t0 = time.perf_counter()
+                    panel.ingest(keys, ctr=(y,), weighted_calibration=(p, y), ne=(p, y),
+                                 windowed_ne=(p, y))
+                    _sync(device)
+                    walls[name].append((time.perf_counter() - t0) * 1e6)
+                    _check(int(panel.admitted_rows_total) - before == int(want.sum()),
+                           "the ingest kept other rows than the verdict")
+                    keep_checks += 1
+                if name == "spike" and b.step == 1:
+                    # the probe's fresh panels capture their own graphs
+                    c_probe = _captures()
+                    probe = _admission_probe(b, calls, panel, controller(), device)
+                    c0 += _captures() - c_probe
+                toolkit.adopt_synced(panel)
+                rungs[name].append(int(panel.admission_rung))
+                captures[name] += _captures() - c0
+                if int(panel.admission_rung) > 0:
+                    health = healthz_payload()
+                    _check(health["status"] == "shedding" and health["healthy"],
+                           f"/healthz reads {health['status']} while shedding")
+                    shedding_seen = True
+    finally:
+        panel.disarm_admission()
+    _check(max(rungs["prefix"]) == 1, f"the spike prefix did not escalate: {rungs['prefix']}")
+    _check(set(rungs["spike"]) == {1}, f"the ladder did not latch at sampled: {rungs['spike']}")
+    _check(rungs["tail"][-1] == 0, f"the ladder did not return to full: {rungs['tail']}")
+    _check(shedding_seen, "/healthz never read shedding")
+    if torch.device(device).type == "cuda":
+        _check(captures["spike"] == 0 and captures["tail"] == 0,
+               f"captures across the rung changes: {captures}")
+    unloaded = float(np.percentile(walls["calm"][len(walls["calm"]) // 5:], 99))
+    overloaded = float(np.percentile(walls["spike"], 99))
+    return {
+        "rows": rows, "keyspace": keyspace, "qps_multiplier": 10.0, "cardinality_multiplier": 10.0,
+        "steps": {k: len(v) for k, v in rungs.items()}, "rungs": rungs, "captures": captures,
+        "keep_checks": keep_checks, "unloaded_p99_us": unloaded, "overloaded_p99_us": overloaded,
+        "p99_ratio": overloaded / unloaded, "shed_rows_total": int(panel.shed_rows_total),
+        "admitted_rows_total": int(panel.admitted_rows_total),
+        "transitions": int(panel.admission_transitions), "admitted_keys_check": probe,
+    }
+
+
+def _warm_admitted_buckets(panel, space, rows, device):
+    """Capture every bucket an armed request can land in, at the latched
+    rung and the spiked slot capacity, before the spike is measured: the
+    verdict is a pure function of (key, epoch, p), so requests of exactly
+    ``m`` admitted rows can be made (the JAX package's bench warms the same
+    way). The rows repeat keys the panel already holds, so the warm-up adds
+    no key and no occupancy pressure."""
+    keys = np.arange(space, dtype=np.int64)
+    hashed = hash_keys(keys)
+    frac = panel.admission.sampled_fraction(int(panel.admission_rung))
+    admitted = keys[_keep_np(hashed, int(panel.epoch), frac) & np.isin(hashed, panel._keys)]
+    _check(admitted.size > 0, "no held key is admitted at the latched rung")
+    for m in (8, 16, 32, 64, 128, 256, 512, rows):
+        if m > rows:
+            continue
+        chosen = np.resize(admitted, m)
+        half = torch.full((m,), 0.5, device=device)
+        panel.ingest(chosen, ctr=(half,), weighted_calibration=(half, half), ne=(half, half),
+                     windowed_ne=(half, half))
+
+
+def _admission_probe(b, calls, panel, ctrl, device):
+    """One spike step into a fresh panel armed at the latched rung and an
+    unarmed panel: every admitted key's ratio metrics equal its full-ingest
+    values for that epoch (CTR bitwise; calibration and NE within the
+    float32 bound of two reweighted sums)."""
+    armed = TablePanel(SERVING_MEMBERS, device=device, admission=ctrl)
+    full = TablePanel(SERVING_MEMBERS, device=device)
+    try:
+        armed.admission_rung = int(panel.admission_rung)
+        armed.epoch = int(b.step)
+        full.epoch = int(b.step)
+        for keys, p, y in calls:
+            bundle = dict(ctr=(y,), weighted_calibration=(p, y), ne=(p, y), windowed_ne=(p, y))
+            armed.ingest(keys, **bundle)
+            full.ingest(keys, **bundle)
+        a, f = armed.compute(), full.compute()
+        pos = np.searchsorted(f.keys, a.keys)
+        _check(bool(np.all(f.keys[pos] == a.keys)), "an admitted key is missing from the full panel")
+        idx = torch.from_numpy(pos).to(device)
+        _check(torch.equal(a.values["ctr"], f.values["ctr"][idx]), "admitted CTR != full-ingest CTR")
+        rows_of = full.col_ctr__weight[idx].double()
+        tol = 4 * (rows_of + 8) * U32
+        errs = {}
+        for alias in ("weighted_calibration", "ne"):
+            got, want = a.values[alias].double(), f.values[alias][idx].double()
+            rel = (got - want).abs() / want.abs().clamp(min=1e-30)
+            _check(bool((rel <= tol).all()), f"admitted {alias} outside the float32 bound")
+            errs[alias] = float(rel.max())
+        return {"admitted_keys": int(a.keys.size), "keys": int(f.keys.size), "ctr_bitwise": True,
+                "max_rel_err": errs}
+    finally:
+        armed.disarm_admission()
+
+
+class _DecodePool:
+    """Requests in flight: ids, output lengths U(64, 512) and progress;
+    a finished request is replaced by a new one."""
+
+    def __init__(self, rng, requests, sampled, min_sampled_len):
+        self.rng = rng
+        self.ids = np.arange(requests, dtype=np.int64)
+        self.length = rng.integers(DECODE_LEN[0], DECODE_LEN[1] + 1, requests)
+        self.pos = np.zeros(requests, np.int64)
+        self.next_id = requests
+        long = np.flatnonzero(self.length >= min_sampled_len)
+        self.sampled = set(self.ids[rng.choice(long, sampled, replace=False)].tolist())
+
+    def per_rank(self, m, world):
+        """Slots of ``m`` in-flight requests owned by each rank."""
+        owners = owner_of(hash_keys(self.ids), world)
+        return np.concatenate([self.rng.choice(np.flatnonzero(owners == r), m, replace=False)
+                               for r in range(world)])
+
+    def step(self, active, vocab, act=None):
+        """One decode step of ``active`` random in-flight requests (or the
+        slots ``act``): a token each, finished requests replaced."""
+        if act is None:
+            act = self.rng.choice(self.ids.size, min(active, self.ids.size), replace=False)
+        n = act.size
+        hyp = self.rng.integers(0, vocab, n).astype(np.int32)
+        ref = np.where(self.rng.random(n) < 0.7, hyp, self.rng.integers(0, vocab, n)).astype(np.int32)
+        lp = (-self.rng.uniform(0.01, 3.0, n)).astype(np.float32)
+        rid = self.ids[act].copy()
+        self.pos[act] += 1
+        done = act[self.pos[act] >= self.length[act]]
+        finished = self.ids[done].copy()
+        k = done.size
+        self.ids[done] = np.arange(self.next_id, self.next_id + k)
+        self.next_id += k
+        self.length[done] = self.rng.integers(DECODE_LEN[0], DECODE_LEN[1] + 1, k)
+        self.pos[done] = 0
+        return rid, hyp, ref, lp, finished
+
+
+def _decode_step(tables, world, rid, hyp, ref, lp, finished):
+    """Route each request's row to its owning rank (per-request rank
+    affinity: the outboxes stay empty), ingest, retire finished ones."""
+    owners = owner_of(hash_keys(rid), world)
+    for r in range(world):
+        sel = owners == r
+        tables[r].ingest(rid[sel], step_tokens=hyp[sel], logprobs=lp[sel], ref_tokens=ref[sel])
+    if finished.size:
+        fo = owner_of(hash_keys(finished), world)
+        for r in range(world):
+            if (fo == r).any():
+                tables[r].finish(finished[fo == r])
+
+
+def _feed_oracles(oracles, rid, hyp, ref, lp):
+    for i in np.flatnonzero(np.isin(rid, list(oracles))):
+        oracles[int(rid[i])]["fed"] = True
+        for name, m in oracles[int(rid[i])].items():
+            if name == "fed":
+                continue
+            if name == "logprob":
+                m.update(torch.from_numpy(lp[i:i + 1]))
+            else:
+                m.update(torch.from_numpy(hyp[i:i + 1]), torch.from_numpy(ref[i:i + 1]))
+
+
+def _check_sampled(tables, oracles, world, what):
+    """Every sampled request that has decoded a token: its keyed values on
+    its owning rank (rows go to the owner, so its slot holds the whole
+    stream) bitwise equal to its standalone metrics. Returns how many were
+    held."""
+    fed = sorted(rid for rid, o in oracles.items() if o.get("fed"))
+    _check(bool(fed), f"{what}: no sampled request decoded a token")
+    owners = owner_of(hash_keys(np.asarray(fed, np.int64)), world)
+    for r in range(world):
+        mine = [rid for rid, o in zip(fed, owners) if o == r]
+        if not mine:
+            continue
+        pv = tables[r].compute()
+        hashes = hash_keys(np.asarray(mine, np.int64))
+        pos = np.searchsorted(pv.keys, hashes)
+        _check(bool(np.all(pv.keys[np.minimum(pos, pv.keys.size - 1)] == hashes)),
+               f"{what}: a sampled request is missing from its owner's table")
+        for alias, values in pv.values.items():
+            got = values[torch.from_numpy(pos).to(values.device)]
+            want = []
+            for rid in mine:
+                v = oracles[rid][alias].compute()
+                want.append(v.error_rate if alias == "token_edit" else
+                            v.overlap if alias == "ngram" else v)
+            want = torch.stack([w.reshape(()) for w in want]).to(got.device)
+            _check(torch.equal(got, want), f"{what}: {alias} != the standalone metrics")
+    return len(fed)
+
+
+def _warm_decode(pool, tables, world, active, vocab, oracles):
+    """Capture each rank's buckets: one step of every request in flight
+    (so the slots reach the capacity the stream keeps: a capture is tied
+    to the slot tensors), then steps of exactly ``m`` requests a rank, for
+    every bucket a step's share can land in."""
+    top = bucket_length(int(1.25 * active / world) + 1)
+    sizes = [None] + [1 << b for b in range(3, top.bit_length())]
+    for m in sizes:
+        act = np.arange(pool.ids.size) if m is None else pool.per_rank(m, world)
+        rid, hyp, ref, lp, fin = pool.step(0, vocab, act=act)
+        _decode_step(tables, world, rid, hyp, ref, lp, fin)
+        _feed_oracles(oracles, rid, hyp, ref, lp)
+
+
+def _serving_decode(device, requests, active, steps, ngram_steps, sampled, world, restore_world,
+                    drain_every, vocab, seed, directory):
+    """A ``StreamTable`` over ``requests`` in-flight decode streams (two
+    arms: logprob + token_edit, then the same plus ngram), 64 sampled
+    requests held bitwise to standalone metrics, an elastic restore
+    4 -> 2 midway, captures counted after each world's warm-up."""
+    rng = np.random.default_rng(seed)
+    members = ("logprob", "token_edit")
+    pool = _DecodePool(rng, requests, sampled, min_sampled_len=steps + 2 * 17 + len(DECODE_TAIL) + 1)
+    tables = [StreamTable(members=members, shard=ShardContext(r, world), device=device)
+              for r in range(world)]
+    oracles = {rid: {"logprob": StreamingPerplexity(device=device),
+                     "token_edit": StreamingTokenEditStats(device=device)} for rid in pool.sampled}
+    out = {"requests": requests, "active": active, "vocab": vocab, "sampled": sampled}
+    cap = {"warm": 0, "steady": 0, "steady_steps": []}
+    split = dict.fromkeys(("ingest", "oracles", "drains", "checks", "restore"), 0.0)
+    half = steps // 2
+    cur_world, rows, t_loop = world, 0, 0.0
+    checked = {}
+    for s in range(steps):
+        if s == half:
+            t_c = time.perf_counter()
+            checked["before_restore"] = _check_sampled(tables, oracles, cur_world, "before the restore")
+            split["checks"] += time.perf_counter() - t_c
+
+            def snap(g):
+                ElasticSession({"t": tables[g.rank]}, directory, process_group=g,
+                               interval=10**9).snapshot()
+
+            t_c = time.perf_counter()
+            ThreadWorld(world, timeout=600.0).run(snap)
+            tables = [StreamTable(members=members, shard=ShardContext(r, restore_world), device=device)
+                      for r in range(restore_world)]
+            t_r = time.perf_counter()
+            ThreadWorld(restore_world, timeout=600.0).run(
+                lambda g: ElasticSession({"t": tables[g.rank]}, directory, process_group=g,
+                                         interval=10**9).restore())
+            out["restore_seconds"] = time.perf_counter() - t_r
+            split["restore"] += time.perf_counter() - t_c
+            cur_world = restore_world
+        if s in (0, half):
+            c0 = _captures()
+            _warm_decode(pool, tables, cur_world, active, vocab, oracles)
+            cap["warm"] += _captures() - c0
+        c0 = _captures()
+        rid, hyp, ref, lp, fin = pool.step(active, vocab)
+        t1 = time.perf_counter()
+        _decode_step(tables, cur_world, rid, hyp, ref, lp, fin)
+        t2 = time.perf_counter()
+        t_loop += t2 - t1
+        rows += rid.size
+        _feed_oracles(oracles, rid, hyp, ref, lp)
+        t3 = time.perf_counter()
+        if (s + 1) % drain_every == 0:
+            ThreadWorld(cur_world, timeout=600.0).run(lambda g: toolkit.adopt_synced(tables[g.rank], g))
+        split["ingest"] += t2 - t1
+        split["oracles"] += t3 - t2
+        split["drains"] += time.perf_counter() - t3
+        if _captures() != c0:
+            cap["steady_steps"].append([s, _captures() - c0])
+        cap["steady"] += _captures() - c0
+    _sync(device)
+    out["logprob_token_edit"] = {"steps": steps, "rows": rows, "rows_per_s": rows / t_loop}
+    # the ragged tail: fresh active-set sizes down to an empty step
+    c0 = _captures()
+    for n in DECODE_TAIL:
+        rid, hyp, ref, lp, fin = pool.step(n, vocab)
+        _decode_step(tables, cur_world, rid, hyp, ref, lp, fin)
+        _feed_oracles(oracles, rid, hyp, ref, lp)
+    cap["tail"] = _captures() - c0
+    t_c = time.perf_counter()
+    checked["after_restore"] = _check_sampled(tables, oracles, cur_world, "after the restore")
+    split["checks"] += time.perf_counter() - t_c
+    out["captures"] = cap
+    out["checked"] = checked
+    out["host_split_s"] = split
+    if torch.device(device).type == "cuda":
+        # a rank's rows a step never exceed the requests in flight
+        bound = bucket_bound(requests) * (world + restore_world)
+        _check(cap["warm"] <= bound, f"decode captured {cap['warm']} graphs warming, bound {bound}")
+        _check(cap["steady"] == 0 and cap["tail"] == 0, f"captures after the warm-up: {cap}")
+
+    # arm 2: the same members plus ngram (n = 4), a fresh pool
+    rng = np.random.default_rng(seed + 1)
+    members = ("logprob", "token_edit", "ngram")
+    pool = _DecodePool(rng, requests, sampled, min_sampled_len=ngram_steps + 1)
+    tables = [StreamTable(members=members, n_gram=4, shard=ShardContext(r, world), device=device)
+              for r in range(world)]
+    mirror_s = [0.0]
+    for t in tables:
+        observe = t._observe_step
+
+        def timed(*args, _observe=observe):
+            t0 = time.perf_counter()
+            _observe(*args)
+            mirror_s[0] += time.perf_counter() - t0
+
+        t._observe_step = timed
+    oracles = {rid: {"logprob": StreamingPerplexity(device=device),
+                     "token_edit": StreamingTokenEditStats(device=device),
+                     "ngram": StreamingNgramOverlap(n_gram=4, device=device)} for rid in pool.sampled}
+    rows, t_loop = 0, 0.0
+    for s in range(ngram_steps):
+        rid, hyp, ref, lp, fin = pool.step(active, vocab)
+        t0 = time.perf_counter()
+        _decode_step(tables, world, rid, hyp, ref, lp, fin)
+        t_loop += time.perf_counter() - t0
+        rows += rid.size
+        _feed_oracles(oracles, rid, hyp, ref, lp)
+    _sync(device)
+    sampled_ids = np.asarray(sorted(oracles), np.int64)
+    fo = owner_of(hash_keys(sampled_ids), world)
+    for r in range(world):
+        tables[r].finish(sampled_ids[fo == r])
+    for m in oracles.values():
+        m["ngram"].finish()
+    checked["ngram"] = _check_sampled(tables, oracles, world, "ngram arm")
+    out["logprob_token_edit_ngram"] = {
+        "steps": ngram_steps, "rows": rows, "rows_per_s": rows / t_loop,
+        "ngram_mirror_host_us_per_step": mirror_s[0] * 1e6 / ngram_steps,
+    }
+    return out
+
+
+def phase_serving(device, rows=DLRM_FEATURE_ROWS, batch=CTR_BATCH, batches=SERVING_BATCHES,
+                  world=SERVING_WORLD, drain_every=SERVING_DRAIN_EVERY, ncf_users=NCF_USERS,
+                  ncf_candidates=NCF_CANDIDATES, ncf_batch=4096, calm_steps=40, spike_steps=48,
+                  tail_steps=8, request_rows=512, keyspace=2048, requests=DECODE_REQUESTS,
+                  active=DECODE_ACTIVE, decode_steps=DECODE_STEPS, ngram_steps=NGRAM_STEPS,
+                  sampled=DECODE_SAMPLED, decode_drain_every=100, vocab=LLAMA3_VOCAB, seed=17):
+    """The serving stack on the card (see the module docstring). Cuts:
+    the panel runs the first ``SERVING_BATCHES`` of the 1,361 Criteo
+    batches, the decode arms ``DECODE_STEPS`` and ``NGRAM_STEPS`` steps;
+    no width or key cardinality is cut."""
+    t0 = time.perf_counter()
+    out = {"phase": "serving", "device": str(device)}
+    k1 = _kernels.LAUNCHES["fused_auc_hist"]
+    with _quiet_world1_syncs():
+        out["panel"] = _serving_panel(device, rows, batch, batches, world, drain_every, seed)
+        out["ncf"] = _serving_ncf(device, ncf_users, ncf_candidates, ncf_batch, 10, seed + 1)
+        out["admission"] = _serving_admission(device, calm_steps, spike_steps, tail_steps,
+                                              request_rows, keyspace, seed + 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["decode"] = _serving_decode(device, requests, active, decode_steps, ngram_steps, sampled,
+                                        world, 2, decode_drain_every, vocab, seed + 3, tmp)
+    out["k1_launches"] = _kernels.LAUNCHES["fused_auc_hist"] - k1
+    _check(out["k1_launches"] == 0, f"the serving phase launched K1 {out['k1_launches']} times")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -5864,6 +6596,8 @@ def main(argv=None) -> int:
     _emit(obs_phase)
     shard_quality = phase_shard_quality(device, seed=args.seed + 16)
     _emit(shard_quality)
+    serving = phase_serving(device, seed=args.seed + 17)
+    _emit(serving)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -5886,6 +6620,7 @@ def main(argv=None) -> int:
         "launches_elastic": elastic["k1_launches"],
         "launches_obs": obs_phase["k1_launches"],
         "launches_shard_quality": shard_quality["k1_launches"],
+        "launches_serving": serving["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

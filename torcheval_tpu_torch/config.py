@@ -36,6 +36,10 @@ Sync resilience (``resilience.ResilientGroup``): ``sync_timeout``,
 ``snapshot_interval`` and ``snapshot_retention``; envs
 ``TORCHEVAL_TPU_SNAPSHOT_INTERVAL`` and ``_SNAPSHOT_RETENTION``.
 
+Metric tables (``torcheval_tpu_torch.table``): ``tenant_staleness_epochs``,
+the default per-tenant staleness budget; env
+``TORCHEVAL_TPU_TENANT_STALENESS``.
+
 Observability (``torcheval_tpu_torch.obs``): ``observability(...)``
 scopes the event recorder, its JSONL writer and Chrome trace, the stall
 watchdog, the health server and the SLO monitor; ``observability_enabled``
@@ -478,6 +482,27 @@ def set_sync_reform_after(syncs: int) -> None:
     if int(syncs) < 0:
         raise ValueError(f"sync_reform_after must be >= 0 (0 disables), got {syncs}")
     _sync_reform_after = int(syncs)
+
+
+# ------------------------------------------------- per-tenant staleness
+
+_tenant_staleness: int = _env_int("TORCHEVAL_TPU_TENANT_STALENESS", 0, minimum=0)
+
+
+def tenant_staleness_epochs() -> int:
+    """Default per-tenant staleness budget (in drain epochs) stamped on
+    metric tables built WITHOUT an explicit ``staleness_epochs=``
+    (``table.tightest_staleness_budget`` reads the tightest live one).
+    ``0`` (default) means unbudgeted. Env
+    ``TORCHEVAL_TPU_TENANT_STALENESS``."""
+    return _tenant_staleness
+
+
+def set_tenant_staleness_epochs(epochs: int) -> None:
+    global _tenant_staleness
+    if int(epochs) < 0:
+        raise ValueError(f"tenant staleness budget must be >= 0 (0 disables), got {epochs}")
+    _tenant_staleness = int(epochs)
 
 
 # ---------------------------------------------------------- observability

@@ -955,13 +955,15 @@ class ElasticSession:
         world-size-change resume). Ranks with no assignment keep freshly
         reset metrics, the merge identity.
 
-        SHARDED metrics (``Metric(shard=...)``) redistribute otherwise
-        when the world size changed: their payloads are slices of ONE
-        logical state plus outboxes that may target any slice, so every
-        new rank merges ALL old shards (the reassembling merge rebuilds the
-        logical state once) and re-slices to its own new shard
-        (``_reshard_to_own``); slices partition the cells, so every
-        contribution lands once. At an unchanged world size each shard
+        SHARDED metrics (``Metric(shard=...)``) and keyed metric tables
+        (``_hash_partitioned``) redistribute otherwise when the world size
+        changed: their payloads are slices of ONE logical state plus
+        outboxes that may target any slice, so every new rank merges ALL
+        old shards (the reassembling merge rebuilds the logical state
+        once) and re-slices to its own new shard or owned keys
+        (``_reshard_to_own``; a table re-hashes ``hash % new_world``);
+        slices partition the cells and keys, so every contribution lands
+        once. At an unchanged world size each shard
         loads as it is.
 
         ``load_state_dict`` replaces the state tensors, so the CUDA graphs
@@ -972,7 +974,13 @@ class ElasticSession:
         world_changed = len(shards) != self._group.world_size
         for name, metric in self.metrics.items():
             metric.reset()
-            sharded = bool(getattr(metric, "_sharded_states", None))
+            # axis-sharded states and hash-partitioned key tables
+            # (torcheval_tpu_torch.table.MetricTable) redistribute alike:
+            # reassemble the logical state from every old shard, then
+            # re-slice to this rank's new shard or owned key set
+            sharded = bool(getattr(metric, "_sharded_states", None)) or bool(
+                getattr(metric, "_hash_partitioned", False)
+            )
             metric_assigned = tuple(range(len(shards))) if sharded and world_changed else assigned
             states = []
             for old_rank in metric_assigned:

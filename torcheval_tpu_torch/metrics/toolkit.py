@@ -23,12 +23,15 @@ panel update is one span and one ``UpdateEvent`` (``fused`` = the metrics
 its plans covered). ``sync_and_compute(_collection)`` feed host-scalar
 values to an armed ``obs.monitor``; a tensor value is never read.
 
-``adopt_synced`` drains a sharded metric: it syncs, then loads the merged
-state back, so each rank re-slices to its shard with an empty outbox.
+``adopt_synced`` drains a sharded metric or a keyed metric table
+(``torcheval_tpu_torch.table``): it syncs, runs a table's drain-time
+finalization on the merged state (``_pre_adopt_commit``: windowed-epoch
+commit, the admission ladder's step, eviction), then loads the merged
+state back, so each rank re-slices to its shard or owned keys with an
+empty outbox. An admission-armed table's provenance carries its rung
+(``_with_admission``).
 
-Left for later slices: the keyed tables' drain hooks (``_pre_adopt_commit``,
-``_hash_partitioned``), the sync plane, admission control and the wire
-ladder.
+Left for later slices: the sync plane and the wire ladder.
 """
 
 from __future__ import annotations
@@ -210,9 +213,26 @@ def get_synced_metric(
     ]
 
 
+def _with_admission(provenance: SyncProvenance, metric: Metric) -> SyncProvenance:
+    """Stamp a metric table's admission ladder onto its provenance.
+
+    Per metric: one synced collection may mix armed tables with plain
+    metrics. Unarmed metrics (and every non-table) keep the defaults
+    (``sampled_fraction=1.0``, rung and epoch 0: full ingest)."""
+    controller = getattr(metric, "_admission", None)
+    if controller is None:
+        return provenance
+    rung = int(metric.admission_rung)
+    return provenance._replace(
+        sampled_fraction=float(controller.sampled_fraction(rung)),
+        admission_rung=rung,
+        admission_epoch=int(metric.admission_epoch),
+    )
+
+
 def _stamp(coll: Dict[str, Metric], provenance: SyncProvenance) -> Dict[str, Metric]:
     for m in coll.values():
-        m.sync_provenance = provenance
+        m.sync_provenance = _with_admission(provenance, m)
     return coll
 
 
@@ -313,7 +333,7 @@ def get_synced_metric_collection(
             rank_metrics.append(clone)
         target = rank_metrics[0].to(base.device)
         target.merge_state(rank_metrics[1:])
-        target.sync_provenance = provenance
+        target.sync_provenance = _with_admission(provenance, target)
         merged[name] = target
     return merged
 
@@ -368,10 +388,13 @@ def _restore_state_types(state_dict: Dict[str, Any]) -> Dict[str, TState]:
 
 def _adoptable(m: Metric) -> bool:
     """Metrics whose merged state may be loaded back without counting it
-    twice at the next sync: sharded ones (disjoint shards re-slice).
-    Replicated metrics are not: every rank would hold the global totals,
-    and the next SUM sync would multiply them by the world size."""
-    return bool(getattr(m, "_sharded_states", None))
+    twice at the next sync: sharded ones (disjoint shards re-slice) and
+    hash-partitioned tables (disjoint key sets re-slice). Replicated
+    metrics are not: every rank would hold the global totals, and the
+    next SUM sync would multiply them by the world size."""
+    return bool(getattr(m, "_sharded_states", None)) or bool(
+        getattr(m, "_hash_partitioned", False)
+    )
 
 
 def adopt_synced(
@@ -380,12 +403,16 @@ def adopt_synced(
     on_failure: Optional[str] = None,
 ) -> Union[Metric, Dict[str, Metric]]:
     """Sync, then load the merged state back into the working metric: the
-    drain point of a SHARDED metric. Its outbox collects foreign
-    contributions between syncs (O(batch x steps) entries), and a plain
-    ``sync_and_compute`` leaves the working metric as it was; adopting
-    re-slices the merged logical state to this rank's shard and empties
-    the outbox, so per-rank bytes return to ``size/world``. Returns the
-    synced (logical) metric, to ``compute()`` without a second exchange.
+    drain point of a SHARDED metric or a keyed METRIC TABLE. Its outbox
+    collects foreign contributions between syncs (O(batch x steps)
+    entries), and a plain ``sync_and_compute`` leaves the working metric
+    as it was; adopting re-slices the merged logical state to this rank's
+    shard (or owned keys) and empties the outbox, so per-rank bytes return
+    to ``size/world``. A table's drain-time finalization
+    (``_pre_adopt_commit``: windowed-epoch commit, admission ladder step,
+    TTL and occupancy eviction) runs on the merged state first, so those
+    decisions are identical on every rank. Returns the synced (logical)
+    metric, to ``compute()`` without a second exchange.
 
     Takes a metric, a replica list, or a ``{name: Metric}`` collection
     (drained in one exchange). Replicated members raise ``TypeError``:
@@ -402,9 +429,14 @@ def adopt_synced(
                 )
         synced_coll = get_synced_metric_collection(metric, process_group, on_failure=on_failure)
         for name, synced in synced_coll.items():
+            commit = getattr(synced, "_pre_adopt_commit", None)
+            if commit is not None:
+                commit()
             # read before loading: at world 1 `synced` IS the working
-            # metric, and load_state_dict drops its provenance
-            provenance = synced.sync_provenance
+            # metric, and load_state_dict drops its provenance; the
+            # admission fields are stamped after the commit, where the
+            # ladder steps
+            provenance = _with_admission(synced.sync_provenance, synced)
             metric[name].load_state_dict(synced.state_dict())
             metric[name].sync_provenance = provenance
         return synced_coll
@@ -418,8 +450,12 @@ def adopt_synced(
                 "sync_and_compute / get_synced_metric instead)"
             )
     synced = get_synced_metric(metric, process_group, on_failure=on_failure)
+    commit = getattr(synced, "_pre_adopt_commit", None)
+    if commit is not None:
+        # a table's drain finalization on the MERGED state
+        commit()
     payload = synced.state_dict()
-    provenance = synced.sync_provenance
+    provenance = _with_admission(synced.sync_provenance, synced)
     for m in targets:
         m.load_state_dict(payload)
         m.sync_provenance = provenance

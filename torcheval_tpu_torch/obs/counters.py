@@ -26,9 +26,12 @@ source adds nothing to any hot path. The default registry federates:
   the snapshot path is not a hot path, and a restart diagnosis wants
   these even when event recording was off);
 - ``flight``: the collective flight recorder's ring stats;
-- ``admission`` and ``wire``: the overload admission ladder and the
-  quantized wire ladder. Neither subsystem is ported yet, so both report
-  an empty source (no counters, never an error) until they are.
+- ``admission``: the overload admission ladder over the live armed
+  metric tables (``table._admission.armed_counter_source``: armed count,
+  worst rung, lowest sampled fraction, admitted/shed row and transition
+  totals);
+- ``wire``: the quantized wire ladder. It is not ported yet, so it
+  reports an empty source (no counters, never an error) until it is.
 
 ``register``/``unregister`` let applications add their own sources; the
 exporters (``render_prometheus``, ``format_report``,
@@ -89,9 +92,11 @@ def _flight_source() -> Dict[str, Any]:
 
 
 def _admission_source() -> Dict[str, Any]:
-    """The admission ladder's counters: empty until ``table._admission``
-    is ported."""
-    return {}
+    """The admission ladder's counters over the live armed metric tables
+    (``table._admission.armed_counter_source``)."""
+    from torcheval_tpu_torch.table._admission import armed_counter_source
+
+    return armed_counter_source()
 
 
 def _wire_source() -> Dict[str, Any]:

@@ -14,8 +14,12 @@ metric's state pin, and what does one update cost?*
   rank pins against what one unsharded replica would: a sharded state
   (``Metric(shard=...)``) counts its live slice per rank and its
   registered logical shape logically; routed outboxes are per-rank
-  overhead and count as they are. A metric that supplies the JAX
-  package's ``_logical_state_nbytes`` hook reports through it.
+  overhead and count as they are. A keyed metric table
+  (``table.MetricTable``, hash-partitioned, so it has no axis-sharded
+  states) supplies its own logical accounting through the
+  ``_logical_state_nbytes`` hook: per-key rows times the pow2 slot
+  capacity of its last-known global key count, outbox and bookkeeping as
+  live.
 - :func:`program_costs` / :func:`metric_update_costs` — the JAX package
   lowers and compiles an update without running it and reads XLA's
   memory and cost analyses. Eager torch has no such analysis, so what
@@ -94,8 +98,8 @@ def logical_state_bytes(metric) -> Dict[str, int]:
     """Per-state bytes of the LOGICAL (unsharded) state — what one
     replica would pin. Sharded states report their registered logical
     shape; routed outboxes are per-rank overhead and count as they are. A
-    metric with a ``_logical_state_nbytes`` hook (the JAX package's keyed
-    tables) supplies its own accounting."""
+    metric with a ``_logical_state_nbytes`` hook (the keyed metric tables,
+    ``table.MetricTable``) supplies its own accounting."""
     hook = getattr(metric, "_logical_state_nbytes", None)
     if hook is not None:
         return dict(hook())

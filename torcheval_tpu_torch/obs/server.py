@@ -29,9 +29,12 @@ form (the server never outlives the eval it reports on). Binding is on
 the caller's thread so a bad port fails loudly at start, not inside the
 daemon.
 
-The federation, sync plane, admission ladder and failover domain that
-``/healthz`` reports on in the JAX package are not ported yet: their
-sections read ``{"armed": 0}`` (admission: not shedding) until they are.
+The admission section reads the live armed metric tables
+(``table._admission.shedding_status``): a shedding intake reports status
+``shedding`` and stays healthy (degradation by design). The federation,
+sync plane and failover domain that ``/healthz`` reports on in the JAX
+package are not ported yet: their sections read ``{"armed": 0}`` until
+they are.
 """
 
 from __future__ import annotations
@@ -173,9 +176,9 @@ def healthz_payload() -> Dict[str, Any]:
     }
 
 
-# The subsystems below are not ported yet (the JAX package's federation,
-# syncplane, table._admission and failover modules): each reads as absent
-# until it lands, and the /healthz body keeps the JAX layout.
+# The subsystems below, but the admission ladder, are not ported yet (the
+# JAX package's federation, syncplane and failover modules): each reads
+# as absent until it lands, and the /healthz body keeps the JAX layout.
 
 
 def _current_federation():
@@ -187,14 +190,10 @@ def _current_plane():
 
 
 def _shedding_status() -> Dict[str, Any]:
-    # the JAX package's shedding_status() with no table armed
-    return {
-        "armed": 0,
-        "shedding": False,
-        "rung": 0,
-        "rung_name": "full",
-        "sampled_fraction": 1.0,
-    }
+    # the admission ladder over the live armed metric tables
+    from torcheval_tpu_torch.table._admission import shedding_status
+
+    return shedding_status()
 
 
 def _current_domain():

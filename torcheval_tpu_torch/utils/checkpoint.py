@@ -39,6 +39,7 @@ import hashlib
 import os
 import pickle
 import shutil
+import struct
 import time
 import warnings
 from typing import Any, Dict, Union
@@ -101,6 +102,11 @@ def _from_plain(tree):
     return tree
 
 
+_I64 = struct.Struct("=q")
+_F64 = struct.Struct("=d")
+_INT64_MIN, _INT64_MAX = -(2**63), 2**63 - 1
+
+
 def _digest(tree: Any) -> str:
     """sha256 over a canonical byte encoding of the plain state tree, the
     JAX package's digest for the same state.
@@ -119,6 +125,12 @@ def _digest(tree: Any) -> str:
         elif isinstance(node, (list, tuple)):
             for i, item in enumerate(node):
                 walk(item, f"{path}[{i}]")
+        elif type(node) is int and _INT64_MIN <= node <= _INT64_MAX:
+            # np.asarray's encoding of a Python int or float, without the
+            # array: a snapshot's host mirrors hold many thousands of them
+            h.update(path.encode() + b"int64()" + _I64.pack(node))
+        elif type(node) is float:
+            h.update(path.encode() + b"float64()" + _F64.pack(node))
         else:
             if isinstance(node, torch.Tensor):
                 node = _host(node)

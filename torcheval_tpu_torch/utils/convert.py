@@ -17,6 +17,8 @@ package's ``state_dict()`` read out as numpy loads here, and the reverse.
 from __future__ import annotations
 
 import contextvars
+import functools
+import math
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, Optional, Union
 
@@ -86,6 +88,37 @@ def functional_device(device: DeviceLike, *inputs: Any) -> torch.device:
         if isinstance(x, torch.Tensor):
             return x.device
     return canonicalize_device(None)
+
+
+def cached_scalar(value: float, dtype: torch.dtype = torch.float32, device: DeviceLike = "cpu") -> torch.Tensor:
+    """A 0-d tensor on ``device``, cached per (value, dtype, device).
+
+    Making a CUDA scalar from a Python number is a host-to-device copy;
+    doing it every update puts one on every call. Workloads use a handful
+    of distinct scalar weights, so the cache removes the copy after first
+    use. NaN normalizes to one canonical NaN before keying (``NaN != NaN``
+    would miss every time). The tensor is shared: no kernel writes its
+    inputs, and callers must not either."""
+    if isinstance(value, float) and math.isnan(value):
+        value = math.nan
+    return _cached_scalar(value, dtype, canonicalize_device(device))
+
+
+@functools.lru_cache(maxsize=1024)
+def _cached_scalar(value, dtype, device) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=1024)
+def _cached_index(i: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(i, dtype=torch.int32, device=device)
+
+
+def cached_index(i: int, device: DeviceLike = "cpu") -> torch.Tensor:
+    """A 0-d int32 tensor on ``device``, cached in its own pool (epoch and
+    ring cursors cycle through many values; sharing :func:`cached_scalar`'s
+    pool would evict the hot scalars such as the 1.0 default weight)."""
+    return _cached_index(int(i), canonicalize_device(device))
 
 
 def to_torch(
@@ -224,8 +257,15 @@ def _to_numpy(value: Any) -> Any:
 
 def numpy_state_dict(metric) -> Dict[str, Any]:
     """``metric.state_dict()`` with every tensor read out as numpy --
-    the form the JAX package's ``load_state_dict`` takes."""
-    return {name: _to_numpy(v) for name, v in metric.state_dict().items()}
+    the form the JAX package's ``load_state_dict`` takes. States a metric
+    lists in ``_numpy_uint32_states`` (int32 tensors holding uint32 bit
+    patterns: the keyed table's hash planes) leave as uint32, the JAX
+    package's dtype."""
+    out = {name: _to_numpy(v) for name, v in metric.state_dict().items()}
+    for name in getattr(metric, "_numpy_uint32_states", ()):
+        if name in out:
+            out[name] = out[name].view(np.uint32)
+    return out
 
 
 def load_numpy_state_dict(metric, state: Dict[str, Any]) -> None:
@@ -240,10 +280,13 @@ def load_numpy_state_dict(metric, state: Dict[str, Any]) -> None:
     dtype: its dtype is fixed by the first batch, not at registration.
     """
     buffers = getattr(metric, "_buffer_specs", {})
+    uint32_states = getattr(metric, "_numpy_uint32_states", ())
     converted: Dict[str, Any] = {}
     for name, value in state.items():
         current = getattr(metric, name, None)
         if isinstance(current, torch.Tensor):
+            if name in uint32_states and np.asarray(value).dtype == np.uint32:
+                value = np.asarray(value).view(np.int32)
             t = numpy_to_tensor(value)
             if t.dtype != current.dtype and name not in buffers:
                 raise TypeError(

@@ -1,6 +1,6 @@
 """Test helpers: the dummy metrics, the per-class contract harness, the
-rank-per-thread world, the fault-injection harnesses and the
-deterministic-schedule race harness."""
+rank-per-thread world, the fault-injection harnesses, the seeded
+overload schedules and the deterministic-schedule race harness."""
 
 from torcheval_tpu_torch.utils.test_utils.dummy_metric import (
     DummySumDictStateMetric,
@@ -19,6 +19,11 @@ from torcheval_tpu_torch.utils.test_utils.fault_injection import (
 from torcheval_tpu_torch.utils.test_utils.metric_class_tester import (
     MetricClassTester,
     assert_result_close,
+)
+from torcheval_tpu_torch.utils.test_utils.overload import (
+    OverloadBatch,
+    OverloadPhase,
+    OverloadSchedule,
 )
 from torcheval_tpu_torch.utils.test_utils.schedule import (
     DeadlockError,
@@ -40,6 +45,9 @@ __all__ = [
     "FaultSpec",
     "InjectedCrash",
     "MetricClassTester",
+    "OverloadBatch",
+    "OverloadPhase",
+    "OverloadSchedule",
     "ScheduleResult",
     "SnapshotCrashPlan",
     "ThreadRankGroup",
