@@ -261,8 +261,9 @@ phases, printing one JSON line for each:
    rank, the recorder's step cursor the session's); ``/metrics``,
    ``/healthz``, ``/flight`` and ``/report`` over loopback (the exposition
    parses, its panel-update count equals the calls made, the admission
-   source reads no armed table, the unported
-   sources read absent, the server stops at scope exit); then the Chrome
+   source reads no armed table, the federation, plane and failover
+   sections read absent, the wire source reads the default ladder, the
+   server stops at scope exit); then the Chrome
    trace loads and the JSONL holds one line an event. Reported: ms a
    batch, median and mean, in each mode; host microseconds of one
    ``StreamingBinaryAUROC.update`` off and on; the sync warnings counted.
@@ -340,13 +341,66 @@ phases, printing one JSON line for each:
    a second, drain seconds, logical, per-rank and peak bytes, the p99s,
    decode rows a second and the n-gram mirror's host µs a step. K1 0.
 
+18. ``wan``: the quantized wire ladder, the zero-stall sync plane,
+   cross-region federation and rank-loss failover, over ``ThreadWorld(4)``
+   ranks on the card in two regions (``us`` = ranks 0-1, ``eu`` = 2-3),
+   each rank fed a quarter of each of phase 2's Criteo batches (the first
+   96: **cut** from 1,361) into the DLRM panel (``BinaryNormalizedEntropy``,
+   ``ClickThroughRate``, ``WeightedCalibration``, ``StreamingBinaryAUROC``
+   and ``StreamingBinaryAUPRC`` at 8,192 bins on K1), an exact
+   ``BinaryAUROC`` over its samples and an ImageNet-1k
+   ``MulticlassConfusionMatrix`` (256 of phase 1's images a rank a step).
+   (a) ``wire``: the exact AUROC buffer, a ``WindowedBinaryAUROC`` of 2^20,
+   a ``Cat``, the K1 histogram and the counters synced at ``exact``,
+   ``bf16`` and ``int8`` (block 32) over 64 batches: every float state
+   within its codec bound (``amax/254`` a block at int8, ``|x| 2^-8`` at
+   bf16, summed over ranks), counters bitwise, AUROC-type values within
+   5e-3 of the exact rung, each metric's ``wire_tier`` the rung its
+   payload rode; two ``DriftSpec`` breaches of a watched window step its
+   family int8 -> bf16 -> exact with a ``WireTierEvent`` each and the
+   synced provenance following; the bytes each rank ships a family at each
+   rung. The in-step ``compression="int8"`` sync of phase 16's 2^20-bin
+   histogram AUROC (its int32 counts, exact, and the same counts as a
+   float32 weighted histogram, owner-partitioned) at NCCL world 1 and over
+   two spawned gloo processes, within the codec bound, with the
+   quantizer's device ms. (b) ``plane``: ``SyncPlane(interval=2.0)`` over
+   the world, a publish a step, three collections a rank stepped in turn
+   (plane off, armed, a blocking sync every 25 steps): no gather on the
+   serving group, no host sync inside ``publish``
+   (``set_sync_debug_mode("error")``), a read bitwise equal to a blocking
+   sync over the states published for its version, a read after
+   ``reset()`` at version 0; host us of a step (p50, p99) in each arm,
+   ``publish`` host us, device ms and bytes, rounds and ``rounds_behind``.
+   (c) ``federation``: the regions exchange over an ``InProcessLinkBus``
+   under ``ChaosLinkTransport``: healthy rounds, ``eu`` dark for
+   ``partition_after + 2`` rounds, a heal; the dark read is flagged in
+   ``FederationProvenance``, ``/healthz`` reads ``stale-region``, a
+   re-delivered epoch is discarded, and after the heal every state equals
+   the flat four-rank sync bitwise (float sums of non-integers: bitwise
+   the same merge in region order, their distance to the flat fold
+   reported); delta against full bytes of the confusion matrix, federate
+   and bare region-sync ms. (d) ``failover``: a ``FailureDomain`` on every
+   rank over ``KillGroup`` (plane and federation riding it,
+   ``ElasticSession`` snapshots to a temporary directory, a keyed CTR
+   ``MetricTable`` over one DLRM feature as the partitioned state, the
+   ImageNet panel graphed under shape bucketing) and three kills: rank 3
+   on a generation boundary mid plane round (an exact ``LossBound``,
+   survivors bitwise the on-disk world-change restore), rank 3 five
+   batches past a generation mid drain (the bound's steps are those five
+   batches; survivors bitwise the stream without them), rank 2, the
+   ``eu`` leader, mid federation exchange (leadership moves to rank 3);
+   each time ``/healthz`` reads ``degraded-world``, detection issues no
+   gather, and the live rejoin equals an on-disk world-change resume;
+   the bucketed panel captures no graph after its warm-up. K1 launches
+   once a streaming update in every arm (``k1_launches_by_arm``).
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 17 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 18 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -360,6 +414,7 @@ import logging
 import math
 import multiprocessing
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -377,7 +432,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from torcheval_tpu_torch import config, launcher, obs  # noqa: E402
+from torcheval_tpu_torch import config, launcher, obs, wire  # noqa: E402
 from torcheval_tpu_torch.distributed import (  # noqa: E402
     HierarchicalGroup,
     LocalReplicaGroup,
@@ -440,7 +495,7 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     WordInformationLost,
     WordInformationPreserved,
 )
-from torcheval_tpu_torch.metrics import _fuse, sharded, shardspec, toolkit  # noqa: E402
+from torcheval_tpu_torch.metrics import _fuse, sharded, shardspec, synclib, toolkit  # noqa: E402
 from torcheval_tpu_torch.metrics.metric import MergeKind  # noqa: E402
 from torcheval_tpu_torch.metrics.shardspec import ShardContext, ShardSpec  # noqa: E402
 from torcheval_tpu_torch.obs import quality  # noqa: E402
@@ -479,6 +534,7 @@ from torcheval_tpu_torch.ops import _kernels, topk  # noqa: E402
 from torcheval_tpu_torch.obs.memory import memory_report  # noqa: E402
 from torcheval_tpu_torch.obs.server import healthz_payload  # noqa: E402
 from torcheval_tpu_torch.resilience import ResilientGroup, SyncTimeoutError  # noqa: E402
+from torcheval_tpu_torch.syncplane import SyncPlane  # noqa: E402
 from torcheval_tpu_torch.streaming import (  # noqa: E402
     StreamingNgramOverlap,
     StreamingPerplexity,
@@ -495,9 +551,13 @@ from torcheval_tpu_torch.table import (  # noqa: E402
     owner_of,
 )
 from torcheval_tpu_torch.utils.test_utils import (  # noqa: E402
+    ChaosLinkTransport,
     FaultInjectionGroup,
     FaultSpec,
     InjectedCrash,
+    KillGroup,
+    KillSchedule,
+    KillSpec,
     OverloadSchedule,
     SnapshotCrashPlan,
     ThreadWorld,
@@ -5080,9 +5140,13 @@ def phase_obs(device, n=CRITEO_EVAL, batch=CTR_BATCH, batches=OBS_BATCHES, num_b
                    f"/metrics counts {count and count.group(1)} panel updates, {made} were made")
             _check(all(health[k] == {"armed": 0} for k in ("federation", "syncplane", "failover"))
                    and not health["admission"]["shedding"],
-                   "an unported source does not read absent")
-            _check(not any(re.match(r"torcheval_tpu_(wire|quality)_", f) for f in families),
-                   "an unported source exported a family")
+                   "an unarmed federation, plane or failure domain does not read absent")
+            _check(not any(re.match(r"torcheval_tpu_quality_", f) for f in families),
+                   "a closed input watch exported a family")
+            # the wire ladder's source: exact by default, block 32, no caps
+            _check(re.search(r"^torcheval_tpu_wire_block_size 32$", metrics, re.M) is not None
+                   and re.search(r"^torcheval_tpu_wire_fallback_families 0$", metrics, re.M)
+                   is not None, "the wire source does not read the default ladder")
             # the admission source (ported in PR 13's slice) reads no armed table
             _check(re.search(r"^torcheval_tpu_admission_armed 0$", metrics, re.M) is not None,
                    "the admission source reads an armed table")
@@ -6299,6 +6363,885 @@ def phase_serving(device, rows=DLRM_FEATURE_ROWS, batch=CTR_BATCH, batches=SERVI
     return out
 
 
+# ------------------------------------------------------------------ 18. wan
+
+WAN_WORLD = 4
+WAN_REGIONS = (("us", (0, 1)), ("eu", (2, 3)))
+WAN_BATCHES = 96  # Criteo batches: cut from 1,361 for the phase budget, as `serving` is
+WAN_CLS_ROWS = 256  # ImageNet rows a rank a step: a quarter of phase 1's 1,024
+WAN_WINDOW = 1 << 20  # the WindowedBinaryAUROC of phase 12
+WAN_WIRE_BATCHES = 64  # arm (a): fills the window (64 x 16,384 = 2^20 a rank)
+WAN_PLANE_INTERVAL = 2.0
+WAN_BLOCKING_EVERY = 25
+WAN_FED_ROUNDS = 12  # arm (c): 8 batches a round
+WAN_PARTITION_AFTER = 2
+WAN_FAIL_STEPS = 20  # arm (d)
+# |value at a lossy rung - value at the exact rung| of an AUROC-type value:
+# the JAX package's acceptance tolerance for the lossy rungs
+WAN_LOSSY_TOL = 5e-3
+WAN_BLOCK = 32
+WAN_HIST_BINS = SQ_THRESHOLDS  # phase 16's 2^20-threshold HistogramBinnedAUROC
+
+
+def _wan_panel(device, num_bins, classes, exact=True):
+    """A rank's collection: the DLRM panel (K1 under the streaming AUROC
+    and AUPRC), an exact ``BinaryAUROC`` and an ImageNet-1k confusion
+    matrix (the mostly-static dense state deltas exist for)."""
+    panel = _elastic_panel(device, num_bins)
+    if not exact:
+        del panel["exact"]
+    panel["cm"] = MulticlassConfusionMatrix(classes, device=device)
+    return panel
+
+
+def _wan_quarter(device, seed, i, n, batch, world, rank):
+    """Rank ``rank``'s quarter of Criteo batch ``i`` (phase 2's stream)."""
+    s, y = _elastic_batch(device, seed, i, n, batch)
+    q = -(-s.numel() // world)
+    return s[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
+
+
+def _wan_images(device, seed, i, rank, rows, classes):
+    gen = torch.Generator(device=device).manual_seed((seed * 1_000_003 + i) * 8 + rank)
+    return _classify_batch(gen, rows, classes, device)
+
+
+def _wan_feed(panel, device, seed, i, n, batch, world, rank, cls_rows, classes):
+    s, y = _wan_quarter(device, seed, i, n, batch, world, rank)
+    _elastic_feed(panel, s, y, "exact" in panel)
+    x, t = _wan_images(device, seed + 1, i, rank, cls_rows, classes)
+    panel["cm"].update(x, t)
+    return int(s.numel())
+
+
+def _np_states(metric):
+    """A metric's sync payload as host numpy (a list state concatenated)."""
+    return {k: _as_np(v) for k, v in metric._sync_state_dict().items()}
+
+
+def _as_np(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    if isinstance(v, (list, tuple)):
+        return np.concatenate([np.asarray(_as_np(x)).reshape(-1) for x in v]) if v else np.zeros(0)
+    return np.asarray(v)
+
+
+def _wan_value(m):
+    v = m.compute()
+    return _as_np(v[0] if isinstance(v, tuple) else v).astype(np.float64)
+
+
+def _wire_bound(rung, rank_states):
+    """The stated bound of one merged state at ``rung``: the sum over ranks
+    of each rank's codec bound (a sum adds them, a concatenation keeps the
+    largest): ``amax(block) / 254`` at int8, ``|x| * 2^-8`` at bf16."""
+    total = 0.0
+    for a in rank_states:
+        a = np.asarray(a, np.float32).reshape(-1)
+        a = a[np.isfinite(a)]
+        if a.size == 0:
+            continue
+        if rung == "int8":
+            total += wire.int8_error_bound(a, WAN_BLOCK)
+        elif rung == "bf16":
+            total += float(np.abs(a).max()) * 2.0**-8
+    return total
+
+
+def _wan_wire(device, seed, n, batch, steps, world, num_bins, classes, window):
+    """Arm (a): each family at each rung over ``ThreadWorld(world)``, the
+    breach fallback, and the bytes each rank sends."""
+    tw = ThreadWorld(world, timeout=600.0)
+    colls, rank_states = {}, {}
+    fams = ("exact", "window", "cat", "auroc", "ctr", "cm")
+
+    def feed(g):
+        c = {"exact": BinaryAUROC(device=device),
+             "window": WindowedBinaryAUROC(max_num_samples=window, device=device),
+             "cat": Cat(device=device),
+             "auroc": StreamingBinaryAUROC(num_bins=num_bins, device=device),
+             "ctr": ClickThroughRate(device=device),
+             "cm": MulticlassConfusionMatrix(classes, device=device)}
+        for i in range(steps):
+            s, y = _wan_quarter(device, seed, i, n, batch, world, g.rank)
+            toolkit.update_collection({"auroc": c["auroc"]}, s, y)
+            c["exact"].update(s, y)
+            c["window"].update(s, y)
+            c["cat"].update(s)
+            c["ctr"].update(y)
+            x, t = _wan_images(device, seed + 1, i, g.rank, WAN_CLS_ROWS, classes)
+            c["cm"].update(x, t)
+        colls[g.rank] = c
+        rank_states[g.rank] = {k: _np_states(m) for k, m in c.items()}
+
+    tw.run(feed)
+
+    def sync(g):
+        synced = toolkit.get_synced_metric_collection(colls[g.rank], g)
+        return {k: (_wan_value(m), _np_states(m), m.sync_provenance.wire_tier)
+                for k, m in synced.items()}
+
+    out = {"rungs": {}, "bytes": {}}
+    results = {}
+    for rung in wire.RUNGS:
+        with config.wire_ladder_mode(rung):
+            t0 = time.perf_counter()
+            got = tw.run(sync)
+            seconds = time.perf_counter() - t0
+        _check(all(got[r].keys() == got[0].keys() for r in range(world)), "ranks synced differently")
+        for r in range(1, world):
+            for k in fams:
+                _check(got[r][k][0].tobytes() == got[0][k][0].tobytes(),
+                       f"rank {r} computed {k} differently at {rung}")
+        results[rung] = got[0]
+        out["rungs"][rung] = {"sync_s": seconds,
+                              "wire_tier": {k: got[0][k][2] for k in fams}}
+        # the bytes each rank ships of each family at this rung
+        per = {}
+        for k in fams:
+            sent = []
+            for r in range(world):
+                states = {"m": colls[r][k]._sync_state_dict()}
+                order = synclib.metrics_traversal_order(states)
+                sent.append(int(synclib._pack_rank_states(states, order, rung)[1].size))
+            per[k] = sent
+        out["bytes"][rung] = per
+    exact = results["exact"]
+    errs = {}
+    for rung in ("bf16", "int8"):
+        res = results[rung]
+        errs[rung] = {}
+        for k in fams:
+            for name, want in exact[k][1].items():
+                got_s = res[k][1][name]
+                if not isinstance(want, np.ndarray) or not np.issubdtype(want.dtype, np.floating):
+                    _check(np.array_equal(np.asarray(got_s), np.asarray(want)),
+                           f"integer state {k}.{name} changed at {rung}")
+                    continue
+                if got_s.shape != want.shape:
+                    raise AssertionError(f"{k}.{name} shape {got_s.shape} != {want.shape} at {rung}")
+                fin = np.isfinite(want)
+                _check(np.array_equal(fin, np.isfinite(got_s)), f"{k}.{name} finiteness at {rung}")
+                err = float(np.max(np.abs(got_s[fin].astype(np.float64) - want[fin]), initial=0.0))
+                bound = _wire_bound(rung, [rank_states[r][k][name] for r in range(world)])
+                slack = 4 * float(np.spacing(np.float32(np.max(np.abs(want[fin]), initial=0.0))))
+                _check(err <= bound + slack,
+                       f"{k}.{name} at {rung}: error {err} above its bound {bound}")
+                errs[rung][f"{k}.{name}"] = [err, bound]
+            # counters stay bitwise; values within the stated tolerance
+            if k in ("ctr", "cm"):
+                _check(res[k][0].tobytes() == exact[k][0].tobytes(), f"{k} changed at {rung}")
+            else:
+                d = float(np.max(np.abs(res[k][0] - exact[k][0]), initial=0.0))
+                _check(d <= WAN_LOSSY_TOL, f"{k} value moved {d} at {rung}")
+                errs[rung][f"{k}.value"] = d
+        for k in fams:
+            # a family rides the rung when a float payload of 1 KiB or more
+            # carries it; integer counters and small payloads stay exact
+            big = any(isinstance(v, np.ndarray) and np.issubdtype(v.dtype, np.floating)
+                      and v.nbytes >= 1024 for v in rank_states[0][k].values())
+            want_tier = rung if big else "exact"
+            _check(res[k][2] == want_tier, f"{k} rode {res[k][2]} at {rung}, want {want_tier}")
+    out["errors"] = errs
+    total = {rung: sum(sum(v) for v in out["bytes"][rung].values()) for rung in wire.RUNGS}
+    out["int8_reduction"] = total["exact"] / total["int8"]
+    out["bf16_reduction"] = total["exact"] / total["bf16"]
+
+    # the measured error budget: two drift breaches of a watched windowed
+    # AUROC step its family int8 -> bf16 -> exact, a WireTierEvent each,
+    # and the synced provenance of the ranks' windows follows
+    watched = WindowedBinaryAUROC(max_num_samples=window, device=device)
+    # the windowed plan's arguments are (column, scores, labels, weights)
+    watch = quality.watch_inputs(watched, args=(1,), bounds=(0.0, 1.0), num_bins=SKETCH_BINS,
+                                 label="wan_wire")
+    rec = obs.recorder()
+    tiers, events = [], []
+    try:
+        with config.wire_ladder_mode("*=exact,WindowedBinaryAUROC=int8"), \
+                config.observability(slos=[]):
+            for i in range(4):
+                watched.update(*_elastic_batch(device, seed + 2, i, n, batch))
+            watch.freeze_reference()
+            watch.add_drift(quality.DriftSpec(min_count=batch))
+            for i in range(4, 8):
+                s, y = _elastic_batch(device, seed + 2, i, n, batch)
+                watched.update(torch.sqrt(s), y)
+            for _ in range(2):
+                e0 = rec.log.total
+                obs.Monitor(cooldown=0.0).check()
+                events += [(e.family, e.prev_tier, e.tier) for e in _new_events(rec, e0)
+                           if e.kind == "wire_tier"]
+                got = tw.run(lambda g: toolkit.get_synced_metric_collection(
+                    {"window": colls[g.rank]["window"]}, g)["window"].sync_provenance.wire_tier)
+                tiers.append(got[0])
+    finally:
+        watch.close()
+        wire.LADDER.reset()
+    _check(events == [("WindowedBinaryAUROC", "int8", "bf16"),
+                      ("WindowedBinaryAUROC", "bf16", "exact")], f"wire tier events {events}")
+    _check(tiers == ["bf16", "exact"], f"the synced provenance read {tiers}")
+    out["fallback"] = {"events": events, "wire_tier": tiers}
+    return out
+
+
+def _quantizer_calls():
+    """Wrap ``wire.quantize_blockwise_jit`` so the in-step sync's quantizer
+    calls can be counted (the quantizer is plain torch ops, no kernel of
+    the port's own)."""
+    calls = [0]
+    real = wire.quantize_blockwise_jit
+
+    def counted(x, block):
+        calls[0] += 1
+        return real(x, block)
+
+    return calls, real, counted
+
+
+def _wan_hist_case(rank, world, device, group, seed, thresholds, n, steps):
+    """The in-step int8 sync of phase 16's histogram AUROC over ``group``:
+    its int32 counts (exact at every rung) and the same counts as a
+    float32 weighted histogram (unit weights), both owner-partitioned and
+    reduce-scattered at ``compression="int8"``."""
+    m = HistogramBinnedAUROC(threshold=thresholds, device=device)
+    for i in range(steps):
+        s, y = _elastic_batch(device, seed, i, CRITEO_EVAL, n)
+        q = -(-s.numel() // world)
+        m.update(s[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q])
+    hist = m.hist
+    states = {"hist": hist, "hist_f": hist.to(torch.float32)}
+    specs = {"hist": MergeKind.SUM, "hist_f": MergeKind.SUM}
+    shard = {"hist": ShardSpec(0), "hist_f": ShardSpec(0)}
+    calls, real, counted = _quantizer_calls()
+    sharded.wirelib.quantize_blockwise_jit = counted
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        synced = sharded.sync_states_in_jit(states, group, specs, compression="int8",
+                                            shard_specs=shard)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+    finally:
+        sharded.wirelib.quantize_blockwise_jit = real
+    exact = sharded.sync_states_in_jit(states, group, specs, shard_specs=shard)
+    _check(torch.equal(synced["hist"], exact["hist"]), "the int32 counts changed at int8")
+    rows = hist.numel() // world
+    # every rank's block for this owner bounds the sum's error; this rank
+    # holds its own contribution only, so each is bounded by the largest
+    # count any rank could put there: the gathered exact sum
+    bound = world * wire.int8_error_bound(exact["hist_f"].cpu().numpy(), WAN_BLOCK)
+    err = float((synced["hist_f"].double() - exact["hist_f"].double()).abs().max())
+    _check(err <= bound, f"int8 histogram error {err} above {bound}")
+    return {"rank": rank, "world": world, "seconds": seconds, "max_abs_err": err, "bound": bound,
+            "quantizer_calls": calls[0], "counts_bitwise": True,
+            "bytes_exact": int(rows * 4 * world),
+            "bytes_int8": int(wire.int8_wire_bytes(rows, WAN_BLOCK) * world)}
+
+
+def _wan_hist_rank(rank, world, out_dir, seed, thresholds, n, steps):
+    """One spawned gloo rank of the in-step int8 sync (CPU tensors)."""
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out_dir, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        res = _wan_hist_case(rank, world, torch.device("cpu"), None, seed, thresholds, n, steps)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _wan_in_step(device, seed, thresholds, n, steps, mp):
+    """The in-step int8 sync at NCCL world 1 (the card) and gloo world 2
+    (two spawned processes), with the quantizer's device time on the
+    card."""
+    out = {}
+    if torch.device(device).type == "cuda":
+        _check(not dist.is_initialized(), "torch.distributed is already initialized")
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{launcher.free_port()}",
+                                rank=0, world_size=1)
+        try:
+            out["nccl_world1"] = _wan_hist_case(0, 1, device, dist.group.WORLD, seed, thresholds,
+                                                n, steps)
+        finally:
+            dist.destroy_process_group()
+        x = torch.rand(2 * thresholds, device=device)
+        out["quantizer"] = {"elements": x.numel(),
+                            "device_ms": _time_ms(lambda: wire.quantize_blockwise_jit(x, WAN_BLOCK),
+                                                  device, 20)}
+    if mp:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            _spawn_ranks(_wan_hist_rank, 2, (d, seed, thresholds, n, steps), 300)
+            got = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+        out["gloo_world2"] = {"spawn_seconds": time.perf_counter() - t0,
+                              "sync_seconds": [g["seconds"] for g in got],
+                              "max_abs_err": max(g["max_abs_err"] for g in got),
+                              "bound": got[0]["bound"],
+                              "quantizer_calls": [g["quantizer_calls"] for g in got]}
+    return out
+
+
+def _pct(values, q):
+    return float(np.percentile(np.asarray(values), q)) if values else None
+
+
+def _wan_plane(device, seed, n, batch, steps, world, num_bins, classes, interval, blocking_every):
+    """Arm (b): ``SyncPlane(interval=...)`` over the ranks, a publish a
+    step. Three collections a rank, stepped in turn: plane off, plane
+    armed, and a blocking sync every ``blocking_every`` steps."""
+    cuda = torch.device(device).type == "cuda"
+    tw = ThreadWorld(world, timeout=600.0)
+    lat = {"off": {}, "armed": {}, "blocking": {}}
+    pub_us, pub_bytes, gathers, extra = {}, {}, {}, {}
+    checks = {}
+    barrier = threading.Barrier(world)
+
+    def body(g):
+        colls = {arm: _wan_panel(device, num_bins, classes) for arm in lat}
+        counting = _CountingGroup(g)
+        plane = SyncPlane(colls["armed"], counting, interval=interval, policy="raise")
+        for arm in lat:
+            lat[arm][g.rank] = []
+        pub_us[g.rank] = []
+        try:
+            for i in range(steps):
+                order = ("off", "armed", "blocking") if i % 2 == 0 else ("blocking", "armed", "off")
+                for arm in order:
+                    t0 = time.perf_counter()
+                    _wan_feed(colls[arm], device, seed, i, n, batch, world, g.rank, WAN_CLS_ROWS,
+                              classes)
+                    if arm == "armed":
+                        tp = time.perf_counter()
+                        plane.publish()
+                        pub_us[g.rank].append((time.perf_counter() - tp) * 1e6)
+                    if arm == "blocking" and (i + 1) % blocking_every == 0:
+                        toolkit.sync_and_compute_collection(colls[arm], g)
+                    lat[arm][g.rank].append((time.perf_counter() - t0) * 1e6)
+            gathers[g.rank] = counting.object_gathers + counting.array_gathers
+            stale = plane.staleness()
+            rounds = plane.rounds
+            # the oracle: one more publish, frozen copies of what it holds,
+            # and a round that covers it (the thread may run it, or this)
+            frozen = {k: toolkit.clone_metric(m) for k, m in colls["armed"].items()}
+            gen = plane.publish()
+            barrier.wait()
+            deadline = time.monotonic() + 10 * interval + 60.0
+            while time.monotonic() < deadline:
+                rec = plane.retained().get(plane.version)
+                if rec is not None and rec.generation == gen:
+                    break
+                time.sleep(0.05)
+            read = plane.read()
+            oracle = toolkit.get_synced_metric_collection(frozen, g)
+            same = all(_wan_value(read[k]).tobytes() == _wan_value(oracle[k]).tobytes()
+                       and _same_panel({k: read[k]}, {k: oracle[k]}) for k in frozen)
+            version = read["ne"].sync_provenance.version
+            colls["armed"]["ctr"].reset()
+            cold = plane.read(["ctr"])["ctr"].sync_provenance.version
+            checks[g.rank] = (same, version, cold, read["ne"].sync_provenance.ranks)
+            extra[g.rank] = {"rounds": rounds, "rounds_behind": stale["rounds_behind"],
+                             "round_errors": plane.round_errors}
+            pub_bytes[g.rank] = sum(_payload_bytes(m._sync_state_dict())
+                                    for m in colls["armed"].values())
+        finally:
+            plane.close()
+
+    tw.run(body)
+    for r in range(world):
+        same, version, cold, ranks = checks[r]
+        _check(same, f"rank {r}: the plane read at version {version} != the blocking sync")
+        _check(version >= 1 and tuple(ranks) == tuple(range(world)), f"rank {r} read {version}")
+        _check(cold == 0, f"rank {r}: a read after reset() served version {cold}")
+        _check(gathers[r] == 0, f"rank {r}: {gathers[r]} gathers on the serving group")
+        _check(extra[r]["round_errors"] == 0, f"rank {r}: plane rounds failed")
+    # no host sync inside publish, and its device time (one rank's plane
+    # over the same collection, on this thread)
+    solo = _wan_panel(device, num_bins, classes)
+    _wan_feed(solo, device, seed, 0, n, batch, world, 0, WAN_CLS_ROWS, classes)
+    publish_device_ms = None
+    with SyncPlane(solo) as p:
+        p.publish()
+        with _no_host_sync(cuda):
+            p.publish()
+        if cuda:
+            publish_device_ms = _time_ms(p.publish, device, 10)
+        t0 = time.perf_counter()
+        p.run_round()
+        world1_round_s = time.perf_counter() - t0
+    out = {
+        "steps": steps, "interval_s": interval, "blocking_every": blocking_every,
+        "host_us": {arm: {"p50": _pct(sum(v.values(), []), 50), "p99": _pct(sum(v.values(), []), 99)}
+                    for arm, v in lat.items()},
+        "publish_host_us": {"p50": _pct(sum(pub_us.values(), []), 50),
+                            "p99": _pct(sum(pub_us.values(), []), 99)},
+        "publish_device_ms": publish_device_ms, "publish_bytes": pub_bytes[0],
+        "rounds": [extra[r]["rounds"] for r in range(world)],
+        "rounds_behind": [extra[r]["rounds_behind"] for r in range(world)],
+        "world1_round_s": world1_round_s,
+        "serving_gathers": [gathers[r] for r in range(world)],
+        "read_bitwise_to_blocking": True,
+    }
+    off = out["host_us"]["off"]["p99"]
+    out["armed_over_off_p99"] = out["host_us"]["armed"]["p99"] / off if off else None
+    out["blocking_over_off_p99"] = out["host_us"]["blocking"]["p99"] / off if off else None
+    return out
+
+
+def _wan_federation(device, seed, n, batch, steps, world, num_bins, classes, rounds,
+                    partition_after):
+    """Arm (c): two regions over a chaos-wrapped ``InProcessLinkBus``:
+    healthy rounds, ``eu`` dark for ``partition_after + 2`` rounds, a heal
+    and settling rounds; the merged result against a flat sync of the same
+    stream."""
+    import torcheval_tpu_torch.federation as fedmod
+    from torcheval_tpu_torch.federation import Federation, InProcessLinkBus
+
+    tw = ThreadWorld(world, timeout=600.0)
+    panels = {r: _wan_panel(device, num_bins, classes) for r in range(world)}
+    captured = []
+
+    class Tap(InProcessLinkBus):
+        def post(self, src, dst, blob):
+            if not captured and src == "us" and pickle.loads(blob).get("kind") in ("full", "delta"):
+                captured.append(blob)
+            super().post(src, dst, blob)
+
+    chaos = ChaosLinkTransport(Tap())
+    feds = {}
+    dark_from, heal_at = 2, 2 + partition_after + 2
+    settle = 3
+    total = rounds + settle
+    per_round = -(-steps // rounds)
+    provs, fed_ms, bare_ms, health = {}, [], [], {}
+    cm_delta = {}
+    tw.run(lambda g: feds.__setitem__(g.rank, Federation(
+        g, WAN_REGIONS, transport=chaos, partition_after=partition_after)))
+    merged = {}
+    step = 0
+    for rnd in range(total):
+        if rnd == dark_from:
+            chaos.partition_both("us", "eu")
+        if rnd == heal_at:
+            chaos.heal_both("us", "eu")
+        if rnd < rounds:
+            for _ in range(per_round):
+                if step < steps:
+                    for r in range(world):
+                        _wan_feed(panels[r], device, seed, step, n, batch, world, r, WAN_CLS_ROWS,
+                                  classes)
+                    step += 1
+        if rnd == heal_at + 1 and captured:
+            # a re-delivered pre-partition epoch: the ledger discards it
+            chaos._inner.post("us", "eu", captured[0])
+
+        def body(g):
+            fed = feds[g.rank]
+            for name, ranks in WAN_REGIONS:
+                if g.rank in ranks:
+                    t0 = time.perf_counter()
+                    merged[g.rank] = fed.federate(panels[g.rank])
+                    if g.rank == ranks[0]:
+                        _sync(device)
+                        fed_ms.append((time.perf_counter() - t0) * 1e3)
+                g.allgather_object(None)  # the regions take turns
+            provs[(g.rank, rnd)] = fed.last_provenance
+            if rnd == total - 1:
+                _sync(device)
+                t0 = time.perf_counter()
+                toolkit.get_synced_metric_collection(panels[g.rank], fed.region_group)
+                _sync(device)
+                bare_ms.append((time.perf_counter() - t0) * 1e3)
+
+        tw.run(body)
+        if rnd == heal_at - 1:
+            with fedmod._CURRENT_LOCK:
+                fedmod._CURRENT = feds[0]
+            health["dark"] = healthz_payload()
+        if rnd in (0, 1):
+            # the confusion matrix alone: as the wire packs it (sparse while
+            # mostly zero) and as its raw int64 bytes
+            cm = merged[0]["cm"]
+            states = {"cm": cm._sync_state_dict()}
+            order = synclib.metrics_traversal_order(states)
+            cm_delta[rnd] = (synclib._pack_rank_states(states, order, "exact")[1],
+                             _as_np(cm.confusion_matrix).view(np.uint8).reshape(-1))
+    with fedmod._CURRENT_LOCK:
+        fedmod._CURRENT = feds[0]
+    health["healed"] = healthz_payload()
+    # the quorum read while dark
+    mid = provs[(0, heal_at - 1)]
+    _check(mid.degraded and mid.merged_regions == ("us",), f"dark-round provenance {mid}")
+    eu = next(s for s in mid.regions if s.name == "eu")
+    _check(eu.dark and eu.staleness_epochs > partition_after, f"eu while dark: {eu}")
+    _check(health["dark"]["status"] == "stale-region" and not health["dark"]["healthy"],
+           f"/healthz read {health['dark']['status']} while eu was dark")
+    _check(health["healed"]["status"] == "ok", f"/healthz read {health['healed']['status']} healed")
+    last = provs[(0, total - 1)]
+    _check(not last.degraded, "the healed read is still degraded")
+    dup = feds[2].link_health("us").duplicates
+    _check(dup >= 1, "the re-delivered epoch was not discarded")
+    # after the heal every rank holds the same merge, equal to the flat
+    # sync of the stream: bitwise where no float sum is reordered, and
+    # float sums bitwise to the same merge in region order
+    flat = tw.run(lambda g: toolkit.get_synced_metric_collection(panels[g.rank], g))[0]
+    regional = []
+    for _, ranks in WAN_REGIONS:
+        m = _clone_panel(panels[ranks[0]])
+        for k, v in m.items():
+            v.merge_state([panels[r][k] for r in ranks[1:]])
+        regional.append(m)
+    tree = _merged(regional)
+    reordered = {}
+    for r in range(world):
+        got = merged[r]
+        for k in flat:
+            sa, sf, st = got[k]._sync_state_dict(), flat[k]._sync_state_dict(), tree[k]._sync_state_dict()
+            for name in sf:
+                _check(_same_state(sa[name], st[name]), f"rank {r} {k}.{name} != region-order merge")
+                if _same_state(sa[name], sf[name]):
+                    continue
+                # only a float sum of non-integers may differ: the two-level
+                # fold adds in another order than the flat one
+                a, b = _as_np(sa[name]), _as_np(sf[name])
+                fin = np.isfinite(b)
+                _check(np.issubdtype(b.dtype, np.floating) and not np.array_equal(b[fin], np.round(b[fin])),
+                       f"rank {r} {k}.{name} != the flat sync")
+                a, b = a[fin].astype(np.float64), b[fin].astype(np.float64)
+                reordered[f"{k}.{name}"] = max(reordered.get(f"{k}.{name}", 0.0), float(
+                    np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30), initial=0.0)))
+    full, raw = cm_delta[1]
+    delta = fedmod.encode_delta(cm_delta[0][0], full)
+    raw_delta = fedmod.encode_delta(cm_delta[0][1], raw)
+    h = feds[0].link_health("eu")
+    out = {
+        "rounds": total, "dark_rounds": heal_at - dark_from, "partition_after": partition_after,
+        "dark_provenance": {"merged_regions": list(mid.merged_regions),
+                            "eu_staleness": eu.staleness_epochs},
+        "healthz_dark": health["dark"]["status"], "duplicates_discarded": dup,
+        "float_sums_rel_to_flat": reordered,
+        "cm_full_bytes": int(full.size),
+        "cm_delta_bytes": None if delta is None else int(delta["idx"].nbytes + delta["words"].nbytes),
+        "cm_raw_bytes": int(raw.size),
+        "cm_raw_delta_bytes": (None if raw_delta is None
+                               else int(raw_delta["idx"].nbytes + raw_delta["words"].nbytes)),
+        "link": h.as_dict(),
+        "federate_ms": {"p50": _pct(fed_ms, 50), "max": max(fed_ms)},
+        "region_sync_ms": {"p50": _pct(bare_ms, 50)},
+    }
+    for fed in feds.values():
+        fed.close()
+    return out
+
+
+def _table_values(table):
+    """``{key hash: value}`` of a table's keys (``as_dict`` would key by the
+    original keys only as far as the table's capped repr map reaches)."""
+    res = table.compute()
+    return dict(zip(np.asarray(res.keys).tolist(), _as_np(res.values).tolist()))
+
+
+def _wan_table(device, rank, world):
+    return MetricTable("ctr", shard=ShardContext(rank, world), device=device)
+
+
+def _wan_restore(tables_of, directory, group, device):
+    """Fresh tables of ``group``'s world restored from the newest
+    generation in ``directory``: the on-disk world-change oracle."""
+    fresh = _wan_table(device, group.rank, group.world_size)
+    sess = ElasticSession({"t": fresh}, directory, process_group=group, interval=10**9)
+    _check(sess.restore() is not None, "no generation to restore")
+    sess.close()
+    return fresh
+
+
+def _wan_failover(device, seed, n, batch, steps, world, num_bins, classes, rows, directory):
+    """Arm (d): a ``FailureDomain`` on every rank over ``KillGroup``, with
+    a sync plane and a federation riding it, a keyed CTR table (one DLRM
+    categorical feature, phase 17's ids) as the partitioned state, and
+    three kills, each followed by recovery and a live rejoin."""
+    from torcheval_tpu_torch.failover import FailureDomain
+    from torcheval_tpu_torch.federation import Federation, InProcessLinkBus
+    import torcheval_tpu_torch.failover as fomod
+
+    # visits: plane-round one a step; drain-commit at DRAIN; federation-
+    # exchange at FED. Kill 1 lands on the generation of step 3, before
+    # step 4 ingests; kill 2 five batches (steps 7-11) past the generation
+    # of step 6; kill 3 at the eu leader's exchange of step 15
+    drain_steps, fed_steps, snap_steps = (3, 6, 11, 13), (5, 10, 15, 18), (3, 6, 13)
+    kills = [KillSpec("plane-round", at=4, rank=3), KillSpec("drain-commit", at=2, rank=3),
+             KillSpec("federation-exchange", at=2, rank=2)]
+    schedule = KillSchedule(kills, world=world, timeout=300.0)
+    tw = ThreadWorld(world, timeout=600.0)
+    bus = InProcessLinkBus()
+    tables = {r: _wan_table(device, r, world) for r in range(world)}
+    panels = {r: _wan_panel(device, num_bins, classes, exact=False) for r in range(world)}
+    bucketed = {r: _classify_panel(device, classes) for r in range(world)}
+    doms, sessions, counting, rg = {}, {}, {}, {}
+    rec = {"recover_s": [], "rejoin_s": [], "poll_gathers": [], "survivors": {}, "health": {},
+           "resume": {}}
+    lock = threading.Lock()
+    bar = threading.Barrier(world)
+    resume_dir = os.path.join(directory, "resume")
+    os.makedirs(resume_dir, exist_ok=True)
+    fed_dir = os.path.join(directory, "fed")
+    os.makedirs(fed_dir, exist_ok=True)
+
+    def setup(g):
+        counting[g.rank] = _CountingGroup(g)
+        rg[g.rank] = ResilientGroup(KillGroup(counting[g.rank], schedule), timeout=60.0,
+                                    retries=0, policy="quorum", quorum=0.5)
+        sessions[g.rank] = ElasticSession({"t": tables[g.rank]}, fed_dir, process_group=rg[g.rank],
+                                          interval=10**9, fault_hook=schedule.fault_hook)
+        plane = SyncPlane(panels[g.rank], rg[g.rank], policy="quorum", quorum=0.5)
+        fed = Federation(rg[g.rank], WAN_REGIONS, transport=bus, policy="quorum", quorum=0.5)
+        doms[g.rank] = FailureDomain({"t": tables[g.rank]}, rg[g.rank], session=sessions[g.rank],
+                                     plane=plane, federation=fed, detect_after=2)
+
+    tw.run(setup)
+
+    def recover(g, killed):
+        """The recovery epoch and the live rejoin, inside the step that
+        saw the kill (``killed``: this rank is the victim)."""
+        dom = doms[g.rank]
+        k = len(schedule.killed) - 1
+        if not killed:
+            for _ in range(2):  # quorum syncs feed the missing streak
+                toolkit.sync_and_compute(tables[g.rank], rg[g.rank])
+            before = counting[g.rank].object_gathers + counting[g.rank].array_gathers
+            dead = dom.poll()
+            rec["poll_gathers"].append(counting[g.rank].object_gathers
+                                       + counting[g.rank].array_gathers - before)
+            t0 = time.perf_counter()
+            loss = dom.recover()
+            rec["recover_s"].append(time.perf_counter() - t0)
+            fed = dom.federation
+            leaders = (fed.my_region.name, fed.is_leader, tuple(fed.my_region.ranks))
+            mine = _table_values(tables[g.rank])
+            if k == 0:
+                # bitwise the on-disk world-change restore of the same
+                # generation; then a world-3 snapshot the rejoin is held to
+                oracle = _wan_restore(tables, fed_dir, dom.group, device)
+                same = _table_values(oracle) == mine
+                sess3 = ElasticSession({"t": tables[g.rank]}, resume_dir, process_group=dom.group,
+                                       interval=10**9)
+                sess3.snapshot()
+                sess3.close()
+            else:
+                same = None
+            synced = dom.drain()["t"]
+            with lock:
+                rec["survivors"].setdefault(k, {})[g.rank] = (
+                    dead, loss, leaders, same, _table_values(synced),
+                    synced.sync_provenance.loss)
+            if g.rank == 0:
+                with fomod._CURRENT_LOCK:
+                    fomod._CURRENT = dom
+                rec["health"][k] = healthz_payload()
+                schedule.revive(dead[0])
+        bar.wait(300.0)
+        t0 = time.perf_counter()
+        if killed:
+            dom.rejoin(dead_ranks=(g.rank,))
+        else:
+            dom.rejoin()
+        rec["rejoin_s"].append(time.perf_counter() - t0)
+        bar.wait(300.0)
+        if k == 0:
+            resumed = _wan_restore(tables, resume_dir, rg[g.rank], device)
+            with lock:
+                rec["resume"][g.rank] = (
+                    _table_values(resumed) == _table_values(tables[g.rank]))
+
+    def guarded(g, fn):
+        try:
+            fn()
+        except InjectedCrash:
+            recover(g, True)
+            return
+        if schedule.dead_ranks():
+            recover(g, False)
+
+    poll_us, plain_us, panel_caps = [], [], []
+    for step in range(steps):
+        def pre(g):
+            dom = doms[g.rank]
+
+            def work():
+                dom.plane.publish()
+                schedule.check("plane-round", g.rank)
+                if not schedule.dead_ranks():
+                    dom.plane.run_round()
+
+            guarded(g, work)
+
+        tw.run(pre)
+        # this thread: every rank's ingest (the table's graphed ingest and
+        # the bucketed ImageNet panel capture one thread at a time), the
+        # DLRM panel on K1, and the poll's host cost
+        ids, s, y = _serving_batch(device, seed, step, batch, rows)
+        keys = ids.cpu().numpy()
+        q = -(-batch // world)
+        for r in range(world):
+            sl = slice(r * q, min((r + 1) * q, batch))
+            t0 = time.perf_counter()
+            tables[r].ingest(keys[sl], y[sl])
+            t1 = time.perf_counter()
+            doms[r].poll()
+            t2 = time.perf_counter()
+            plain_us.append((t1 - t0) * 1e6)
+            poll_us.append((t2 - t0) * 1e6)
+            _elastic_feed(panels[r], s[sl], y[sl], False)
+            x, t = _wan_images(device, seed + 1, step, r, WAN_CLS_ROWS, classes)
+            c0 = _captures()
+            with config.shape_bucketing():
+                toolkit.update_collection(bucketed[r], x, t)
+            if step > 0:
+                panel_caps.append(_captures() - c0)
+
+        def post(g):
+            dom, sess = doms[g.rank], sessions[g.rank]
+
+            def work():
+                sess.step_done()
+                if step in drain_steps:
+                    schedule.check("drain-commit", g.rank)
+                    if schedule.dead_ranks():
+                        return
+                    dom.drain()
+                if step in fed_steps:
+                    schedule.check("federation-exchange", g.rank)
+                    if schedule.dead_ranks():
+                        return
+                    dom.federation.federate(panels[g.rank])
+                if step in snap_steps:
+                    sess.snapshot()
+
+            guarded(g, work)
+
+        tw.run(post)
+    for dom in doms.values():
+        dom.plane.close()
+        dom.federation.close()
+        dom.close()
+    for sess in sessions.values():
+        sess.close()
+    return rec, {"poll_us": poll_us, "plain_us": plain_us, "panel_caps": panel_caps}
+
+
+def _wan_failover_checks(device, seed, batch, world, rows, rec, host):
+    """The failover arm's enforced checks (module docstring) and record."""
+    q = -(-batch // world)
+    surv = rec["survivors"]
+    _check(sorted(surv) == [0, 1, 2], f"recoveries {sorted(surv)}")
+    victims = {0: 3, 1: 3, 2: 2}
+    losses = {}
+    for k, by_rank in surv.items():
+        _check(sorted(by_rank) == [r for r in range(world) if r != victims[k]],
+               f"kill {k}: survivors {sorted(by_rank)}")
+        for r, (dead, loss, leaders, same, _, prov_loss) in by_rank.items():
+            _check(dead == (victims[k],), f"kill {k}: rank {r} detected {dead}")
+            _check(prov_loss == loss, f"kill {k}: rank {r}'s provenance lost its LossBound")
+        first = by_rank[min(by_rank)][1]
+        _check(all(v[1] == first for v in by_rank.values()), f"kill {k}: the bounds differ")
+        losses[k] = first
+        h = rec["health"][k]
+        _check(h["status"] == "degraded-world" and h["healthy"],
+               f"kill {k}: /healthz read {h['status']}")
+    _check(losses[0].exact, f"the boundary kill's bound {losses[0]} is not exact")
+    _check(all(v[3] for v in surv[0].values()),
+           "the survivors' states != the on-disk world-change restore")
+    _check(losses[1].steps == 5 and losses[1].epochs == 0 and losses[1].generation >= 0,
+           f"the second kill's bound {losses[1]}")
+    lost_samples = losses[1].steps * q
+    # the survivors' drained values after kill 2: the stream through step
+    # 11 without the victim's batches since its generation (steps 7-11)
+    oracle = MetricTable("ctr", device=device)
+    for step in range(12):
+        ids, _, y = _serving_batch(device, seed, step, batch, rows)
+        keys = ids.cpu().numpy()
+        for r in range(world):
+            if r == victims[1] and step >= 7:
+                continue
+            sl = slice(r * q, min((r + 1) * q, batch))
+            oracle.ingest(keys[sl], y[sl])
+    toolkit.adopt_synced(oracle)
+    want = _table_values(oracle)
+    for r, v in surv[1].items():
+        _check(v[4] == want, f"rank {r}'s values after kill 2 != the stream without the lost batches")
+    leaders = {r: v[2] for r, v in surv[2].items()}
+    _check(leaders[3] == ("eu", True, (3,)) and leaders[0] == ("us", True, (0, 1)),
+           f"federation leadership after the eu leader's loss: {leaders}")
+    _check(sorted(rec["resume"]) == list(range(world)) and all(rec["resume"].values()),
+           "the rejoin != the on-disk world-change resume")
+    _check(all(g == 0 for g in rec["poll_gathers"]), f"detection issued {rec['poll_gathers']} gathers")
+    _check(all(c == 0 for c in host["panel_caps"]),
+           f"the bucketed panel captured {sum(host['panel_caps'])} graphs after its warm-up")
+    return {
+        "kills": [{"victim": victims[k], "loss": {"ranks": list(losses[k].ranks),
+                                                  "steps": losses[k].steps,
+                                                  "epochs": losses[k].epochs,
+                                                  "generation": losses[k].generation,
+                                                  "exact": losses[k].exact}} for k in sorted(losses)],
+        "kill2_lost_samples": lost_samples,
+        "eu_leader_after_kill3": 3,
+        "recover_s": rec["recover_s"], "rejoin_s": rec["rejoin_s"],
+        "poll_gathers": sum(rec["poll_gathers"]),
+        "panel_captures_after_warmup": sum(host["panel_caps"]),
+        "poll_over_plain_p99": _pct(host["poll_us"], 99) / _pct(host["plain_us"], 99),
+        "poll_us_p99": _pct(host["poll_us"], 99), "plain_us_p99": _pct(host["plain_us"], 99),
+    }
+
+
+def phase_wan(device, n=CRITEO_EVAL, batch=CTR_BATCH, batches=WAN_BATCHES, world=WAN_WORLD,
+              num_bins=NUM_BINS, classes=1000, window=WAN_WINDOW, wire_batches=WAN_WIRE_BATCHES,
+              interval=WAN_PLANE_INTERVAL, blocking_every=WAN_BLOCKING_EVERY,
+              fed_rounds=WAN_FED_ROUNDS, partition_after=WAN_PARTITION_AFTER,
+              fail_steps=WAN_FAIL_STEPS, rows=DLRM_FEATURE_ROWS, hist_bins=WAN_HIST_BINS,
+              hist_steps=4, mp=True, seed=18):
+    """The wire ladder, the sync plane, the federation and failover on the
+    card (see the module docstring). Cuts: the plane and federation arms
+    run the first ``WAN_BATCHES`` of the 1,361 Criteo batches, the wire
+    arm ``WAN_WIRE_BATCHES``, the failover arm ``WAN_FAIL_STEPS``; no
+    width is cut."""
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    out = {"phase": "wan", "device": str(device)}
+    k1_total = _kernels.LAUNCHES["fused_auc_hist"]
+    launches = {}
+
+    def arm(name, fn, streaming):
+        k1 = _kernels.LAUNCHES["fused_auc_hist"]
+        res = fn()
+        launches[name] = _kernels.LAUNCHES["fused_auc_hist"] - k1
+        if cuda:
+            _check(launches[name] == streaming,
+                   f"{name}: K1 launched {launches[name]} times for {streaming} streaming updates")
+        return res
+
+    with _quiet_world1_syncs():
+        out["wire"] = arm("wire", lambda: _wan_wire(device, seed, n, batch, wire_batches, world,
+                                                    num_bins, classes, window),
+                          world * wire_batches)
+        out["wire"]["in_step"] = _wan_in_step(device, seed + 4, hist_bins, batch, hist_steps, mp)
+        # three collections a rank, two streaming metrics each, and the
+        # solo publish check's one update
+        out["plane"] = arm("plane", lambda: _wan_plane(device, seed, n, batch, batches, world,
+                                                       num_bins, classes, interval, blocking_every),
+                           2 * (3 * world * batches + 1))
+        out["federation"] = arm("federation", lambda: _wan_federation(
+            device, seed, n, batch, batches, world, num_bins, classes, fed_rounds, partition_after),
+            2 * world * batches)
+        with tempfile.TemporaryDirectory() as tmp:
+            rec, host = arm("failover", lambda: _wan_failover(
+                device, seed + 5, n, batch, fail_steps, world, num_bins, classes, rows, tmp),
+                2 * world * fail_steps)
+        out["failover"] = _wan_failover_checks(device, seed + 5, batch, world, rows, rec, host)
+    out["k1_launches"] = _kernels.LAUNCHES["fused_auc_hist"] - k1_total
+    out["k1_launches_by_arm"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -6598,6 +7541,8 @@ def main(argv=None) -> int:
     _emit(shard_quality)
     serving = phase_serving(device, seed=args.seed + 17)
     _emit(serving)
+    wan = phase_wan(device, seed=args.seed + 18)
+    _emit(wan)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -6621,6 +7566,7 @@ def main(argv=None) -> int:
         "launches_obs": obs_phase["k1_launches"],
         "launches_shard_quality": shard_quality["k1_launches"],
         "launches_serving": serving["k1_launches"],
+        "launches_wan": wan["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

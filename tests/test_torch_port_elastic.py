@@ -290,8 +290,38 @@ def test_local_replica_group_is_rejected(tmp_path):
 
 @pytest.mark.parametrize("rider", ["federation", "plane"])
 def test_federation_and_plane_riders_wait_for_their_modules(tmp_path, rider):
-    with pytest.raises(NotImplementedError, match="None"):
-        ElasticSession(_fresh(), str(tmp_path), **{rider: object()})
+    """The riders ride: a federation's ledger lands in the shard's
+    ``federation`` slot and comes back on a same-world restore; a plane's
+    snapshots are invalidated by the restore."""
+    from torcheval_tpu_torch.federation import Federation, InProcessLinkBus
+    from torcheval_tpu_torch.syncplane import SyncPlane
+
+    metrics = _fresh()
+    g = tdist.SingleProcessGroup()
+    if rider == "federation":
+        obj = Federation(g, [("solo", (0,))], transport=InProcessLinkBus())
+        obj.exchange(metrics)
+    else:
+        obj = SyncPlane(metrics, g)
+        obj.publish()
+        obj.run_round()
+    session = ElasticSession(metrics, str(tmp_path), process_group=g, **{rider: obj})
+    session.snapshot()
+    session.close()
+    _, tree = load_shard_states(newest_committed_generation(str(tmp_path))[1], 0)
+    if rider == "federation":
+        assert tree["federation"]["epoch"] == 1
+        obj.epoch = 0
+    else:
+        assert tree["federation"] is None and obj.version == 1
+    session = ElasticSession(metrics, str(tmp_path), process_group=g, **{rider: obj})
+    assert session.restore() is not None
+    if rider == "federation":
+        assert obj.epoch == 1
+    else:
+        assert obj.version == 0
+    session.close()
+    obj.close()
     ElasticSession(_fresh(), str(tmp_path), **{rider: None}).close()
 
 

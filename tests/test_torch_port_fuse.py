@@ -514,11 +514,14 @@ def test_emulated_graphs_survive_reset_and_follow_new_states(emulated_graphs):
         metric.reset()  # in place under donation: the graph still writes the states
         metric.update(x, y)
         assert _captures() == c0
-        metric.load_state_dict(metric.state_dict())  # new state tensors: a new graph
+        metric.load_state_dict(metric.state_dict())  # in place under donation too
         metric.update(x, y)
+        assert _captures() == c0
+        metric.merge_state([TM.MulticlassAccuracy(average="macro", num_classes=4, device=CPU)])
+        metric.update(x, y)  # the merge made new state tensors: a new graph
         assert _captures() == c0 + 1
     want = TM.MulticlassAccuracy(average="macro", num_classes=4, device=CPU)
-    want.update(x, y).update(x, y)
+    want.update(x, y).update(x, y).update(x, y)
     for k, v in metric.state_dict().items():
         assert torch.equal(v, want.state_dict()[k])
 

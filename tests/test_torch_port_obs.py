@@ -527,7 +527,7 @@ def test_timeout_error_carries_flight_tail_and_retry_event():
 # the unported sources' families, and the count of compile events, which
 # exists only once a compile event was recorded (XLA programs in one
 # package, CUDA-graph captures in the other)
-_UNPORTED_FAMILIES = re.compile(r"^torcheval_tpu_((admission|wire|quality)_|events_kind_compile$)")
+_UNPORTED_FAMILIES = re.compile(r"^torcheval_tpu_((admission|quality)_|events_kind_compile$)")
 
 
 def _families(text):

@@ -184,9 +184,125 @@ def test_unsupported_kinds_and_rungs_raise():
                                   shard_specs={"s": ShardSpec(axis=0)})
     with pytest.raises(NotImplementedError, match="reduce merge kinds"):
         sharded.donated_sync_step(lambda x: {"s": x}, None, {"s": MergeKind.EXTEND})
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sharded.donated_sync_step(lambda x: {"s": x}, None, compression="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sharded.sync_states_in_jit({"s": torch.zeros(4)}, None, compression="bf16")
+    # the lossy rungs are supported (test_lossy_rungs_match_the_jax_rungs);
+    # an unknown rung still raises, at build and at call
+    assert callable(sharded.donated_sync_step(lambda x: {"s": x}, None, compression="int8"))
+    with pytest.raises(ValueError, match="unknown compression"):
+        sharded.donated_sync_step(lambda x: {"s": x}, None, compression="fp4")
     with pytest.raises(ValueError, match="unknown compression"):
         sharded.sync_states_in_jit({"s": torch.zeros(4)}, None, compression="fp4")
+
+
+# ----------------------------------------------------- the lossy rungs
+
+LOSSY_N, LOSSY_ROWS = 700, 64
+
+
+def _lossy_data(rank):
+    """A rank's EXTEND buffer (capacity 1,024, 700 valid), its full-size
+    float delta of an owner-partitioned (64, 8) state, and an int32
+    counter: every float payload over the 1 KiB floor."""
+    r = np.random.default_rng(300 + rank)
+    buf = np.full((1024,), -np.inf, np.float32)
+    buf[:LOSSY_N] = r.standard_normal(LOSSY_N).astype(np.float32) * (1 + rank)
+    delta = r.standard_normal((LOSSY_ROWS, 8)).astype(np.float32)
+    cnt = r.integers(0, 1000, 300).astype(np.int32)
+    return buf, delta, cnt
+
+
+def _lossy_rank(rank, world, out_dir, rung):
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out_dir, f"store-{rung}"), world),
+                            rank=rank, world_size=world)
+    try:
+        buf, delta, cnt = (torch.from_numpy(a) for a in _lossy_data(rank))
+        synced = sharded.sync_states_in_jit(
+            {"buf": buf, "cm": delta, "cnt": cnt}, None,
+            {"buf": MergeKind.EXTEND, "cm": MergeKind.SUM, "cnt": MergeKind.SUM},
+            extend_valid={"buf": LOSSY_N}, compression=rung, shard_specs={"cm": ShardSpec(0)})
+        step = sharded.donated_sync_step(lambda d: {"cm": d}, None, {"cm": MergeKind.SUM},
+                                         compression=rung, shard_specs={"cm": ShardSpec(0)})
+        carry = {"cm": torch.zeros((LOSSY_ROWS // world, 8))}
+        carry = step(carry, delta)
+        torch.save({"synced": synced, "carry": carry["cm"]},
+                   os.path.join(out_dir, f"lossy-{rung}-{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _jax_lossy(world, rung):
+    """The JAX package's rungs on the virtual CPU mesh: the same per-rank
+    data through ``sync_states_in_jit`` under ``shard_map``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as JP
+
+    try:
+        from jax import shard_map
+    except ImportError:
+        from jax.experimental.shard_map import shard_map
+    from torcheval_tpu.metrics.metric import MergeKind as JK
+    from torcheval_tpu.metrics.sharded import sync_states_in_jit as jsync
+    from torcheval_tpu.metrics.shardspec import ShardSpec as JSpec
+
+    data = [_lossy_data(r) for r in range(world)]
+    bufs = jnp.asarray(np.concatenate([d[0] for d in data]))
+    deltas = jnp.asarray(np.concatenate([d[1] for d in data]))
+    cnts = jnp.asarray(np.concatenate([d[2] for d in data]))
+
+    def f(b, c, n):
+        return jsync({"buf": b, "cm": c, "cnt": n}, "dp",
+                     {"buf": JK.EXTEND, "cm": JK.SUM, "cnt": JK.SUM},
+                     extend_valid={"buf": LOSSY_N}, compression=rung,
+                     shard_specs={"cm": JSpec(0)})
+
+    mesh = Mesh(np.array(jax.devices("cpu")[:world]), ("dp",))
+    kw = {"check_vma": False}
+    try:
+        fn = shard_map(f, mesh=mesh, in_specs=(JP("dp"),) * 3,
+                       out_specs={"buf": JP(), "cm": JP("dp"), "cnt": JP()}, **kw)
+    except TypeError:
+        fn = shard_map(f, mesh=mesh, in_specs=(JP("dp"),) * 3,
+                       out_specs={"buf": JP(), "cm": JP("dp"), "cnt": JP()}, check_rep=False)
+    out = jax.jit(fn)(bufs, deltas, cnts)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("rung", ["bf16", "int8"])
+def test_lossy_rungs_match_the_jax_rungs(rung, tmp_path):
+    """gloo world 2 against the JAX package's rung on a 2-device virtual
+    mesh: the quantized EXTEND gather, the owner-partitioned sum and the
+    donated carry bitwise; the integer counter exact; each float result
+    within its codec bound of the exact sync."""
+    from torcheval_tpu_torch import wire
+
+    world = 2
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(chip_smoke._spawn_ranks, _lossy_rank, world,
+                              (str(tmp_path), rung), 180)
+        want = _jax_lossy(world, rung)
+        spawned.result()
+    data = [_lossy_data(r) for r in range(world)]
+    keep = 1 << (LOSSY_N - 1).bit_length()
+    exact_buf = np.concatenate([d[0][:keep] for d in data])
+    exact_cm = sum(d[1].astype(np.float64) for d in data)
+    rows = LOSSY_ROWS // world
+    for r in range(world):
+        got = torch.load(tmp_path / f"lossy-{rung}-{r}.pt", weights_only=False)
+        s = got["synced"]
+        assert s["buf"].numpy().tobytes() == want["buf"].tobytes()
+        own = want["cm"][r * rows:(r + 1) * rows]
+        assert s["cm"].numpy().tobytes() == own.tobytes()
+        assert got["carry"].numpy().tobytes() == own.tobytes()
+        assert s["cnt"].numpy().tobytes() == want["cnt"].tobytes()
+        assert s["cnt"].numpy().tobytes() == sum(d[2] for d in data).tobytes()
+        finite = np.isfinite(exact_buf)
+        err_buf = np.abs(s["buf"].numpy()[finite].astype(np.float64) - exact_buf[finite]).max()
+        err_cm = np.abs(s["cm"].numpy() - exact_cm[r * rows:(r + 1) * rows]).max()
+        if rung == "int8":
+            assert err_buf <= max(wire.int8_error_bound(d[0][:keep][np.isfinite(d[0][:keep])], 32)
+                                  for d in data)
+            blocks = [d[1].reshape(world, -1)[r] for d in data]
+            assert err_cm <= sum(wire.int8_error_bound(b, 32) for b in blocks) + 1e-6
+        else:
+            assert err_buf <= np.abs(exact_buf[finite]).max() * 2.0**-8
+            assert err_cm <= np.abs(exact_cm).max() * 2.0**-7

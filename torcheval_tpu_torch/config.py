@@ -40,6 +40,16 @@ Metric tables (``torcheval_tpu_torch.table``): ``tenant_staleness_epochs``,
 the default per-tenant staleness budget; env
 ``TORCHEVAL_TPU_TENANT_STALENESS``.
 
+The wire ladder (``torcheval_tpu_torch.wire``): ``wire_ladder`` (env
+``TORCHEVAL_TPU_WIRE_LADDER``; legacy ``sync_compression``, env
+``TORCHEVAL_TPU_SYNC_COMPRESSION``), ``wire_rung_for``,
+``wire_block_size`` (env ``TORCHEVAL_TPU_WIRE_BLOCK``, default 32), with
+setters and ``wire_ladder_mode``/``sync_compression_mode``. Federation
+and failover: ``federation_staleness_epochs`` (env
+``TORCHEVAL_TPU_FEDERATION_STALENESS``, default 4) and
+``failover_detect_after`` (env ``TORCHEVAL_TPU_FAILOVER_DETECT_AFTER``,
+default 2).
+
 Observability (``torcheval_tpu_torch.obs``): ``observability(...)``
 scopes the event recorder, its JSONL writer and Chrome trace, the stall
 watchdog, the health server and the SLO monitor; ``observability_enabled``
@@ -503,6 +513,214 @@ def set_tenant_staleness_epochs(epochs: int) -> None:
     if int(epochs) < 0:
         raise ValueError(f"tenant staleness budget must be >= 0 (0 disables), got {epochs}")
     _tenant_staleness = int(epochs)
+
+
+# ------------------------------------------------------ rank-loss failover
+
+_FAILOVER_DETECT_AFTER_DEFAULT = 2
+_failover_detect_after: int = _env_int(
+    "TORCHEVAL_TPU_FAILOVER_DETECT_AFTER", _FAILOVER_DETECT_AFTER_DEFAULT, minimum=1
+)
+
+
+def failover_detect_after() -> int:
+    """Consecutive missing-rank syncs before ``failover.FailureDomain``
+    confirms a rank loss (default 2: one missed sync is routinely a
+    transient; a tripped stall watchdog alongside a missing streak
+    escalates at once). Env ``TORCHEVAL_TPU_FAILOVER_DETECT_AFTER``."""
+    return _failover_detect_after
+
+
+def set_failover_detect_after(syncs: int) -> None:
+    global _failover_detect_after
+    if int(syncs) < 1:
+        raise ValueError(f"failover_detect_after must be >= 1 sync, got {syncs}")
+    _failover_detect_after = int(syncs)
+
+
+# -------------------------------------------------- cross-region federation
+
+_FEDERATION_STALENESS_DEFAULT = 4
+_federation_staleness: int = _env_int(
+    "TORCHEVAL_TPU_FEDERATION_STALENESS", _FEDERATION_STALENESS_DEFAULT, minimum=1
+)
+
+
+def federation_staleness_epochs() -> int:
+    """Default staleness bound (exchange rounds) of
+    ``federation.Federation``: a remote region whose snapshot has not
+    merged for more than this many rounds is declared dark (the federated
+    read degrades to the surviving regions), and unless the federation
+    overrides ``staleness_503`` the ``/healthz`` probe reports
+    ``stale-region`` past the same bound. Env
+    ``TORCHEVAL_TPU_FEDERATION_STALENESS``."""
+    return _federation_staleness
+
+
+def set_federation_staleness_epochs(rounds: int) -> None:
+    global _federation_staleness
+    if int(rounds) < 1:
+        raise ValueError(f"federation staleness bound must be >= 1 round, got {rounds}")
+    _federation_staleness = int(rounds)
+
+
+# -------------------------------------------------- quantized wire ladder
+
+# least -> most lossy, as ``wire.RUNGS``; "off" is the legacy
+# sync_compression spelling of the exact rung
+_WIRE_RUNGS = ("exact", "bf16", "int8")
+_LEGACY_RUNGS = {"off": "exact", "bf16": "bf16", "int8": "int8"}
+
+_WIRE_BLOCK_DEFAULT = 32
+_wire_block: int = _env_int("TORCHEVAL_TPU_WIRE_BLOCK", _WIRE_BLOCK_DEFAULT, minimum=2)
+
+
+def _coerce_rung(rung: str) -> str:
+    rung = str(rung).strip().lower()
+    rung = _LEGACY_RUNGS.get(rung, rung)
+    if rung not in _WIRE_RUNGS:
+        raise ValueError(
+            f"wire rung must be one of {_WIRE_RUNGS} (or legacy 'off'), got {rung!r}"
+        )
+    return rung
+
+
+def _parse_wire_ladder(raw: str) -> "dict[str, str]":
+    """``"int8"`` (the default rung) or ``"*=bf16,MulticlassAUROC=int8"``
+    (per-family overrides; families are metric class names)."""
+    raw = raw.strip()
+    if "=" not in raw:
+        return {"*": _coerce_rung(raw)}
+    policy: "dict[str, str]" = {}
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        family, _, rung = part.partition("=")
+        policy[family.strip()] = _coerce_rung(rung)
+    policy.setdefault("*", "exact")
+    return policy
+
+
+def _env_wire_ladder() -> "dict[str, str]":
+    # the legacy env still sets the default-family rung
+    legacy = _env_choice("TORCHEVAL_TPU_SYNC_COMPRESSION", "off", ("off", "bf16", "int8"))
+    default = {"*": _LEGACY_RUNGS[legacy]}
+    raw = os.environ.get("TORCHEVAL_TPU_WIRE_LADDER", "").strip()
+    if not raw:
+        return default
+    try:
+        return _parse_wire_ladder(raw)
+    except ValueError:
+        _env_invalid(
+            "TORCHEVAL_TPU_WIRE_LADDER", raw, f"rungs must be one of {_WIRE_RUNGS}", default
+        )
+        return default
+
+
+_wire_ladder: "dict[str, str]" = _env_wire_ladder()
+
+
+def wire_ladder() -> "dict[str, str]":
+    """The configured per-family wire ladder, ``{"*": default_rung,
+    family: rung, ...}`` with rungs from ``exact | bf16 | int8`` (least
+    to most lossy; ``torcheval_tpu_torch.wire``). Families are metric
+    class names. The rung a family actually rides is this, capped by any
+    drift-budget fallback: ``wire.effective_rung(family)``. Env
+    ``TORCHEVAL_TPU_WIRE_LADDER`` (``"int8"`` or
+    ``"*=bf16,MulticlassAUROC=int8"``); the legacy
+    ``TORCHEVAL_TPU_SYNC_COMPRESSION`` still sets the default rung. The
+    eager and federation syncs read it a call; the in-step sync
+    (``metrics.sharded``) reads it when built, so pass ``compression=``
+    there explicitly."""
+    return dict(_wire_ladder)
+
+
+def wire_rung_for(family: str) -> str:
+    """``family``'s configured rung (its entry, else the ``"*"`` default),
+    without the fallback caps (``wire.effective_rung`` applies those)."""
+    return _wire_ladder.get(family, _wire_ladder.get("*", "exact"))
+
+
+def set_wire_ladder(policy) -> None:
+    """Set the ladder: one rung name (``"int8"``, every family), a
+    ``family=rung`` spec string, or a mapping ``{family: rung}`` (a
+    missing ``"*"`` defaults to ``exact``)."""
+    global _wire_ladder
+    if isinstance(policy, str):
+        _wire_ladder = _parse_wire_ladder(policy)
+        return
+    parsed = {str(k): _coerce_rung(v) for k, v in dict(policy).items()}
+    parsed.setdefault("*", "exact")
+    _wire_ladder = parsed
+
+
+@contextmanager
+def wire_ladder_mode(policy) -> Iterator[None]:
+    """Scope the wire-ladder policy::
+
+        with wire_ladder_mode("int8"):
+            value = sync_and_compute(metric)   # ~3.6x fewer float bytes
+    """
+    global _wire_ladder
+    prev = _wire_ladder
+    set_wire_ladder(policy)
+    try:
+        yield
+    finally:
+        _wire_ladder = prev
+
+
+def wire_block_size() -> int:
+    """The int8 rung's quantization block: elements sharing one float32
+    scale (default 32: ``size * (1 + 4/block)`` wire bytes against
+    ``4 * size`` exact, with max error ``amax(block) / 254``). Env
+    ``TORCHEVAL_TPU_WIRE_BLOCK``."""
+    return _wire_block
+
+
+def set_wire_block_size(block: int) -> None:
+    global _wire_block
+    if int(block) < 2:
+        raise ValueError(f"wire block size must be >= 2, got {block}")
+    _wire_block = int(block)
+
+
+# the legacy single-policy view of the ladder: the compression policy is
+# the ladder's default-family rung
+_COMPRESSION_POLICIES = ("off", "bf16", "int8")
+
+
+def sync_compression() -> str:
+    """The ladder's default-family rung, ``"off"`` for ``exact`` (the
+    pre-ladder single-policy API; prefer :func:`wire_ladder`)."""
+    rung = _wire_ladder.get("*", "exact")
+    return "off" if rung == "exact" else rung
+
+
+def set_sync_compression(policy: str) -> None:
+    """Set the ladder's ``"*"`` default rung, keeping per-family
+    overrides."""
+    global _wire_ladder
+    if policy not in _COMPRESSION_POLICIES:
+        raise ValueError(
+            f"sync_compression must be one of {_COMPRESSION_POLICIES}, got {policy!r}"
+        )
+    ladder = dict(_wire_ladder)
+    ladder["*"] = _LEGACY_RUNGS[policy]
+    _wire_ladder = ladder
+
+
+@contextmanager
+def sync_compression_mode(policy: str = "bf16") -> Iterator[None]:
+    """Scope the legacy default-rung policy."""
+    global _wire_ladder
+    prev = _wire_ladder
+    set_sync_compression(policy)
+    try:
+        yield
+    finally:
+        _wire_ladder = prev
 
 
 # ---------------------------------------------------------- observability

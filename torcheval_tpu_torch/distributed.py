@@ -11,6 +11,14 @@ supports ``new_subgroup``. Every group also speaks the participation
 protocol of the resilience layer: ``unwrap()`` and the
 ``allgather_*_with_ranks`` gathers.
 
+``coordination_client()`` is the job's ``torch.distributed`` store (the
+one ``launcher.init_from_env`` rendezvoused through). Subgroups built
+inside ``members_only()`` are ``KVSubgroup`` objects: their gathers ride that
+store, so only their members construct them and no other process takes
+part. That is how the survivors of a rank loss form their group without
+the dead (``failover.FailureDomain``, ``Federation.reform``):
+``torch.distributed.new_group`` would wait for every process of the job.
+
 With the flight recorder on (``obs.flight``), every gather a
 ``MultiHostGroup`` issues leaves one record on the calling thread's ring
 (one attribute read when off). A subgroup's gathers record the same op
@@ -27,8 +35,11 @@ nothing here switches it.
 
 from __future__ import annotations
 
+import contextlib
 import pickle
-from typing import Any, List, Optional, Sequence, Tuple
+import threading
+from datetime import timedelta
+from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +87,44 @@ def _as_numpy(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return tensor_to_numpy(x)
     return np.asarray(x)
+
+
+def coordination_client():
+    """The ``torch.distributed`` store the job rendezvoused through (the
+    default group's, as ``init_process_group`` and
+    ``launcher.init_from_env`` made it): the key-value transport behind
+    :class:`KVSubgroup` gathers and the federation's inter-region
+    mailboxes (``federation.KVLinkTransport``), with ``set``, ``get``,
+    ``check``, ``wait`` and ``delete_key``. Raises when
+    ``torch.distributed`` was never initialized."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "torch.distributed is not initialized "
+            "(torch.distributed.init_process_group / "
+            "torcheval_tpu_torch.launcher.init_from_env): KVSubgroup "
+            "collectives and KV link transports need its store"
+        )
+    return dist.distributed_c10d._get_default_store()
+
+
+# set by members_only(): MultiHostGroup.new_subgroup then builds a
+# KVSubgroup that only its members construct
+_MEMBERS_ONLY = threading.local()
+
+
+@contextlib.contextmanager
+def members_only() -> Iterator[None]:
+    """Within this scope, ``MultiHostGroup.new_subgroup`` (also behind
+    wrappers such as ``ResilientGroup``) returns a :class:`KVSubgroup`:
+    only its members construct it, in the same order, and nothing waits
+    for a process outside it. Groups whose subgroups already need only
+    their members (``ThreadWorld`` views) are unaffected."""
+    prev = getattr(_MEMBERS_ONLY, "on", False)
+    _MEMBERS_ONLY.on = True
+    try:
+        yield
+    finally:
+        _MEMBERS_ONLY.on = prev
 
 
 class ProcessGroup:
@@ -261,6 +310,8 @@ class MultiHostGroup(ProcessGroup):
         ``is_member == False``."""
         rel = _check_subgroup_ranks(ranks, self.world_size)
         members = [self._ranks[r] for r in rel]
+        if getattr(_MEMBERS_ONLY, "on", False):
+            return KVSubgroup(members)
         return MultiHostSubgroup(dist.new_group(ranks=members), members)
 
     def _byte_device(self) -> torch.device:
@@ -315,6 +366,95 @@ class MultiHostSubgroup(MultiHostGroup):
 
     def __init__(self, group, ranks: Sequence[int]) -> None:
         super().__init__(group, ranks)
+
+
+# per-member-tuple construction counter: it namespaces the keys of two
+# KVSubgroups over the same ranks, and agrees across the members as long as
+# they construct their subgroups in the same order
+_KV_SEQ: dict = {}  # tev: guarded-by=_KV_SEQ_LOCK
+_KV_SEQ_LOCK = threading.Lock()
+
+
+class KVSubgroup(ProcessGroup):
+    """A subset of the job's processes whose gathers ride the
+    ``torch.distributed`` store (``coordination_client()``), as the JAX
+    package's multi-host subgroups ride its coordination service.
+
+    Only members construct one (``members_only()``), in the same order, so
+    survivors can form a group while a dead process takes no part. Each
+    gather is one key a member (``torcheval_sync/<tag>/<seq>/<rank>``)
+    read by its peers, bounded by ``timeout``; a member starting gather
+    ``n`` deletes its key of gather ``n - 2``, which no peer still reads
+    (the last two gathers' keys stay in the store).
+    Latency is a store round trip a member: right for occasional syncs of
+    host-side payloads, wrong for a step's hot loop."""
+
+    def __init__(self, ranks: Sequence[int], *, timeout: float = 600.0) -> None:
+        self._ranks = tuple(int(r) for r in ranks)
+        me = dist.get_rank()
+        self._index = self._ranks.index(me) if me in self._ranks else None
+        self.timeout = float(timeout)
+        with _KV_SEQ_LOCK:
+            seq = _KV_SEQ.get(self._ranks, 0) + 1
+            _KV_SEQ[self._ranks] = seq
+        self._tag = "-".join(map(str, self._ranks)) + f"/{seq}"
+        self._seq = 0
+
+    @property
+    def world_size(self) -> int:
+        return len(self._ranks)
+
+    @property
+    def rank(self) -> int:
+        return -1 if self._index is None else self._index
+
+    @property
+    def is_member(self) -> bool:
+        return self._index is not None
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        return self._ranks
+
+    def new_subgroup(self, ranks: Sequence[int]) -> "KVSubgroup":
+        rel = _check_subgroup_ranks(ranks, len(self._ranks))
+        return KVSubgroup([self._ranks[r] for r in rel], timeout=self.timeout)
+
+    def _kv_allgather(self, payload: bytes) -> List[bytes]:
+        if self._index is None:
+            raise RuntimeError(
+                f"process {dist.get_rank()} is not a member of subgroup "
+                f"{self._ranks}; non-members must not issue its collectives"
+            )
+        if _FLIGHT.enabled:
+            return _flight.guarded_collective(
+                "kv_allgather", len(payload), self._index, len(self._ranks),
+                lambda: self._kv_allgather_impl(payload),
+            )
+        return self._kv_allgather_impl(payload)
+
+    def _kv_allgather_impl(self, payload: bytes) -> List[bytes]:
+        store = coordination_client()
+        seq = self._seq
+        self._seq += 1
+        prefix = f"torcheval_sync/{self._tag}"
+        me = self._ranks[self._index]
+        store.set(f"{prefix}/{seq}/{me}", bytes(payload))
+        keys = [f"{prefix}/{seq}/{r}" for r in self._ranks]
+        store.wait(keys, timedelta(seconds=self.timeout))
+        out = [bytes(store.get(k)) for k in keys]
+        if seq >= 2:
+            store.delete_key(f"{prefix}/{seq - 2}/{me}")
+        return out
+
+    def allgather_object(self, obj: Any) -> List[Any]:
+        return [pickle.loads(b) for b in self._kv_allgather(pickle.dumps(obj))]
+
+    def allgather_array(self, x: Any) -> List[np.ndarray]:
+        return [
+            np.asarray(a)
+            for a in self.allgather_object(np.ascontiguousarray(_as_numpy(x)))
+        ]
 
 
 class HierarchicalGroup(ProcessGroup):

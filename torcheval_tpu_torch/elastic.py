@@ -59,12 +59,17 @@ one ``torcheval.snapshot`` span and a ``SnapshotEvent``, a restore a
 Sharded metrics (``Metric(shard=...)``) restore at a new world size by
 merging every old shard and re-slicing (``_restore_metrics``).
 
-Left for later slices: the ``plane=`` and ``federation=`` riders, which
-raise ``NotImplementedError`` unless ``None``.
+Riders: ``federation=`` puts the federation's epoch ledger
+(``Federation.ledger_payload``, numpy and bytes) in each shard's
+``"federation"`` slot, taken on the caller thread, and a same-world
+restore loads it back; ``plane=`` takes each snapshot under the sync
+plane's ``quiesce()`` (no round in flight) and a restore invalidates the
+plane's snapshots.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -403,9 +408,18 @@ class ElasticSession:
             ``hook(point, generation=..., rank=...)`` called at each of
             :data:`CRASH_POINTS` (see
             ``utils.test_utils.SnapshotCrashPlan``).
-        federation, plane: the JAX package's federation ledger and sync
-            plane riders; not ported yet, so anything but ``None`` raises
-            ``NotImplementedError``.
+        federation: a ``federation.Federation`` whose inter-region epoch
+            ledger (merged remote snapshots, acked epochs, the snapshot
+            history deltas diff against) rides every bundle. A same-world
+            restore loads it back, so a crash mid-exchange neither
+            double-counts a re-delivered epoch nor drops a delta; a
+            world-size-change restore starts a fresh ledger with a
+            warning (anti-entropy re-converges it).
+        plane: a ``syncplane.SyncPlane`` over the same live metrics. A
+            snapshot is taken under its ``quiesce()`` (no round in
+            flight), and a restore calls its ``invalidate()``: the
+            restored state replaces whatever any published or merged
+            snapshot describes.
 
     Examples::
 
@@ -434,12 +448,6 @@ class ElasticSession:
     ) -> None:
         from torcheval_tpu_torch import config
 
-        if federation is not None or plane is not None:
-            raise NotImplementedError(
-                "ElasticSession(federation=..., plane=...) needs the "
-                "federation and sync plane, which this package does not "
-                "have yet; pass None"
-            )
         if isinstance(metrics, Metric):
             metrics = {"_metric": metrics}
         if not metrics or not all(isinstance(m, Metric) for m in metrics.values()):
@@ -469,6 +477,8 @@ class ElasticSession:
         if self.retention < 1:
             raise ValueError(f"retention must be >= 1, got {retention}")
         self._fault_hook = fault_hook
+        self._federation = federation
+        self._plane = plane
         os.makedirs(self.directory, exist_ok=True)
         self._cursor = 0  # completed steps covered by current state
         self._since_snapshot = 0
@@ -577,13 +587,24 @@ class ElasticSession:
         self._next_gen += 1
         self._since_snapshot = 0
         # clones on the caller's stream; the async writer copies them to
-        # the host after the event (module docstring)
-        states = {name: m.state_dict() for name, m in self.metrics.items()}
+        # the host after the event (module docstring). The federation
+        # ledger is taken here too, on the caller thread, and with a sync
+        # plane no round is in flight while the bundle's view is taken
+        quiesce = self._plane.quiesce() if self._plane is not None else contextlib.nullcontext()
+        with quiesce:
+            states = {name: m.state_dict() for name, m in self.metrics.items()}
+            fed_payload = (
+                self._federation.ledger_payload() if self._federation is not None else None
+            )
         if self._writer is not None:
             event = _capture_event(states)
-            self._writer.submit((generation, states, self._cursor, self._payload, event))
+            self._writer.submit(
+                (generation, states, self._cursor, self._payload, event, fed_payload)
+            )
         else:
-            self._write_bundle(generation, states, self._cursor, self._payload)
+            self._write_bundle(
+                generation, states, self._cursor, self._payload, fed_payload=fed_payload
+            )
         return generation
 
     def drain(self) -> None:
@@ -645,6 +666,7 @@ class ElasticSession:
         cursor: int,
         payload: Any,
         event: Optional["torch.cuda.Event"] = None,
+        fed_payload: Optional[Dict[str, Any]] = None,
     ) -> int:
         """Two-phase commit of one generation (see module docstring);
         returns this rank's shard size in bytes.
@@ -659,7 +681,7 @@ class ElasticSession:
         # recorder off = no frame, nothing to pay
         with _obs_trace.scope_or_null("torcheval.snapshot", _OBS.enabled) as snap_frame:
             shard_bytes = self._write_bundle_body(
-                generation, metric_states, cursor, payload, event
+                generation, metric_states, cursor, payload, event, fed_payload
             )
         seconds = time.monotonic() - write_t0
         # registry tallies accumulate whether or not event recording is on
@@ -689,6 +711,7 @@ class ElasticSession:
         cursor: int,
         payload: Any,
         event: Optional["torch.cuda.Event"],
+        fed_payload: Optional[Dict[str, Any]],
     ) -> int:
         group = self._comm
         rank, world = group.rank, group.world_size
@@ -705,9 +728,9 @@ class ElasticSession:
             "step": int(cursor),
             "metrics": plain,
             "payload": payload,
-            # the JAX package's federation ledger slot, kept so the shard
-            # layout is the same in both packages
-            "federation": None,
+            # the federation's epoch ledger (None without a federation),
+            # in the JAX package's slot and numpy form
+            "federation": fed_payload,
         }
         blob = pickle.dumps(tree, protocol=pickle.HIGHEST_PROTOCOL)
         # phase 1: the shard file, written in place (torn writes allowed:
@@ -893,6 +916,25 @@ class ElasticSession:
             old_world = int(manifest["world_size"])
             assigned = _assign_shards(old_world, world)[rank]
             self._restore_metrics(shards, assigned, gen_dir)
+            if self._federation is not None:
+                if old_world == world:
+                    # same world: this rank's own old shard carries its
+                    # ledger (replacement by epoch makes any staleness
+                    # safe: re-deliveries are discarded, un-acked deltas
+                    # re-derive from the cumulative snapshot)
+                    self._federation.load_ledger(shards[rank].get("federation"))
+                else:
+                    warnings.warn(
+                        "world size changed across restore "
+                        f"({old_world} -> {world}); starting a fresh "
+                        "federation ledger (anti-entropy re-converges it "
+                        "via full snapshots)",
+                        RuntimeWarning,
+                    )
+            if self._plane is not None:
+                # the restored state replaces what every published and
+                # merged plane snapshot describes
+                self._plane.invalidate()
             self._cursor = int(manifest["step"])
             self._since_snapshot = 0
             # pin the numbering by CONSENSUS: every rank walked the same
@@ -966,9 +1008,11 @@ class ElasticSession:
         once. At an unchanged world size each shard
         loads as it is.
 
-        ``load_state_dict`` replaces the state tensors, so the CUDA graphs
-        that wrote the old ones (``metrics/_fuse.py``) are dropped with
-        them and a bucketed update after the restore captures anew."""
+        Under donation ``reset`` and ``load_state_dict`` write a state of
+        unchanged dtype and shape into the live tensor, so the CUDA graphs
+        that write it (``metrics/_fuse.py``) survive the restore; a state
+        whose shape changed (a buffer's capacity) is replaced, and the
+        graphs writing the old tensor are dropped with it."""
         from torcheval_tpu_torch.metrics.toolkit import _restore_state_types, clone_metric
 
         world_changed = len(shards) != self._group.world_size

@@ -268,6 +268,13 @@ class Metric(Generic[TComputeReturn], ABC):
     # input sketches' moments here.
     _custom_mergeable_states: frozenset = frozenset()
 
+    # Bumped by ``reset()`` and ``load_state_dict``: a sync plane
+    # (``syncplane.SyncPlane``) discards a snapshot published at an older
+    # epoch, so a read after a reset never serves pre-reset merged values.
+    # Updates never touch it. A class-level default, so pickles and clones
+    # that predate the field read 0.
+    _state_epoch: int = 0
+
     # ------------------------------------------------------------------ state
 
     @property
@@ -778,6 +785,8 @@ class Metric(Generic[TComputeReturn], ABC):
         # step an update stamped, describe the state this reset discarded
         self.__dict__.pop("sync_provenance", None)
         self.__dict__.pop("obs_step", None)
+        # ... and any published snapshot of it is stale now
+        self._state_epoch = self._state_epoch + 1
         return self
 
     # ---------------------------------------------------------- serialization
@@ -794,20 +803,32 @@ class Metric(Generic[TComputeReturn], ABC):
         subclass trims it (buffered metrics send their valid prefix, not
         their capacity). A routed sharded metric ships each outbox cut to
         the power of two covering its entries, so its wire is the shard
-        plus O(entries), never the capacity nor the logical state.
+        plus O(entries), never the capacity nor the logical state. Each
+        state is cut before it is copied, and the cuts read the outboxes'
+        host counters, so nothing here waits on the card.
         Checkpoints keep using ``state_dict()``."""
-        sd = self.state_dict()
+        keep: Dict[str, int] = {}
         for names in self._routed_states.values():
             cnt = int(getattr(self, names.obh, 0))
-            keep = 1 << (cnt - 1).bit_length() if cnt > 0 else 0
+            n = 1 << (cnt - 1).bit_length() if cnt > 0 else 0
             for key in (names.obi, names.obv) if names.is_value_lane else (names.obi,):
-                if sd[key].shape[0] > keep:
-                    sd[key] = sd[key][:keep]
+                keep[key] = n
             if names.is_value_lane:
                 nb = int(getattr(self, names.obbh, 0))
-                bkeep = 1 << (nb - 1).bit_length() if nb > 0 else 0
-                if sd[names.obb].shape[0] > bkeep:
-                    sd[names.obb] = sd[names.obb][:bkeep]
+                keep[names.obb] = 1 << (nb - 1).bit_length() if nb > 0 else 0
+        if type(self).state_dict is not Metric.state_dict:
+            # a subclass adds to its snapshot: cut the copies it makes
+            sd = self.state_dict()
+            for name, n in keep.items():
+                if sd[name].shape[0] > n:
+                    sd[name] = sd[name][:n]
+            return sd
+        sd = {}
+        for name in self._state_name_to_default:
+            value = getattr(self, name)
+            if name in keep and value.shape[0] > keep[name]:
+                value = value[: keep[name]]
+            sd[name] = _clone_state(value)
         return sd
 
     def load_state_dict(
@@ -829,14 +850,29 @@ class Metric(Generic[TComputeReturn], ABC):
                 f"missing keys: {sorted(registered - provided)}, "
                 f"unexpected keys: {sorted(provided - registered)}."
             )
+        donate = self._donation_active()
         for name in registered & provided:
             value = state_dict[name]
             self._check_state_variable_type(name, value)
-            setattr(self, name, self._place_state(_clone_state(value)))
+            live = getattr(self, name, None)
+            if (
+                donate
+                and isinstance(live, torch.Tensor)
+                and isinstance(value, torch.Tensor)
+                and live.dtype == value.dtype
+                and live.shape == value.shape
+                and live.device == self._device
+            ):
+                # as reset() does: the live tensor, and the CUDA graphs
+                # that write it, outlive the load
+                live.copy_(value, non_blocking=True)
+            else:
+                setattr(self, name, self._place_state(_clone_state(value)))
         # restored state replaces whatever a prior sync produced; the sync
         # path stamps its own provenance afterwards
         self.__dict__.pop("sync_provenance", None)
         self.__dict__.pop("obs_step", None)
+        self._state_epoch = self._state_epoch + 1
 
     # ---------------------------------------------------------------- devices
 

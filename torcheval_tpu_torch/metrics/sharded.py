@@ -23,10 +23,16 @@ the CPU, NCCL on the card):
 (its communicator), or ``None`` for the default group. On the card a
 collective that fails raises; nothing moves to the CPU.
 
-The lossy wire rungs (``compression="bf16"``/``"int8"``, the JAX
-package's ``_quantized_gather``/``_quantized_reduce_scatter``) need the
-wire ladder, which is not ported (ROADMAP A8): they raise
-``NotImplementedError``.
+The lossy wire rungs (``compression="bf16"``/``"int8"``) narrow EXTEND
+gathers and owner-partitioned reduce-scatters of float payloads over 1
+KiB, as the JAX package's do. ``bf16`` casts the payload across the
+collective and back. ``int8`` quantizes blockwise on the device
+(``wire.quantize_blockwise_jit``) and bit-packs codes and scales into one
+uint8 tensor: ``_quantized_gather`` is one uint8 ``all_gather_into_tensor``
+in place of the float one, and ``_quantized_reduce_scatter`` packs one
+block an owner, exchanges them in one ``all_to_all_single`` and sums the
+dequantized blocks it receives. No collective is added; integer payloads
+and the SUM/MAX/MIN all-reduces stay exact.
 
 Typical use::
 
@@ -46,6 +52,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from torcheval_tpu_torch import wire as wirelib
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric
 from torcheval_tpu_torch.metrics.shardspec import ShardSpec
 
@@ -87,16 +94,77 @@ def _torch_group(group):
     return group
 
 
-def _check_compression(compression: Optional[str]) -> None:
-    if compression in (None, "off", "exact"):
-        return
-    if compression in ("bf16", "int8"):
-        raise NotImplementedError(
-            f"compression={compression!r} needs the quantized wire ladder "
-            "(torcheval_tpu's wire.py), which is not ported yet (ROADMAP A8); "
-            "use the exact rung"
+def _check_compression(compression: Optional[str]) -> str:
+    """The rung named by ``compression`` (``None``: the configured
+    default-family rung, read when the step is built or called)."""
+    from torcheval_tpu_torch import config
+
+    if compression is None:
+        compression = config.sync_compression()
+    if compression not in ("off", "exact", "bf16", "int8"):
+        raise ValueError(f"unknown compression rung {compression!r}")
+    return compression
+
+
+# the lossy rungs leave small payloads alone, as the eager wire does
+# (synclib._BF16_MIN_BYTES/_INT8_MIN_BYTES)
+_LOSSY_MIN_BYTES = 1024
+
+
+def _wants_lossy(value: torch.Tensor, compression: str) -> bool:
+    return (
+        compression in ("bf16", "int8")
+        and value.is_floating_point()
+        and value.dtype != torch.bfloat16
+        and value.numel() * value.element_size() > _LOSSY_MIN_BYTES
+    )
+
+
+def _quantized_gather(value: torch.Tensor, pg, world: int, block: int) -> torch.Tensor:
+    """EXTEND gather at the int8 rung: quantize the (already trimmed)
+    local buffer blockwise, bit-pack codes and scales into one uint8
+    tensor, gather that in one ``all_gather_into_tensor``, and unpack and
+    dequantize each rank's row. Returns ``(world,) + value.shape``."""
+    q, scales = wirelib.quantize_blockwise_jit(value, block)
+    wire = wirelib.pack_wire(q, scales)
+    gathered = torch.empty((world * wire.numel(),), dtype=torch.uint8, device=wire.device)
+    _deprecated_quietly(dist.all_gather_into_tensor, gathered, wire, group=pg)
+    rows = gathered.reshape(world, wire.numel())
+    nb = scales.numel()
+    deq = torch.stack([wirelib.unpack_wire(row, nb, block) for row in rows])
+    deq = deq[:, : value.numel()].to(value.dtype)
+    return deq.reshape((world,) + tuple(value.shape))
+
+
+def _quantized_reduce_scatter(
+    value: torch.Tensor, pg, world: int, spec_axis: int, block: int
+) -> torch.Tensor:
+    """Owner-partitioned SUM at the int8 rung: cut the full-size local
+    delta into one block an owner, quantize and bit-pack each, exchange
+    them in one ``all_to_all_single`` (in place of the reduce-scatter),
+    then dequantize the world's blocks for this owner and sum them in
+    float32, in rank order."""
+    delta = torch.movedim(value, spec_axis, 0)
+    if delta.shape[0] % world:
+        raise ValueError(
+            f"owner-partitioned state of size {delta.shape[0]} along axis "
+            f"{spec_axis} does not divide the world size {world}"
         )
-    raise ValueError(f"unknown compression rung {compression!r}")
+    rest = tuple(delta.shape[1:])
+    blocks = delta.reshape(world, -1)
+    packed = []
+    for b in blocks:
+        q, scales = wirelib.quantize_blockwise_jit(b, block)
+        packed.append(wirelib.pack_wire(q, scales))
+    nb = scales.numel()
+    wire = torch.stack(packed)
+    exchanged = torch.empty_like(wire)
+    dist.all_to_all_single(exchanged, wire, group=pg)
+    deq = torch.stack([wirelib.unpack_wire(row, nb, block) for row in exchanged])
+    deq = deq[:, : blocks.shape[1]]
+    owned = deq.sum(dim=0, dtype=torch.float32).to(value.dtype)
+    owned = owned.reshape((delta.shape[0] // world,) + rest)
+    return torch.movedim(owned, 0, spec_axis)
 
 
 def _deprecated_quietly(fn, *args, **kwargs):
@@ -127,7 +195,11 @@ def sync_states_in_jit(
         extend_valid: ``{name: bound}`` valid-count bounds of EXTEND
             buffers (covering every rank's count): each is cut to the
             power of two covering its bound before the gather.
-        compression: the exact rung only (``None``/``"off"``/``"exact"``).
+        compression: a wire rung (``"off"``/``"exact"`` | ``"bf16"`` |
+            ``"int8"``) for float EXTEND and owner-partitioned payloads
+            over 1 KiB (module docstring); ``None``: the configured
+            default-family rung (``config.sync_compression()``), exact
+            unless set.
         shard_specs: ``{name: ShardSpec}`` owner-partitioned SUM states:
             the local value is the full-size delta, and the result is
             this rank's ``size/world`` block of the global sum (one
@@ -135,7 +207,10 @@ def sync_states_in_jit(
 
     Returns new tensors; the inputs are not modified.
     """
-    _check_compression(compression)
+    from torcheval_tpu_torch import config
+
+    compression = _check_compression(compression)
+    block = config.wire_block_size()
     pg = _torch_group(group)
     world = dist.get_world_size(pg)
     synced: Dict[str, torch.Tensor] = {}
@@ -150,7 +225,11 @@ def sync_states_in_jit(
                     f"(got {kind}); MAX/MIN/EXTEND states have no "
                     "reduce-scatter lowering"
                 )
-            delta = torch.movedim(value, spec.axis, 0).contiguous()
+            if compression == "int8" and _wants_lossy(value, compression):
+                synced[name] = _quantized_reduce_scatter(value, pg, world, spec.axis, block)
+                continue
+            wire = value.to(torch.bfloat16) if _wants_lossy(value, compression) else value
+            delta = torch.movedim(wire, spec.axis, 0).contiguous()
             if delta.shape[0] % world:
                 raise ValueError(
                     f"owner-partitioned state of size {delta.shape[0]} along axis "
@@ -162,7 +241,7 @@ def sync_states_in_jit(
                 device=delta.device,
             )
             _deprecated_quietly(dist.reduce_scatter_tensor, owned, delta, group=pg)
-            synced[name] = torch.movedim(owned, 0, spec.axis)
+            synced[name] = torch.movedim(owned, 0, spec.axis).to(value.dtype)
         elif kind in _REDUCE_OPS:
             reduce_groups.setdefault((kind, value.dtype), []).append((name, value))
         elif kind is MergeKind.EXTEND:
@@ -170,13 +249,19 @@ def sync_states_in_jit(
             if bound is not None:
                 value = value[: min(_pow2_cover(bound), value.shape[0])]
             value = value.contiguous()
+            if compression == "int8" and _wants_lossy(value, compression):
+                # trim first (above), then quantize the trimmed payload
+                gathered = _quantized_gather(value, pg, world, block)
+                synced[name] = gathered.reshape((-1,) + tuple(value.shape[1:]))
+                continue
+            wire = value.to(torch.bfloat16) if _wants_lossy(value, compression) else value
             gathered = torch.empty(
-                (world * value.shape[0],) + tuple(value.shape[1:]),
-                dtype=value.dtype,
-                device=value.device,
+                (world * wire.shape[0],) + tuple(wire.shape[1:]),
+                dtype=wire.dtype,
+                device=wire.device,
             )
-            _deprecated_quietly(dist.all_gather_into_tensor, gathered, value, group=pg)
-            synced[name] = gathered
+            _deprecated_quietly(dist.all_gather_into_tensor, gathered, wire, group=pg)
+            synced[name] = gathered.to(value.dtype)
         else:
             raise NotImplementedError(
                 f"State {name!r} has merge kind {kind}; custom merges must "

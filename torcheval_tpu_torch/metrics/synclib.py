@@ -18,18 +18,31 @@ back a subset of ranks. ``sync_states`` intersects the participants of
 the two gathers (metadata and payload may lose different ranks), checks
 each surviving payload against the crc32 riding the metadata, enforces
 the quorum, and returns a :class:`SyncedStates` whose ``.ranks`` names
-exactly the ranks that contributed. None of it costs a collective. Only
-the exact wire rung exists here; the bf16/int8 rungs come later.
+exactly the ranks that contributed. None of it costs a collective.
+
+The lossy wire rungs (``torcheval_tpu_torch.wire``) ride the same
+protocol: each metric's float arrays of at least 1 KiB are encoded at the
+rung its family rides (``sync_states(families=...)`` resolves
+``wire.effective_rung`` per metric), as a dense bfloat16 cast
+(``("dense", "bfloat16")``), blockwise int8 (``("int8block", block,
+nblocks, nexc)``) or the zero-suppressed indices followed by int8 values
+(``("sparse8", nnz, block, nexc)``); integer arrays never quantize. The
+packed bytes and metadata are the JAX package's, so either package
+decodes the other's buffers. ``SyncedStates.wire_tiers`` names the rung
+each metric's payload actually rode, and :func:`canonical_crc` checks what
+a receiver merges (the bytes after dequantization) rather than what
+travelled.
 """
 
 from __future__ import annotations
 
 import zlib
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from torcheval_tpu_torch import wire as wirelib
 from torcheval_tpu_torch.distributed import LocalReplicaGroup, ProcessGroup
 from torcheval_tpu_torch.resilience import (
     SyncIntegrityError,
@@ -42,15 +55,38 @@ from torcheval_tpu_torch.utils.convert import bfloat16_numpy_dtype, tensor_to_nu
 MetricStates = Dict[str, Dict[str, Any]]
 
 # (kind, [(shape, dtype, enc), ...], extra): kind "tensor" | "list" | "dict"
-# | "obj"; enc None (raw bytes) or ("sparse", nnz, dtype); extra carries the
-# sorted dict keys, or the value itself for "obj"
+# | "obj"; extra carries the sorted dict keys, or the value itself for
+# "obj". enc is the wire encoding of one array:
+#   None                        raw bytes;
+#   ("dense", wire_dtype)       the bf16 rung's cast (lossy);
+#   ("sparse", nnz, wire_dtype) uint32 indices of the bit-nonzero elements
+#                               plus their values (lossless);
+#   ("int8block", block, nblocks, nexc)
+#                               int8 codes padded to whole blocks, a float32
+#                               scale a block, then the exact float32 values
+#                               of the nexc non-finite elements;
+#   ("sparse8", nnz, block, nexc)
+#                               the sparse indices, then the nnz values at
+#                               the int8 rung as above.
 _StateMeta = Tuple[str, List[Tuple[Tuple[int, ...], str, Any]], Any]
 
 # sparse pays for its nonzero scan only on payloads at least this large,
 # and only when it at least halves the bytes
 _SPARSE_MIN_BYTES = 4096
+# the lossy rungs leave small payloads (counters) alone
+_BF16_MIN_BYTES = 1024
+_INT8_MIN_BYTES = 1024
 
 _BIT_VIEWS = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+# enc tag -> the rung it rides (sparse is lossless: exact)
+_ENC_TIERS = {
+    None: "exact",
+    "sparse": "exact",
+    "dense": "bf16",
+    "int8block": "int8",
+    "sparse8": "int8",
+}
 
 
 class SyncedStates(List[MetricStates]):
@@ -64,13 +100,17 @@ class SyncedStates(List[MetricStates]):
     - ``degraded``: True when some rank did not contribute;
     - ``sent_bytes``/``recv_bytes``: the packed payload this rank shipped,
       and the surviving ranks' payloads combined (read off the metadata
-      the protocol already exchanged).
+      the protocol already exchanged);
+    - ``wire_tiers``: ``{metric: rung}``, the lossiest encoding any
+      surviving rank applied to the metric (``"exact"`` when every payload
+      stayed raw or sparse).
     """
 
     ranks: Tuple[int, ...] = ()
     world_size: int = 0
     sent_bytes: int = 0
     recv_bytes: int = 0
+    wire_tiers: Dict[str, str] = {}
 
     @property
     def degraded(self) -> bool:
@@ -93,47 +133,135 @@ def _as_numpy(x: Any) -> np.ndarray:
     return np.asarray(x)
 
 
-def _encode_array(a: np.ndarray):
-    """One array -> (meta entry, wire chunks) at the exact tier."""
-    shape = tuple(a.shape)
+def _encode_array(
+    a: np.ndarray, compression: str = "exact", block: int = 32
+) -> Tuple[Tuple[Tuple[int, ...], str, Any], List[np.ndarray]]:
+    """One array -> (meta entry, wire chunks) at the rung ``compression``
+    (``exact``/``off`` | ``bf16`` | ``int8``); integer arrays never
+    quantize. See ``_StateMeta``."""
+    shape = tuple(a.shape)  # before ascontiguousarray, which makes 0-d 1-d
     dtype = str(a.dtype)
-    flat = np.ascontiguousarray(a).reshape(-1)
+    is_float = a.dtype in (np.float32, np.float64)
+    if compression == "int8" and is_float and a.nbytes >= _INT8_MIN_BYTES:
+        flat = np.ascontiguousarray(a).reshape(-1)
+        bits = _BIT_VIEWS[flat.dtype.itemsize]
+        if flat.nbytes >= _SPARSE_MIN_BYTES and flat.size < 2**32:
+            idx = np.flatnonzero(flat.view(bits))
+            if idx.size * (4 + flat.dtype.itemsize) * 2 <= flat.nbytes:
+                # trim first (lossless), then quantize what is left unless
+                # int8 would not shrink it
+                vals = np.ascontiguousarray(flat[idx])
+                idx32 = idx.astype(np.uint32)
+                exc = wirelib.nonfinite_exceptions(vals)
+                if wirelib.int8_wire_bytes(idx.size, block) + 4 * exc.size < vals.nbytes:
+                    q, scales = wirelib.quantize_blockwise(vals, block)
+                    enc = ("sparse8", int(idx.size), int(block), int(exc.size))
+                    return (shape, dtype, enc), [
+                        idx32.view(np.uint8),
+                        q.view(np.uint8),
+                        scales.view(np.uint8),
+                        exc.view(np.uint8),
+                    ]
+                enc = ("sparse", int(idx.size), str(flat.dtype))
+                return (shape, dtype, enc), [idx32.view(np.uint8), vals.view(np.uint8)]
+        # non-finite elements (neutral fills, NaN) ride as -128 sentinels
+        # plus an exact side list; quantize only while that still wins
+        exc = wirelib.nonfinite_exceptions(flat)
+        if wirelib.int8_wire_bytes(flat.size, block) + 4 * exc.size < flat.nbytes:
+            q, scales = wirelib.quantize_blockwise(flat, block)
+            enc = ("int8block", int(block), int(scales.size), int(exc.size))
+            return (shape, dtype, enc), [
+                q.view(np.uint8),
+                scales.view(np.uint8),
+                exc.view(np.uint8),
+            ]
+    wire = a
+    if compression == "bf16" and is_float and a.nbytes >= _BF16_MIN_BYTES:
+        wire = a.astype(bfloat16_numpy_dtype())
+    flat = np.ascontiguousarray(wire).reshape(-1)
     bits = _BIT_VIEWS.get(flat.dtype.itemsize)
     if bits is not None and flat.nbytes >= _SPARSE_MIN_BYTES and flat.size < 2**32:
         idx = np.flatnonzero(flat.view(bits))
         if idx.size * (4 + flat.dtype.itemsize) * 2 <= flat.nbytes:
-            return (shape, dtype, ("sparse", int(idx.size), dtype)), [
+            enc = ("sparse", int(idx.size), str(flat.dtype))
+            return (shape, dtype, enc), [
                 idx.astype(np.uint32).view(np.uint8),
                 np.ascontiguousarray(flat[idx]).view(np.uint8),
             ]
-    return (shape, dtype, None), [flat.view(np.uint8)]
+    enc = None if wire is a else ("dense", str(flat.dtype))
+    return (shape, dtype, enc), [flat.view(np.uint8)]
+
+
+def _np_dtype(name: str) -> np.dtype:
+    """A wire dtype by name (bfloat16 through ml_dtypes)."""
+    return bfloat16_numpy_dtype() if name == "bfloat16" else np.dtype(name)
 
 
 def _decode_array(buf: np.ndarray, offset: int, entry) -> Tuple[np.ndarray, int]:
     """Inverse of ``_encode_array`` for one gathered entry."""
     shape, dtype, enc = entry
-    dtype = bfloat16_numpy_dtype() if dtype == "bfloat16" else np.dtype(dtype)
+    dtype = _np_dtype(dtype)
     size = int(np.prod(shape, dtype=np.int64))
     if enc is None:
         nbytes = size * dtype.itemsize
         return buf[offset : offset + nbytes].view(dtype).reshape(shape), offset + nbytes
+    if enc[0] == "dense":
+        wire_dtype = _np_dtype(enc[1])
+        nbytes = size * wire_dtype.itemsize
+        wire = buf[offset : offset + nbytes].view(wire_dtype)
+        return wire.astype(dtype).reshape(shape), offset + nbytes
     if enc[0] == "sparse":
-        nnz = enc[1]
+        _, nnz, wire_name = enc
+        wire_dtype = _np_dtype(wire_name)
         idx = buf[offset : offset + nnz * 4].view(np.uint32)
         offset += nnz * 4
-        vals = buf[offset : offset + nnz * dtype.itemsize].view(dtype)
-        offset += nnz * dtype.itemsize
+        vals = buf[offset : offset + nnz * wire_dtype.itemsize].view(wire_dtype)
+        offset += nnz * wire_dtype.itemsize
         out = np.zeros(size, dtype=dtype)
-        out[idx] = vals
+        out[idx] = vals.astype(dtype)
+        return out.reshape(shape), offset
+    if enc[0] == "int8block":
+        _, block, nblocks, nexc = enc
+        q = buf[offset : offset + nblocks * block].view(np.int8)
+        offset += nblocks * block
+        scales = buf[offset : offset + 4 * nblocks].view(np.float32)
+        offset += 4 * nblocks
+        exc = buf[offset : offset + 4 * nexc].view(np.float32)
+        offset += 4 * nexc
+        out = wirelib.dequantize_blockwise(q, scales, size, dtype, exc)
+        return out.reshape(shape), offset
+    if enc[0] == "sparse8":
+        _, nnz, block, nexc = enc
+        idx = buf[offset : offset + nnz * 4].view(np.uint32)
+        offset += nnz * 4
+        nblocks = -(-max(nnz, 1) // block)
+        q = buf[offset : offset + nblocks * block].view(np.int8)
+        offset += nblocks * block
+        scales = buf[offset : offset + 4 * nblocks].view(np.float32)
+        offset += 4 * nblocks
+        exc = buf[offset : offset + 4 * nexc].view(np.float32)
+        offset += 4 * nexc
+        out = np.zeros(size, dtype=dtype)
+        out[idx] = wirelib.dequantize_blockwise(q, scales, nnz, dtype, exc)
         return out.reshape(shape), offset
     raise ValueError(f"unknown wire encoding {enc!r}")
 
 
 def _pack_rank_states(
-    metric_states: MetricStates, order: List[Tuple[str, str]]
+    metric_states: MetricStates,
+    order: List[Tuple[str, str]],
+    compression: Any = "exact",
 ) -> Tuple[List[_StateMeta], np.ndarray]:
     """Pack one rank's states, in traversal order, into (metadata, flat
-    uint8 payload)."""
+    uint8 payload). ``compression`` is one rung for every metric or a
+    ``{metric_name: rung}`` mapping (missing names ride ``exact``)."""
+    from torcheval_tpu_torch import config
+
+    block = config.wire_block_size()
+    if isinstance(compression, str):
+        rung_of = dict.fromkeys({m for m, _ in order}, compression)
+    else:
+        rung_of = dict(compression)
     meta: List[_StateMeta] = []
     chunks: List[np.ndarray] = []
     for metric_name, state_name in order:
@@ -148,13 +276,32 @@ def _pack_rank_states(
         else:  # int/float (and any other picklable scalar state)
             kind, arrs, extra = "obj", [], value
         entries = []
+        rung = rung_of.get(metric_name, "exact")
         for a in arrs:
-            entry, wire_chunks = _encode_array(a)
+            entry, wire_chunks = _encode_array(a, rung, block)
             entries.append(entry)
             chunks.extend(wire_chunks)
         meta.append((kind, entries, extra))
     flat = np.concatenate(chunks) if chunks else np.zeros(0, dtype=np.uint8)
     return meta, flat
+
+
+def _meta_wire_tiers(
+    order: List[Tuple[str, str]], metas: List[List[_StateMeta]]
+) -> Dict[str, str]:
+    """Per metric, the rung its payload actually rode across the given
+    ranks' metadata: the lossiest encoding any rank applied to any of its
+    arrays (a metric whose payloads stayed raw or sparse reads
+    ``"exact"`` whatever the policy asked)."""
+    tiers: Dict[str, str] = {m: "exact" for m, _ in order}
+    for meta in metas:
+        for (metric_name, _), (_kind, entries, _extra) in zip(order, meta):
+            for entry in entries:
+                enc = entry[2]
+                tier = _ENC_TIERS[enc[0] if isinstance(enc, tuple) else None]
+                if wirelib.rung_index(tier) > wirelib.rung_index(tiers[metric_name]):
+                    tiers[metric_name] = tier
+    return tiers
 
 
 def _unpack_rank_states(
@@ -183,7 +330,27 @@ def _unpack_rank_states(
     return out
 
 
-def sync_states(metric_states, process_group: ProcessGroup) -> SyncedStates:
+def canonical_crc(
+    order: List[Tuple[str, str]], meta: List[_StateMeta], buf: np.ndarray
+) -> int:
+    """crc32 over the canonical bytes of a packed payload after
+    dequantization: decode the wire, re-pack at the exact rung, crc that.
+    Under a lossy rung the receiver merges the reconstruction, so an
+    integrity check (the federation's epoch ledger) must pin that, not the
+    bytes that travelled. Sender and receiver run it on the same wire
+    bytes: deterministic, and no communication."""
+    template: MetricStates = {m: {} for m, _ in order}
+    states = _unpack_rank_states(template, order, meta, np.asarray(buf, dtype=np.uint8))
+    _, flat = _pack_rank_states(states, order, "exact")
+    return zlib.crc32(flat.tobytes())
+
+
+def sync_states(
+    metric_states,
+    process_group: ProcessGroup,
+    *,
+    families: Optional[Dict[str, str]] = None,
+) -> SyncedStates:
     """Gather every rank's metric states to every rank, through the wire
     protocol; returns the surviving ranks' states as numpy, in rank order,
     as a :class:`SyncedStates`.
@@ -196,13 +363,23 @@ def sync_states(metric_states, process_group: ProcessGroup) -> SyncedStates:
     ``allgather_object`` (each rank's metadata, scalar states, payload
     size and crc32) and at most one ``allgather_array`` (the payloads,
     padded to the longest on the multi-process path).
+
+    ``families`` maps metric names to their ladder family (metric class
+    name): each metric then rides ``wire.effective_rung(family)``.
+    Without it every metric rides the ladder's default rung.
     """
+    from torcheval_tpu_torch import config
+
+    if families is None:
+        compression: Any = config.wire_rung_for("*")
+    else:
+        compression = {name: wirelib.effective_rung(f) for name, f in families.items()}
     local_mode = isinstance(process_group.unwrap(), LocalReplicaGroup)
     template = metric_states[0] if local_mode else metric_states
     order = metrics_traversal_order(template)
     world = process_group.world_size
     if local_mode:
-        packed = [_pack_rank_states(ms, order) for ms in metric_states]
+        packed = [_pack_rank_states(ms, order, compression) for ms in metric_states]
         sent_bytes = sum(int(flat.size) for _, flat in packed)
         metas, meta_ranks = process_group.allgather_object_with_ranks(
             [(meta, int(flat.size), zlib.crc32(flat)) for meta, flat in packed]
@@ -215,7 +392,7 @@ def sync_states(metric_states, process_group: ProcessGroup) -> SyncedStates:
                 [flat for _, flat in packed]
             )
     else:
-        meta, flat = _pack_rank_states(metric_states, order)
+        meta, flat = _pack_rank_states(metric_states, order, compression)
         sent_bytes = int(flat.size)
         metas, meta_ranks = process_group.allgather_object_with_ranks(
             (meta, int(flat.size), zlib.crc32(flat))
@@ -294,4 +471,5 @@ def _assemble(
     out.ranks = tuple(survivors)
     out.world_size = world
     out.recv_bytes = sum(meta_by_rank[r][1] for r in survivors)
+    out.wire_tiers = _meta_wire_tiers(order, [meta_by_rank[r][0] for r in survivors])
     return out

@@ -31,7 +31,13 @@ state back, so each rank re-slices to its shard or owned keys with an
 empty outbox. An admission-armed table's provenance carries its rung
 (``_with_admission``).
 
-Left for later slices: the sync plane and the wire ladder.
+The wire ladder (``torcheval_tpu_torch.wire``): each metric of a sync
+rides the rung of its family (class name), ``wire.effective_rung``, and
+its ``sync_provenance.wire_tier`` names the rung its payload actually rode
+(``_with_wire_tier``). ``sync_and_compute(_collection)(plane=...)`` is the
+non-blocking read of a ``syncplane.SyncPlane`` built over the same live
+metrics: no collective, the freshest merged snapshot, its provenance
+carrying the plane's staleness.
 """
 
 from __future__ import annotations
@@ -145,6 +151,8 @@ def sync_and_compute(
     metric: MetricOrReplicas,
     process_group: Optional[ProcessGroup] = None,
     on_failure: Optional[str] = None,
+    *,
+    plane: Optional[Any] = None,
 ) -> Any:
     """Sync state across ranks/replicas and compute on the merged state.
 
@@ -152,7 +160,20 @@ def sync_and_compute(
     configured degradation policy for this call: under a degrading policy
     a dead rank costs a bounded wait instead of a hang, and the value
     reflects the surviving ranks (``get_synced_metric(...).sync_provenance``
-    names them)."""
+    names them).
+
+    ``plane`` (a ``syncplane.SyncPlane`` built over this live metric)
+    switches to the non-blocking bounded-staleness read: no collective;
+    the freshest background-merged snapshot is computed, its
+    ``sync_provenance`` carrying ``version``, ``rounds_behind`` and
+    ``wall_age_seconds``. ``process_group`` and ``on_failure`` are
+    ignored then: the plane's own communicator and policy govern its
+    rounds."""
+    if plane is not None:
+        synced = plane.read_metric(metric)
+        value = synced.compute()
+        _maybe_observe_computed(f"computed/{type(synced).__name__}", value)
+        return value
     synced = get_synced_metric(metric, process_group, on_failure=on_failure)
     value = synced.compute()
     _maybe_observe_computed(f"computed/{type(synced).__name__}", value)
@@ -163,11 +184,17 @@ def sync_and_compute_collection(
     metrics: Union[Dict[str, Metric], List[Dict[str, Metric]]],
     process_group: Optional[ProcessGroup] = None,
     on_failure: Optional[str] = None,
+    *,
+    plane: Optional[Any] = None,
 ) -> Dict[str, Any]:
     """Sync a ``{name: Metric}`` collection in one batched state exchange
     and compute every merged metric. ``on_failure``: see
-    :func:`sync_and_compute`."""
-    synced = get_synced_metric_collection(metrics, process_group, on_failure=on_failure)
+    :func:`sync_and_compute`; ``plane``: the non-blocking read (the
+    collection must be the one the plane was built over)."""
+    if plane is not None:
+        synced = plane.read_collection(metrics)
+    else:
+        synced = get_synced_metric_collection(metrics, process_group, on_failure=on_failure)
     values = {name: m.compute() for name, m in synced.items()}
     for name, value in values.items():
         _maybe_observe_computed(f"computed/{name}", value)
@@ -230,6 +257,16 @@ def _with_admission(provenance: SyncProvenance, metric: Metric) -> SyncProvenanc
     )
 
 
+def _with_wire_tier(provenance: SyncProvenance, per_rank_states, name: str) -> SyncProvenance:
+    """Stamp the rung this metric's payload actually rode
+    (``synclib.SyncedStates.wire_tiers``). Per metric: one collection may
+    mix int8-riding histograms with bit-exact counters."""
+    tier = per_rank_states.wire_tiers.get(name, "exact")
+    if tier == "exact":
+        return provenance
+    return provenance._replace(wire_tier=tier)
+
+
 def _stamp(coll: Dict[str, Metric], provenance: SyncProvenance) -> Dict[str, Metric]:
     for m in coll.values():
         m.sync_provenance = _with_admission(provenance, m)
@@ -280,8 +317,10 @@ def get_synced_metric_collection(
     if sync_on:
         sync_flow = _obs_trace.next_flow_id()
         sync_t0 = time.monotonic()
+    # each metric rides the wire rung of its family (class name)
+    families = {name: type(m).__name__ for name, m in template.items()}
     with _obs_trace.scope_or_null("torcheval.sync", sync_on) as sync_frame:
-        per_rank_states = synclib.sync_states(payload, group)
+        per_rank_states = synclib.sync_states(payload, group, families=families)
 
     # the world size comes from the sync itself, not the group: a
     # re-formation during this sync takes effect from the next one
@@ -303,6 +342,9 @@ def get_synced_metric_collection(
     if _OBS.enabled and sync_frame is not None:
         # the SyncEvent mirrors the provenance field for field and adds
         # the wire bytes synclib read off its metadata exchange
+        from torcheval_tpu_torch import wire as _wire
+
+        sync_tier = max(per_rank_states.wire_tiers.values(), key=_wire.rung_index, default="exact")
         sync_seconds = time.monotonic() - sync_t0
         _obs_hist.observe("sync", sync_seconds)
         _OBS.record(
@@ -317,6 +359,7 @@ def get_synced_metric_collection(
                 recv_bytes=per_rank_states.recv_bytes,
                 metrics=len(template),
                 seconds=sync_seconds,
+                wire_tier=sync_tier,
                 flow=sync_flow,
                 trace=sync_frame.trace_id,
                 span=sync_frame.span_id,
@@ -333,7 +376,9 @@ def get_synced_metric_collection(
             rank_metrics.append(clone)
         target = rank_metrics[0].to(base.device)
         target.merge_state(rank_metrics[1:])
-        target.sync_provenance = _with_admission(provenance, target)
+        target.sync_provenance = _with_wire_tier(
+            _with_admission(provenance, target), per_rank_states, name
+        )
         merged[name] = target
     return merged
 

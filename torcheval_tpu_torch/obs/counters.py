@@ -30,8 +30,11 @@ source adds nothing to any hot path. The default registry federates:
   metric tables (``table._admission.armed_counter_source``: armed count,
   worst rung, lowest sampled fraction, admitted/shed row and transition
   totals);
-- ``wire``: the quantized wire ladder. It is not ported yet, so it
-  reports an empty source (no counters, never an error) until it is.
+- ``wire``: the quantized wire ladder (``wire.LADDER.counters()``: the
+  configured default rung, the block size and every drift-breach cap).
+  An armed sync plane adds ``syncplane``, an armed federation
+  ``federation`` and an armed failure domain ``resilience`` while they
+  are open.
 
 ``register``/``unregister`` let applications add their own sources; the
 exporters (``render_prometheus``, ``format_report``,
@@ -100,8 +103,9 @@ def _admission_source() -> Dict[str, Any]:
 
 
 def _wire_source() -> Dict[str, Any]:
-    """The wire ladder's counters: empty until ``wire`` is ported."""
-    return {}
+    from torcheval_tpu_torch.wire import LADDER
+
+    return LADDER.counters()
 
 
 def _events_source() -> Dict[str, Any]:

@@ -22,9 +22,11 @@ and latency telemetry, pull-based and off the step path:
   over an error/total counter pair (the classic error-budget form:
   alert when the windowed error rate burns the budget ``bound`` times
   too fast).
-- **Admission pressure** (the JAX package's metric tables feed their
-  ingest pressure into an ``admission/pressure`` series): the tables are
-  not ported yet, so no such series exists here.
+- **Admission pressure**: armed metric tables (``table._admission``)
+  feed their merged ingest pressure into the ``admission/pressure``
+  series at every drain. Drift breaches of watched inputs
+  (``obs.quality``) also step the input's family down the wire ladder
+  (``wire.note_budget_breach``).
 
 Alerts are typed :class:`~torcheval_tpu_torch.obs.events.AlertEvent`\\ s — they
 ride the event ring/JSONL when the recorder is on — and the active-alert

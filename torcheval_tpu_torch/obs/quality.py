@@ -31,9 +31,10 @@ on. The ``quality`` counter source publishes per-input gauges, and
 ``render_prometheus`` adds the value histograms as ``histogram``
 families.
 
-Not ported: the JAX package steps a drifting input's wire-ladder rung
-toward exact (``wire.note_budget_breach``); the wire ladder is not in the
-port yet (ROADMAP A8).
+A breach is also the measured error budget of the quantized wire
+ladder: the watched metric's family forfeits one lossy rung
+(``wire.note_budget_breach``: int8 -> bf16 -> exact, with a
+``WireTierEvent`` at each step).
 
 Cost contract: the step path never reads a device value; scoring,
 scraping and ``freeze_reference`` read the small sketch states back.
@@ -572,6 +573,15 @@ class QualityWatch:
                         raised.append(alert)
                 else:
                     monitor._clear(name, f"drift-{kind}")
+            if breaches:
+                # a drifting input's family forfeits its lossy wire rung:
+                # step it toward exact (a no-op once exact)
+                from torcheval_tpu_torch import wire
+
+                metric, _arg = self._entries[series]
+                wire.note_budget_breach(
+                    type(metric).__name__, series=series, breach=",".join(breaches)
+                )
             RECORDER.record(
                 DriftEvent(
                     series=series,

@@ -32,9 +32,10 @@ daemon.
 The admission section reads the live armed metric tables
 (``table._admission.shedding_status``): a shedding intake reports status
 ``shedding`` and stays healthy (degradation by design). The federation,
-sync plane and failover domain that ``/healthz`` reports on in the JAX
-package are not ported yet: their sections read ``{"armed": 0}`` until
-they are.
+sync plane and failover sections read the last-armed
+``federation.Federation``, ``syncplane.SyncPlane`` and
+``failover.FailureDomain`` (``stale-region``, ``stale-plane`` and the
+non-failing ``degraded-world``), and ``{"armed": 0}`` while none is open.
 """
 
 from __future__ import annotations
@@ -176,17 +177,20 @@ def healthz_payload() -> Dict[str, Any]:
     }
 
 
-# The subsystems below, but the admission ladder, are not ported yet (the
-# JAX package's federation, syncplane and failover modules): each reads
-# as absent until it lands, and the /healthz body keeps the JAX layout.
+# The live subsystems /healthz reports on, read through their modules'
+# last-armed handles (imported on call: those modules import obs).
 
 
 def _current_federation():
-    return None
+    from torcheval_tpu_torch.federation import current_federation
+
+    return current_federation()
 
 
 def _current_plane():
-    return None
+    from torcheval_tpu_torch.syncplane import current_plane
+
+    return current_plane()
 
 
 def _shedding_status() -> Dict[str, Any]:
@@ -197,7 +201,9 @@ def _shedding_status() -> Dict[str, Any]:
 
 
 def _current_domain():
-    return None
+    from torcheval_tpu_torch.failover import current_domain
+
+    return current_domain()
 
 
 class _Handler(BaseHTTPRequestHandler):

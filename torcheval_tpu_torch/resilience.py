@@ -158,12 +158,12 @@ class SyncProvenance(NamedTuple):
 
     The fields and defaults are the JAX package's. A blocking sync writes
     ``ranks``, ``world_size``, ``degraded``, ``policy`` and ``reformed``;
-    the others stay at their defaults in this package until the modules
-    that write them are ported: the staleness triple (``version``,
-    ``rounds_behind``, ``wall_age_seconds``) comes from a sync plane, the
-    admission triple (``sampled_fraction``, ``admission_rung``,
-    ``admission_epoch``) from an armed metric table, ``wire_tier`` from
-    the lossy wire rungs and ``loss`` from a failure domain's recovery.
+    a ``syncplane.SyncPlane`` read writes the staleness triple
+    (``version``, ``rounds_behind``, ``wall_age_seconds``), an armed
+    metric table the admission triple (``sampled_fraction``,
+    ``admission_rung``, ``admission_epoch``), the wire ladder
+    ``wire_tier`` (the rung the payload actually rode) and a
+    ``failover.FailureDomain`` recovery ``loss`` (its ``LossBound``).
     """
 
     ranks: Tuple[int, ...]
@@ -181,7 +181,7 @@ class SyncProvenance(NamedTuple):
     admission_rung: int = 0  # 0=full 1=sampled 2=priority-shed
     admission_epoch: int = 0  # drain epoch the rung last changed
     # the lossiest wire encoding any surviving rank applied: "exact" |
-    # "bf16" | "int8" (only "exact" exists here so far)
+    # "bf16" | "int8"
     wire_tier: str = "exact"
     # None, or the bound of what a rank-loss recovery could not rebuild
     loss: Any = None

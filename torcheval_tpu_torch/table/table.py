@@ -1104,6 +1104,9 @@ class MetricTable(Metric[TableValues]):
         self.__dict__.pop("sync_provenance", None)
         self.__dict__.pop("obs_step", None)
         self.__dict__.pop("admission_provenance", None)
+        # replaced state invalidates any published sync-plane snapshot
+        # (this override does not call super().load_state_dict)
+        self._state_epoch = self._state_epoch + 1
 
     def _reshard_to_own(self) -> "MetricTable":
         """Re-slice a DESHARDED (logical) table back to this rank's owned

@@ -1,6 +1,7 @@
 """Test helpers: the dummy metrics, the per-class contract harness, the
-rank-per-thread world, the fault-injection harnesses, the seeded
-overload schedules and the deterministic-schedule race harness."""
+rank-per-thread world, the fault-injection harnesses (collective chaos,
+inter-region link chaos, snapshot crashes, scripted rank kills), the
+seeded overload schedules and the deterministic-schedule race harness."""
 
 from torcheval_tpu_torch.utils.test_utils.dummy_metric import (
     DummySumDictStateMetric,
@@ -8,13 +9,21 @@ from torcheval_tpu_torch.utils.test_utils.dummy_metric import (
     DummySumMetric,
 )
 from torcheval_tpu_torch.utils.test_utils.fault_injection import (
+    ChaosLinkTransport,
     FaultInjectionGroup,
     FaultSpec,
     InjectedCrash,
+    LinkFaultSpec,
     SnapshotCrashPlan,
     corrupt_manifest_digest,
     corrupt_shard,
     truncate_shard,
+)
+from torcheval_tpu_torch.utils.test_utils.kill_schedule import (
+    KILL_POINTS,
+    KillGroup,
+    KillSchedule,
+    KillSpec,
 )
 from torcheval_tpu_torch.utils.test_utils.metric_class_tester import (
     MetricClassTester,
@@ -36,6 +45,7 @@ from torcheval_tpu_torch.utils.test_utils.thread_world import (
 )
 
 __all__ = [
+    "ChaosLinkTransport",
     "DeadlockError",
     "DeterministicScheduler",
     "DummySumDictStateMetric",
@@ -44,6 +54,11 @@ __all__ = [
     "FaultInjectionGroup",
     "FaultSpec",
     "InjectedCrash",
+    "KILL_POINTS",
+    "KillGroup",
+    "KillSchedule",
+    "KillSpec",
+    "LinkFaultSpec",
     "MetricClassTester",
     "OverloadBatch",
     "OverloadPhase",

@@ -1,8 +1,9 @@
 """Deterministic chaos wrapper for the metric-sync collective layer.
 
-Counterpart of ``torcheval_tpu/utils/test_utils/fault_injection.py``
-(the inter-region link chaos, ``LinkFaultSpec`` and ``ChaosLinkTransport``,
-comes with the federation). ``FaultInjectionGroup`` decorates any
+Counterpart of ``torcheval_tpu/utils/test_utils/fault_injection.py``,
+with the inter-region link chaos (``LinkFaultSpec``,
+``ChaosLinkTransport``) the federation tests run under.
+``FaultInjectionGroup`` decorates any
 ``ProcessGroup`` and injects faults into its collectives by a *scripted,
 seeded* plan: no wall-clock or nondeterministic scheduling decides what
 fails. It proves that every ``resilience.ResilientGroup`` degradation
@@ -56,9 +57,11 @@ from torcheval_tpu_torch.distributed import ProcessGroup, _as_numpy
 from torcheval_tpu_torch.resilience import PartialGatherError, TransientSyncError
 
 __all__ = [
+    "ChaosLinkTransport",
     "FaultInjectionGroup",
     "FaultSpec",
     "InjectedCrash",
+    "LinkFaultSpec",
     "SnapshotCrashPlan",
     "corrupt_manifest_digest",
     "corrupt_shard",
@@ -229,6 +232,183 @@ def _copy_payload(value: Any) -> Any:
     if isinstance(value, np.ndarray):
         return value.copy()
     return copy.deepcopy(value)
+
+
+# -------------------------------------------- inter-region link chaos
+
+
+class LinkFaultSpec(NamedTuple):
+    """One scripted fault on a DIRECTED inter-region link.
+
+    Keyed to the 0-based *message index* of the ``src -> dst`` link:
+    each ``post`` on that directed pair — retries and probes included —
+    consumes one index, so schedules replay deterministically for a
+    given call sequence (the collective-call-indexed discipline of
+    :class:`FaultSpec`, applied to mailbox links).
+
+    Args:
+        src / dst: region names of the directed link.
+        msg: message index the fault fires at.
+        kind: ``"drop"`` (never delivered), ``"delay"`` (held until the
+            receiver has polled ``hold`` more times), ``"duplicate"``
+            (delivered twice), ``"reorder"`` (held until the NEXT
+            message on the link is posted, then delivered after it).
+        times: consecutive message indices covered.
+        hold: poll count for ``delay``.
+    """
+
+    src: str
+    dst: str
+    msg: int
+    kind: str
+    times: int = 1
+    hold: int = 1
+
+
+_LINK_KINDS = ("drop", "delay", "duplicate", "reorder")
+
+
+class ChaosLinkTransport:
+    """Deterministic chaos wrapper for a federation ``LinkTransport``.
+
+    Implements the WAN failure modes the epoch ledger must be idempotent
+    under: asymmetric partition between region pairs (messages dropped
+    in ONE direction only), delivery delay jitter, duplicated delivery,
+    and reordering — all scripted (:class:`LinkFaultSpec`) or seeded
+    (``jitter_polls``), never wall-clock-scheduled, so a failed run
+    replays bit-identically.
+
+    Imperative partition control composes with the scripted faults::
+
+        chaos = ChaosLinkTransport(InProcessLinkBus(), seed=7)
+        chaos.partition("eu", "us")      # eu -> us dropped (asymmetric)
+        chaos.partition_both("us", "eu") # both directions
+        chaos.heal("eu", "us")           # deliveries resume
+
+    ``jitter_polls=(lo, hi)`` holds EVERY message for a seeded number of
+    receiver polls in ``[lo, hi]`` — the delay-jitter arm of a
+    soak schedule. ``dropped``/``delivered`` count outcomes per directed
+    link for test assertions.
+    """
+
+    def __init__(
+        self,
+        inner,
+        faults: Iterable[LinkFaultSpec] = (),
+        *,
+        jitter_polls: Optional[tuple] = None,
+        seed: int = 0,
+    ) -> None:
+        self._inner = inner
+        self.faults = [LinkFaultSpec(*f) for f in faults]
+        for f in self.faults:
+            if f.kind not in _LINK_KINDS:
+                raise ValueError(
+                    f"unknown link fault kind {f.kind!r}; expected one of "
+                    f"{_LINK_KINDS}"
+                )
+        self.jitter_polls = jitter_polls
+        self.seed = seed
+        self._rng = np.random.default_rng(seed)
+        self._partitioned: set = set()  # directed (src, dst) pairs
+        self._sent: dict = {}  # (src, dst) -> messages posted
+        self._polls: dict = {}  # dst -> polls observed
+        # held messages: dst -> [(release_at_poll, order_key, blob)]
+        self._held: dict = {}
+        # reorder staging: (src, dst) -> blob awaiting the next post
+        self._reorder: dict = {}
+        self.dropped: dict = {}  # (src, dst) -> count
+        self.delivered: dict = {}  # (src, dst) -> count
+
+    # ------------------------------------------------------------ partitions
+
+    def partition(self, src: str, dst: str) -> None:
+        """Drop every ``src -> dst`` message until :meth:`heal` —
+        the ASYMMETRIC partition primitive."""
+        self._partitioned.add((src, dst))
+
+    def partition_both(self, a: str, b: str) -> None:
+        self.partition(a, b)
+        self.partition(b, a)
+
+    def heal(self, src: str, dst: str) -> None:
+        self._partitioned.discard((src, dst))
+
+    def heal_both(self, a: str, b: str) -> None:
+        self.heal(a, b)
+        self.heal(b, a)
+
+    def partitioned(self, src: str, dst: str) -> bool:
+        return (src, dst) in self._partitioned
+
+    # ------------------------------------------------------------- transport
+
+    def _active(self, src: str, dst: str, msg: int):
+        return [
+            f
+            for f in self.faults
+            if f.src == src and f.dst == dst and f.msg <= msg < f.msg + f.times
+        ]
+
+    def post(self, src: str, dst: str, blob: bytes) -> None:
+        idx = self._sent.get((src, dst), 0)
+        self._sent[(src, dst)] = idx + 1
+        # a staged reorder ships AFTER this (its successor) message
+        staged = self._reorder.pop((src, dst), None)
+        if (src, dst) in self._partitioned:
+            self.dropped[(src, dst)] = self.dropped.get((src, dst), 0) + 1
+            if staged is not None:
+                self._deliver(src, dst, staged)
+            return
+        faults = self._active(src, dst, idx)
+        kinds = [f.kind for f in faults]
+        if "drop" in kinds:
+            self.dropped[(src, dst)] = self.dropped.get((src, dst), 0) + 1
+            if staged is not None:
+                self._deliver(src, dst, staged)
+            return
+        if "reorder" in kinds:
+            # hold until the NEXT post on this link, then deliver after it
+            self._reorder[(src, dst)] = bytes(blob)
+            if staged is not None:
+                self._deliver(src, dst, staged)
+            return
+        hold = 0
+        for f in faults:
+            if f.kind == "delay":
+                hold = max(hold, int(f.hold))
+        if self.jitter_polls is not None:
+            lo, hi = self.jitter_polls
+            hold = max(hold, int(self._rng.integers(lo, hi + 1)))
+        if hold > 0:
+            release = self._polls.get(dst, 0) + hold
+            self._held.setdefault(dst, []).append(
+                (release, len(self._held.get(dst, ())), src, bytes(blob))
+            )
+        else:
+            self._deliver(src, dst, blob)
+        if "duplicate" in kinds:
+            self._deliver(src, dst, blob)
+        if staged is not None:
+            self._deliver(src, dst, staged)
+
+    def _deliver(self, src: str, dst: str, blob: bytes) -> None:
+        self.delivered[(src, dst)] = self.delivered.get((src, dst), 0) + 1
+        self._inner.post(src, dst, blob)
+
+    def poll(self, dst: str):
+        polls = self._polls.get(dst, 0) + 1
+        self._polls[dst] = polls
+        held = self._held.get(dst, [])
+        due = [h for h in held if h[0] <= polls]
+        if due:
+            self._held[dst] = [h for h in held if h[0] > polls]
+            for _, _, src, blob in sorted(due, key=lambda h: (h[0], h[1])):
+                self._deliver(src, dst, blob)
+        return self._inner.poll(dst)
+
+    def close(self) -> None:
+        self._inner.close()
 
 
 # --------------------------------------------------- elastic crash matrix
