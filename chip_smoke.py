@@ -394,13 +394,50 @@ phases, printing one JSON line for each:
    the bucketed panel captures no graph after its warm-up. K1 launches
    once a streaming update in every arm (``k1_launches_by_arm``).
 
+19. ``model``: the model runtime (``torcheval_tpu_torch.models``,
+   ``parallel`` and ``tools``), float32 matmuls without TF32. (a)
+   ``eval_step``: ``TransformerLM`` at Meta-Llama-3-8B's ``config.json``
+   widths and full depth (vocabulary 128,256, d_model 4,096, 32 heads,
+   d_ff 14,336, 8,192 positions, 32 layers: this repo's LayerNorm/GELU
+   architecture, 6,990,340,096 parameters, 13.98 GB in bfloat16, seeded
+   on the card), one warm-up step under ``FlopCounter`` and 5 timed steps,
+   each a fresh (1, 8,192) window and, on its logits,
+   ``perplexity_counters``, ``Perplexity`` and ``MulticlassAccuracy``:
+   the FLOP count equal to the analytic 140,548,509,794,304, the counters
+   bitwise to the metric state and the token count exact; then the same
+   weights upcast to float32 (the bf16 copy freed) give a log-perplexity
+   within ``_bf16_log_ppl_bound`` of the bf16 one. Reported: forward, metric
+   and step ms (CUDA events), tokens/s, TFLOP/s and the share of the bf16
+   dense peak, the metrics' share of the step, top-1 agreement, peak
+   bytes. (e) ``tools``: ``get_module_summary`` of (a)'s bf16 model on its
+   last window (the table, pruned to depth 2, printed on the lines before
+   the phase's): 6,990,340,096 parameters, twice that in bytes, the root's
+   FLOPs (a)'s, every ``Block_i`` alike, ``count_flops_backward`` twice the
+   forward with nothing allocated; per-type forward ms. (b)
+   ``long_context``: ``long_context_lm`` at the same widths in float32,
+   4 layers (**cut** from 32), dp 2 x sp 4 over ``ThreadWorld(8)``, two
+   8,192-token windows: each rank's logits within 2e-4 of the dense
+   forward of its window, the counters summed over sp then dp within 1e-4
+   relative of ``Perplexity`` over the dense logits, the count exact, 4 x
+   4 ``ppermute`` calls a rank; ring and dense ms. (c) ``moe``:
+   ``moe_apply`` at google/switch-base-8 widths (768, 3,072, 8 experts),
+   one expert a rank of ``ThreadWorld(8)``, 2,048 tokens a shard, capacity
+   320 (factor 1.25), token vectors sharing a seeded offset so that loads
+   are uneven and tokens drop: within 1e-5 of ``moe_reference``, dropped
+   tokens exactly zero; dropped share, ms, bytes exchanged. (d)
+   ``pipeline``: ``pipeline_apply`` over ``ThreadWorld(4)``, two
+   Llama-width float32 ``Block``s a stage, 8 microbatches of (1, 1,024,
+   4,096), within 1e-6 of ``pipeline_reference``; 11 ticks, bubble 3/11,
+   ms. Legs (b)-(d) also run once over a real NCCL group of world 1
+   against the same oracle. K1 must not launch.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 18 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 19 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -529,7 +566,33 @@ from torcheval_tpu_torch.metrics.image.fid import (  # noqa: E402
     _frechet_distance,
     _resize_299,
 )
+from torcheval_tpu_torch.metrics.functional.text.perplexity import (  # noqa: E402
+    _perplexity_update_jit,
+)
+from torcheval_tpu_torch.models import (  # noqa: E402
+    TransformerLM,
+    init_long_context_lm,
+    init_params,
+    long_context_lm,
+    perplexity_counters,
+)
 from torcheval_tpu_torch.models.inception import FEATURE_DIM, init_inception_params  # noqa: E402
+from torcheval_tpu_torch.models.transformer import Block  # noqa: E402
+from torcheval_tpu_torch.parallel import (  # noqa: E402
+    _axis,
+    moe_apply,
+    moe_reference,
+    pipeline_apply,
+    pipeline_reference,
+)
+from torcheval_tpu_torch.parallel.moe import _route as _moe_route  # noqa: E402
+from torcheval_tpu_torch.tools import (  # noqa: E402
+    FlopCounter,
+    count_flops_backward,
+    get_module_summary,
+    get_summary_table,
+    prune_module_summary,
+)
 from torcheval_tpu_torch.ops import _kernels, topk  # noqa: E402
 from torcheval_tpu_torch.obs.memory import memory_report  # noqa: E402
 from torcheval_tpu_torch.obs.server import healthz_payload  # noqa: E402
@@ -7242,6 +7305,478 @@ def phase_wan(device, n=CRITEO_EVAL, batch=CTR_BATCH, batches=WAN_BATCHES, world
     return out
 
 
+LLAMA3_8B = {  # Meta-Llama-3-8B config.json: hidden_size, attention heads, intermediate_size, layers
+    "vocab_size": LLAMA3_VOCAB, "d_model": 4096, "n_heads": 32, "d_ff": 14_336,
+    "max_len": LLAMA3_CONTEXT, "n_layers": 32,
+}
+LLAMA3_WIDTH_PARAMS = 6_990_340_096  # this repo's architecture at those widths (GELU MLP: 2 matrices)
+LLAMA3_WIDTH_FLOPS = 140_548_509_794_304  # one (1, 8,192) forward: matmuls + dense attention
+BF16_DENSE_PEAK = 989.4e12  # H100 SXM bf16 dense tensor-core FLOP/s (NVIDIA data sheet)
+BF16_U = 2.0 ** -8  # bfloat16 unit roundoff (8 bits of precision)
+MODEL_STEPS = 5  # timed eval steps of leg (a), after one warm-up step
+LONG_CONTEXT_LAYERS = 4  # leg (b): **cut** from 32 (ring blocks on eight threads of one card)
+SWITCH_BASE_8 = {"d_model": 768, "d_ff": 3072, "experts": 8}  # google/switch-base-8 config.json
+MOE_TOKENS = 2048  # tokens a shard of leg (c)
+MOE_CAPACITY = 320  # 2,048 / 8 experts x capacity factor 1.25
+MOE_SKEW = 0.15  # a shared offset of the token vectors: uneven expert loads, so tokens drop
+PIPE_STAGES, PIPE_BLOCKS, PIPE_MICRO, PIPE_LEN = 4, 2, 8, 1024
+LONG_TOL = 2e-4  # tests/parallel/test_long_context.py
+LONG_PPL_RTOL = 1e-4
+MOE_TOL = 1e-5  # tests/parallel/test_moe.py
+PIPE_TOL = 1e-6  # tests/parallel/test_pipeline.py
+MODEL_RANK_TIMEOUT = 120.0  # seconds a rank thread waits on its peers before failing
+
+
+def _lm_params(vocab_size, d_model, n_heads, d_ff, max_len, n_layers):
+    """Parameters of ``TransformerLM``: two embeddings, per block two
+    LayerNorms, four d x d attention kernels and the two MLP matrices, a
+    final LayerNorm and the head."""
+    block = 4 * d_model + 4 * d_model * d_model + 2 * d_model * d_ff
+    return (vocab_size + max_len) * d_model + n_layers * block + 2 * d_model + d_model * vocab_size
+
+
+def _lm_flops(vocab_size, d_model, n_heads, d_ff, max_len, n_layers, seq, batch=1):
+    """Analytic FLOPs of one forward: every matmul (2 m n k: q, k, v, out,
+    the MLP's two, the head) and dense attention (QK^T and PV over the full
+    S x S, 4 S^2 d a layer; the causal mask saves none)."""
+    tokens = batch * seq
+    matmul = 2 * tokens * (n_layers * (4 * d_model ** 2 + 2 * d_model * d_ff) + d_model * vocab_size)
+    return matmul + n_layers * 4 * batch * seq * seq * d_model
+
+
+def _bf16_log_ppl_bound(n_layers, logits_absmax, nll_mean):
+    """How far the bfloat16 forward's log-perplexity may sit from the
+    float32 forward of the same weights, to first order: the longest path
+    rounds each activation R = 14 L + 4 times to bf16 (per block the two
+    LayerNorms, q/k/v, the scaled query, scores, the mask, softmax, PV,
+    out, two residual adds, the MLP's two matmuls and GELU; then the final
+    LayerNorm, head and log-softmax), each at most ``u`` relative,
+    compounding as a random walk: the logits move by at most
+    sqrt(R) u max|z|, and a token's NLL by at most twice that. The window's
+    NLL sum is itself rounded to bf16 once more (u relative)."""
+    r = 14 * n_layers + 4
+    return 2.0 * math.sqrt(r) * BF16_U * logits_absmax + BF16_U * nll_mean
+
+
+class _Clock:
+    """CUDA events on the card, a synchronized host clock on the CPU."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.device = device
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self, i, j):
+        if self.cuda:
+            return self.marks[i].elapsed_time(self.marks[j])
+        return (self.marks[j] - self.marks[i]) * 1e3
+
+
+def _wall_ms(fn, device):
+    _sync(device)
+    t0 = time.perf_counter()
+    res = fn()
+    _sync(device)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def _max_err(got, want):
+    return float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+
+
+def _within(got, want, tol):
+    """``assert_allclose(atol=tol, rtol=tol)``: |a - b| <= tol + tol |b|."""
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def _model_window(gen, vocab, window, device):
+    tokens = torch.randint(0, vocab, (1, window + 1), generator=gen, device=device)
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def _model_eval(device, gen, widths, window, steps):
+    """Leg (a): ``TransformerLM`` in bfloat16, one warm-up step under
+    ``FlopCounter`` and ``steps`` timed steps, each a forward over a fresh
+    window and the three metric updates on its logits."""
+    vocab = widths["vocab_size"]
+    model = TransformerLM(**widths, device=device, dtype=torch.bfloat16)
+    init_params(model, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    _check(n_params == _lm_params(**widths), f"eval_step: {n_params} parameters")
+    ppl = Perplexity(device=device)
+    acc = MulticlassAccuracy(device=device)
+    sums = {"sum_log_probs": torch.zeros((), device=device),
+            "num_total": torch.zeros((), device=device)}
+
+    def metrics(logits, targets):
+        counters = perplexity_counters(logits, targets)
+        for k in sums:
+            sums[k] = sums[k] + counters[k]
+        ppl.update(logits, targets)
+        acc.update(logits.reshape(-1, vocab), targets.reshape(-1))
+
+    _reset_peak(device)
+    fc = FlopCounter(model)
+    inputs, targets = _model_window(gen, vocab, window, device)
+    logits = fc.run(inputs)
+    metrics(logits, targets)
+    flops = fc.flop_counts[""]
+    _check(flops == _lm_flops(**widths, seq=window),
+           f"eval_step: FlopCounter reads {flops} FLOPs, not {_lm_flops(**widths, seq=window)}")
+    _check(len({fc.flop_counts[f"Block_{i}"] for i in range(widths["n_layers"])}) == 1,
+           "eval_step: the blocks' FLOPs differ")
+    forward_ms, metric_ms, step_ms = [], [], []
+    for _ in range(steps):
+        del logits
+        inputs, targets = _model_window(gen, vocab, window, device)
+        clock = _Clock(device)
+        clock.mark()
+        logits = model(inputs)
+        clock.mark()
+        metrics(logits, targets)
+        clock.mark()
+        _sync(device)
+        forward_ms.append(clock.ms(0, 1))
+        metric_ms.append(clock.ms(1, 2))
+        step_ms.append(clock.ms(0, 2))
+    peak = _stream_peak(device)
+    total = (steps + 1) * window
+    _check(torch.equal(ppl.sum_log_probs, sums["sum_log_probs"]),
+           "eval_step: perplexity counters differ from Perplexity's state")
+    _check(int(ppl.num_total) == total and float(sums["num_total"]) == total,
+           f"eval_step: token count {int(ppl.num_total)}, {float(sums['num_total'])} != {total}")
+    cuda = torch.device(device).type == "cuda"
+    fwd = _median(forward_ms)
+    profiles = {}
+    if cuda:  # where the step's device time goes, on fresh metrics
+        profiles["forward"] = _profile(lambda: model(inputs), device,
+                                       ops=("aten::mm", "aten::bmm", "aten::where", "aten::softmax"))
+        profiles["forward"]["busy_share"] = profiles["forward"]["device_ms"] / fwd
+        profiles["metrics"] = _profile(lambda: (
+            perplexity_counters(logits, targets),
+            Perplexity(device=device).update(logits, targets),
+            MulticlassAccuracy(device=device).update(logits.reshape(-1, vocab),
+                                                     targets.reshape(-1))), device)
+    out = {
+        "widths": widths, "dtype": "bfloat16", "parameters": n_params,
+        "parameter_bytes": 2 * n_params, "window": window, "steps": steps,
+        "flops_forward": flops, "flops_analytic": _lm_flops(**widths, seq=window),
+        "forward_ms": forward_ms, "forward_ms_median": fwd,
+        "metric_update_ms": metric_ms, "metric_update_ms_median": _median(metric_ms),
+        "step_ms_median": _median(step_ms),
+        "bridge_share": _median(metric_ms) / _median(step_ms),
+        "tokens_per_s": window / (_median(step_ms) / 1e3),
+        "tflops_per_s": flops / (fwd / 1e3) / 1e12 if cuda else None,
+        "bf16_peak_share": flops / (fwd / 1e3) / BF16_DENSE_PEAK if cuda else None,
+        "perplexity": float(ppl.compute()), "accuracy": float(acc.compute()),
+        "peak_bytes": peak, "profile": profiles,
+    }
+    # the last window, kept for the float32 check
+    last = (inputs, targets, logits.argmax(dim=-1),
+            float(_perplexity_update_jit(logits, targets, None)[0]))
+    return model, out, last
+
+
+def _model_tools(device, model, inputs, widths):
+    """Leg (e): ``get_module_summary`` of leg (a)'s bf16 model on its last
+    window, FLOPs and timing, and ``count_flops_backward`` on fakes."""
+    _reset_peak(device)
+    summary, wall = _wall_ms(lambda: get_module_summary(model, (inputs,), num_timing_iters=3),
+                             device)
+    n_params = _lm_params(**widths)
+    flops = _lm_flops(**widths, seq=inputs.shape[1])
+    _check(summary.num_parameters == n_params, f"tools: {summary.num_parameters} parameters")
+    _check(summary.size_bytes == 2 * n_params, f"tools: {summary.size_bytes} bytes")
+    _check(summary.flops_forward == flops, f"tools: root forward {summary.flops_forward} FLOPs")
+    blocks = [summary.submodule_summaries[f"Block_{i}"] for i in range(widths["n_layers"])]
+    _check(len({b.flops_forward for b in blocks}) == 1, "tools: the blocks' FLOPs differ")
+    by_type = {}
+
+    def walk(s):
+        if s.forward_elapsed_time_ms >= 0:
+            row = by_type.setdefault(s.module_type, {"calls": 0, "ms": 0.0})
+            row["calls"] += 1
+            row["ms"] += s.forward_elapsed_time_ms
+        for sub in s.submodule_summaries.values():
+            walk(sub)
+
+    walk(summary)
+    before = torch.cuda.memory_allocated(device) if torch.device(device).type == "cuda" else 0
+    params = dict(model.named_parameters())
+    backward = count_flops_backward(
+        lambda p, t: torch.func.functional_call(model, p, (t,)), params, inputs)
+    after = torch.cuda.memory_allocated(device) if torch.device(device).type == "cuda" else 0
+    _check(after == before, f"tools: counting the backward allocated {after - before} bytes")
+    _check(backward == summary.flops_backward == 2 * flops,
+           f"tools: backward {backward}, summary {summary.flops_backward}, not 2 x {flops}")
+    prune_module_summary(summary, max_depth=2)
+    print(get_summary_table(summary), flush=True)
+    return {
+        "num_parameters": summary.num_parameters, "size_bytes": summary.size_bytes,
+        "flops_forward": summary.flops_forward, "flops_backward": summary.flops_backward,
+        "block_flops": blocks[0].flops_forward, "forward_ms_root": summary.forward_elapsed_time_ms,
+        "forward_ms_by_type": by_type, "summary_wall_ms": wall,
+        "count_flops_backward": backward, "backward_bytes_allocated": after - before,
+        "peak_bytes": _stream_peak(device),
+    }
+
+
+def _model_float32_check(device, model, last, n_layers):
+    """Leg (a)'s float32 witness: the bf16 weights upcast in place (the
+    bf16 copy freed as each tensor converts), TF32 off, one forward of the
+    last window; its perplexity against the bf16 one within
+    ``_bf16_log_ppl_bound``, and the top-1 agreement."""
+    inputs, targets, bf16_top1, bf16_nll = last
+    model.float()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    logits = model(inputs)
+    nll, count = _perplexity_update_jit(logits, targets, None)
+    n = int(count)
+    bound = _bf16_log_ppl_bound(n_layers, float(logits.abs().amax()), float(nll) / n)
+    diff = abs(bf16_nll / n - float(nll) / n)
+    _check(diff <= bound, f"eval_step: bf16 log-perplexity off float32 by {diff} > {bound}")
+    return {
+        "perplexity_float32": math.exp(float(nll) / n), "perplexity_bf16": math.exp(bf16_nll / n),
+        "log_ppl_diff": diff, "log_ppl_bound": bound,
+        "top1_agreement": float((logits.argmax(dim=-1) == bf16_top1).float().mean()),
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+    }
+
+
+def _subgroups(g, rows, cols):
+    """Every rank builds every row's and every column's subgroup, in the
+    same order; returns (its row group, its column group)."""
+    row_groups = [g.new_subgroup([r * cols + c for c in range(cols)]) for r in range(rows)]
+    col_groups = [g.new_subgroup([r * cols + c for r in range(rows)]) for c in range(cols)]
+    return row_groups[g.rank // cols], col_groups[g.rank % cols]
+
+
+def _model_long_context(device, gen, widths, n_layers, dp, sp, window, nccl):
+    """Leg (b): ``long_context_lm`` in float32, dp x sp over a
+    ``ThreadWorld``, two windows, against the dense forward."""
+    _reset_peak(device)
+    vocab = widths["vocab_size"]
+    params = init_long_context_lm(
+        gen, vocab_size=vocab, d_model=widths["d_model"], n_heads=widths["n_heads"],
+        n_layers=n_layers, d_ff=widths["d_ff"], max_len=widths["max_len"], device=device)
+    tokens = torch.randint(0, vocab, (dp, window), generator=gen, device=device)
+    targets = torch.randint(0, vocab, (dp, window), generator=gen, device=device)
+    blk = window // sp
+
+    def rank(g):
+        sp_g, dp_g = _subgroups(g, dp, sp)
+        row, col = g.rank // sp, g.rank % sp
+        cut = (slice(row, row + 1), slice(col * blk, (col + 1) * blk))
+        with _axis.census() as calls:
+            logits = long_context_lm(params, tokens[cut], group=sp_g)
+            counters = perplexity_counters(logits, targets[cut])
+            counters = {k: _axis.psum(_axis.psum(c, sp_g), dp_g) for k, c in counters.items()}
+        return logits, counters, dict(calls)
+
+    world = dp * sp
+    ThreadWorld(world, timeout=MODEL_RANK_TIMEOUT).run(rank)  # warm-up: each thread's cuBLAS handle
+    res, ring_ms = _wall_ms(lambda: ThreadWorld(world, timeout=MODEL_RANK_TIMEOUT).run(rank), device)
+    ring_errs, dense_ms = [], []
+    ppl = Perplexity(device=device)
+    for row in range(dp):
+        dense, ms = _wall_ms(lambda: long_context_lm(params, tokens[row:row + 1]), device)
+        dense_ms.append(ms)
+        ppl.update(dense, targets[row:row + 1])
+        for col in range(sp):
+            got = res[row * sp + col][0]
+            want = dense[:, col * blk:(col + 1) * blk]
+            ring_errs.append(_max_err(got, want))
+            _check(_within(got, want, LONG_TOL),
+                   f"long_context: rank {row * sp + col} off the dense forward by {ring_errs[-1]}")
+        if nccl and row == 0:
+            world1 = long_context_lm(params, tokens[:1], group=dist.group.WORLD)
+            nccl_err = _max_err(world1, dense)
+            _check(_within(world1, dense, LONG_TOL), f"long_context: world 1 off by {nccl_err}")
+        del dense
+    expected = float(ppl.compute())
+    for logits, counters, _ in res:
+        got = math.exp(float(counters["sum_log_probs"] / counters["num_total"]))
+        _check(abs(got / expected - 1) <= LONG_PPL_RTOL,
+               f"long_context: sharded perplexity {got} against {expected}")
+        _check(float(counters["num_total"]) == dp * window, "long_context: token count")
+    hops = [calls.get("ppermute", 0) for _, _, calls in res]
+    _check(hops == [n_layers * sp] * (dp * sp), f"long_context: ppermute calls {hops}")
+    return {
+        "layers": n_layers, "dp": dp, "sp": sp, "window": window, "tokens_per_rank": blk,
+        "ring_forward_ms": ring_ms, "dense_forward_ms": dense_ms,
+        "max_abs_err": max(ring_errs), "tol": LONG_TOL,
+        "perplexity": got, "perplexity_dense": expected,
+        "ppermute_calls_per_rank": hops[0], "psum_calls_per_rank": res[0][2].get("psum", 0),
+        "nccl_world1_max_abs_err": nccl_err if nccl else None,
+        "peak_bytes": _stream_peak(device),
+    }
+
+
+def _model_moe(device, gen, d_model, d_ff, experts, tokens, capacity, nccl):
+    """Leg (c): ``moe_apply`` at Switch-Base-8 widths, one expert a rank of
+    ``ThreadWorld(experts)``, against ``moe_reference``."""
+    _reset_peak(device)
+    wg = torch.randn((d_model, experts), generator=gen, device=device) * d_model ** -0.5
+    skew = torch.randn((d_model,), generator=gen, device=device) * MOE_SKEW
+    x = torch.randn((experts * tokens, d_model), generator=gen, device=device) + skew
+    w1 = torch.randn((experts, d_model, d_ff), generator=gen, device=device) * d_model ** -0.5
+    w2 = torch.randn((experts, d_ff, d_model), generator=gen, device=device) * d_ff ** -0.5
+
+    def rank(g):
+        with _axis.census() as calls:
+            y = moe_apply(x[g.rank * tokens:(g.rank + 1) * tokens], wg, w1[g.rank], w2[g.rank],
+                          group=g, capacity=capacity)
+        return y, dict(calls)
+
+    ThreadWorld(experts, timeout=MODEL_RANK_TIMEOUT).run(rank)  # warm-up
+    res, ms = _wall_ms(lambda: ThreadWorld(experts, timeout=MODEL_RANK_TIMEOUT).run(rank), device)
+    got = torch.cat([y for y, _ in res])
+    want, ref_ms = _wall_ms(lambda: moe_reference(x, wg, w1, w2, num_shards=experts,
+                                                  capacity=capacity), device)
+    err = _max_err(got, want)
+    _check(_within(got, want, MOE_TOL), f"moe: off the reference by {err}")
+    keep = torch.cat([_moe_route(s, wg)[2] < capacity for s in x.chunk(experts)])
+    dropped = int((~keep).sum())
+    _check(dropped > 0, "moe: no token overflowed its expert's capacity")
+    _check(bool((got[~keep] == 0).all()) and bool((want[~keep] == 0).all()),
+           "moe: a dropped token's output is not exactly zero")
+    _check(all(c == {"all_to_all": 2} for _, c in res), "moe: collectives")
+    if nccl:
+        one = moe_apply(x[:tokens], wg[:, :1], w1[0], w2[0], group=dist.group.WORLD,
+                        capacity=capacity)
+        ref1 = moe_reference(x[:tokens], wg[:, :1], w1[:1], w2[:1], num_shards=1,
+                             capacity=capacity)
+        nccl_err = _max_err(one, ref1)
+        _check(_within(one, ref1, MOE_TOL), f"moe: world 1 off by {nccl_err}")
+    per_rank = 2 * experts * capacity * d_model * x.element_size()
+    return {
+        "d_model": d_model, "d_ff": d_ff, "experts": experts, "tokens_per_shard": tokens,
+        "capacity": capacity, "dropped": dropped, "dropped_share": dropped / x.shape[0],
+        "ms": ms, "reference_ms": ref_ms, "max_abs_err": err, "tol": MOE_TOL,
+        "bytes_exchanged_per_rank": per_rank,
+        "bytes_crossing_ranks_per_rank": per_rank * (experts - 1) // experts,
+        "nccl_world1_max_abs_err": nccl_err if nccl else None,
+        "peak_bytes": _stream_peak(device),
+    }
+
+
+def _model_pipeline(device, gen, widths, stages, blocks, micro, length, nccl):
+    """Leg (d): ``pipeline_apply`` over ``ThreadWorld(stages)``, each stage
+    ``blocks`` float32 ``Block``s at ``widths``, against
+    ``pipeline_reference``."""
+    _reset_peak(device)
+    d_model, n_heads, d_ff = widths["d_model"], widths["n_heads"], widths["d_ff"]
+
+    def stage_module(dev):
+        return torch.nn.Sequential(*[Block(d_model, n_heads, d_ff, device=dev)
+                                     for _ in range(blocks)])
+
+    stage_states = []
+    for _ in range(stages):
+        m = stage_module(device)
+        init_params(m, gen)
+        stage_states.append(m.state_dict())
+        del m
+    stacked = {k: torch.stack([s[k] for s in stage_states]) for k in stage_states[0]}
+    del stage_states
+    def stage_fn_of(template):
+        # functional_call swaps the template's parameters while it runs:
+        # one template a thread
+        return lambda p, a: torch.func.functional_call(template, p, (a,))
+
+    stage_fn = stage_fn_of(stage_module("meta"))
+    x = torch.randn((micro, 1, length, d_model), generator=gen, device=device)
+
+    def rank(g):
+        fn = stage_fn_of(stage_module("meta"))
+        with _axis.census() as calls:
+            y = pipeline_apply(fn, {k: v[g.rank] for k, v in stacked.items()}, x, group=g)
+        return y, dict(calls)
+
+    res, ms = _wall_ms(lambda: ThreadWorld(stages, timeout=MODEL_RANK_TIMEOUT).run(rank), device)
+    want, ref_ms = _wall_ms(lambda: pipeline_reference(stage_fn, stacked, x), device)
+    errs = [_max_err(y, want) for y, _ in res]
+    _check(all(_within(y, want, PIPE_TOL) for y, _ in res), f"pipeline: off by {max(errs)}")
+    ticks = micro + stages - 1
+    _check(all(c == {"ppermute": ticks, "psum": 1} for _, c in res), "pipeline: collectives")
+    if nccl:
+        one = pipeline_apply(stage_fn, {k: v[0] for k, v in stacked.items()}, x,
+                             group=dist.group.WORLD)
+        ref1 = pipeline_reference(stage_fn, {k: v[:1] for k, v in stacked.items()}, x)
+        nccl_err = _max_err(one, ref1)
+        _check(_within(one, ref1, PIPE_TOL), f"pipeline: world 1 off by {nccl_err}")
+    return {
+        "stages": stages, "blocks_per_stage": blocks, "microbatches": micro,
+        "microbatch_shape": [1, length, d_model],
+        "parameter_bytes": sum(v.numel() * v.element_size() for v in stacked.values()),
+        "ticks": ticks, "bubble": (stages - 1) / ticks, "ms": ms, "reference_ms": ref_ms,
+        "max_abs_err": max(errs), "tol": PIPE_TOL,
+        "nccl_world1_max_abs_err": nccl_err if nccl else None,
+        "peak_bytes": _stream_peak(device),
+    }
+
+
+@contextlib.contextmanager
+def _world1_group(device):
+    """A real ``torch.distributed`` group of world 1 for the phase's
+    distributed legs: NCCL on the card (which refuses two ranks on one
+    device), gloo on the CPU."""
+    _check(not dist.is_initialized(), "torch.distributed is already initialized")
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{launcher.free_port()}",
+                            rank=0, world_size=1)
+    try:
+        yield backend
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_model(device, widths=None, window=LLAMA3_CONTEXT, steps=MODEL_STEPS,
+                long_layers=LONG_CONTEXT_LAYERS, dp=2, sp=4, moe=None, moe_tokens=MOE_TOKENS,
+                moe_capacity=MOE_CAPACITY, pp=PIPE_STAGES, pp_blocks=PIPE_BLOCKS,
+                micro=PIPE_MICRO, micro_len=PIPE_LEN, seed=19):
+    """The model runtime on the card (see the module docstring). Cuts: the
+    long-context leg runs ``LONG_CONTEXT_LAYERS`` of 32 layers; the
+    pipeline leg eight Llama-width blocks; no width is cut."""
+    widths = dict(LLAMA3_8B if widths is None else widths)
+    moe = dict(SWITCH_BASE_8 if moe is None else moe)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        _check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 matmuls")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    k1 = _kernels.LAUNCHES["fused_auc_hist"]
+    out = {"phase": "model", "device": str(device)}
+    with torch.no_grad(), _world1_group(device) as backend:
+        model, out["eval_step"], last = _model_eval(device, gen, widths, window, steps)
+        out["tools"] = _model_tools(device, model, last[0], widths)
+        out["eval_step"]["float32"] = _model_float32_check(device, model, last,
+                                                           widths["n_layers"])
+        del model, last
+        if cuda:
+            torch.cuda.empty_cache()
+        out["long_context"] = _model_long_context(device, gen, widths, long_layers, dp, sp,
+                                                  window, nccl=True)
+        out["moe"] = _model_moe(device, gen, moe["d_model"], moe["d_ff"], moe["experts"],
+                                moe_tokens, moe_capacity, nccl=True)
+        out["pipeline"] = _model_pipeline(device, gen, widths, pp, pp_blocks, micro, micro_len,
+                                          nccl=True)
+        out["world1_backend"] = backend
+    out["k1_launches"] = _kernels.LAUNCHES["fused_auc_hist"] - k1
+    _check(out["k1_launches"] == 0, "model: K1 launched")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -7543,6 +8078,8 @@ def main(argv=None) -> int:
     _emit(serving)
     wan = phase_wan(device, seed=args.seed + 18)
     _emit(wan)
+    model = phase_model(device, seed=args.seed + 19)
+    _emit(model)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -7567,6 +8104,7 @@ def main(argv=None) -> int:
         "launches_shard_quality": shard_quality["k1_launches"],
         "launches_serving": serving["k1_launches"],
         "launches_wan": wan["k1_launches"],
+        "launches_model": model["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

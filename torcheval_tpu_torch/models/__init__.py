@@ -1,4 +1,5 @@
-"""Models of the port: InceptionV3, FID's default feature extractor."""
+"""Models of the port: InceptionV3 (FID's default feature extractor), the
+transformer LM and the long-context LM on ring attention."""
 
 from torcheval_tpu_torch.models.inception import (
     FEATURE_DIM,
@@ -7,8 +8,24 @@ from torcheval_tpu_torch.models.inception import (
     init_inception_params,
     load_torchvision_inception_params,
 )
+from torcheval_tpu_torch.models.long_context import (
+    init_long_context_lm,
+    long_context_lm,
+    perplexity_counters,
+)
+from torcheval_tpu_torch.models.transformer import (
+    TransformerLM,
+    init_params,
+    param_specs,
+)
 
 __all__ = [
+    "TransformerLM",
+    "init_params",
+    "param_specs",
+    "init_long_context_lm",
+    "long_context_lm",
+    "perplexity_counters",
     "FEATURE_DIM",
     "InceptionV3",
     "from_flax_variables",

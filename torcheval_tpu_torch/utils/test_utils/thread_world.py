@@ -13,6 +13,10 @@ Counterpart of ``torcheval_tpu/utils/test_utils/thread_world.py``. The
 ranks are threads of one process, so on a card they share one CUDA
 context and, unless a rank picks its own, the default stream; each
 rank's gathers carry host numpy (``synclib`` packs on the caller).
+``ThreadRankGroup.exchange_tensors`` is the device-tensor twin: it hands
+tensors over by reference, with no host copy, which is how the port's
+``parallel`` collectives run a ring of several ranks on one card (NCCL
+refuses two ranks on one device).
 
 ::
 
@@ -30,6 +34,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from torcheval_tpu_torch.distributed import ProcessGroup, _as_numpy, _check_subgroup_ranks
 
@@ -178,3 +183,29 @@ class ThreadRankGroup(ProcessGroup):
 
     def allgather_array(self, x: Any) -> List[np.ndarray]:
         return [np.asarray(a) for a in self._exchange(_as_numpy(x))]
+
+    def exchange_tensors(self, tensors: Any) -> List[Any]:
+        """Gather ``tensors`` (a tensor, or a tuple of tensors) from every
+        member, in rank order, by reference: no host copy, the readers get
+        the depositors' own tensor objects, so nobody may write them in
+        place afterwards. A CUDA depositor records an event on its current
+        stream; a reader on another stream waits on it and marks each
+        tensor used by its stream (``record_stream``), so the allocator
+        keeps the memory alive until the reader's work on it is done."""
+        items = tensors if isinstance(tensors, tuple) else (tensors,)
+        event = stream = None
+        if any(t.is_cuda for t in items):
+            stream = torch.cuda.current_stream()
+            event = torch.cuda.Event()
+            event.record(stream)
+        out = []
+        for got, got_event, got_stream in self._exchange((tensors, event, stream)):
+            if got_event is not None:
+                mine = torch.cuda.current_stream()
+                if got_stream != mine:
+                    mine.wait_event(got_event)
+                    for t in got if isinstance(got, tuple) else (got,):
+                        if t.is_cuda:
+                            t.record_stream(mine)
+            out.append(got)
+        return out
