@@ -431,13 +431,58 @@ phases, printing one JSON line for each:
    ms. Legs (b)-(d) also run once over a real NCCL group of world 1
    against the same oracle. K1 must not launch.
 
+20. ``train``: training through the port (``parallel.backward``, the
+   DTensor step of ``examples/train_step.py``), float32 matmuls without
+   TF32. First a probe: two rank threads swap a tensor through an
+   autograd ``Function`` whose backward is itself a swap, and call
+   ``loss.backward()`` (each waits ``PROBE_TIMEOUT`` s on the other): on
+   the card autograd runs every CUDA node on one device thread, so the
+   probe reports which threads ran the nodes and whether the swap
+   deadlocked; the same swap through ``_axis.ppermute`` and
+   ``parallel.backward`` must give both ranks their gradients. (a)
+   ``step``: ``TransformerLM`` at Meta-Llama-3-8B's widths in float32,
+   ``TRAIN_LAYERS`` = 4 layers (**cut** from 32: parameters, gradients and
+   two Adam moments take 16 B a parameter, 112 GB at 32 layers, 29 GB at
+   4), a fixed seeded batch of ``TRAIN_BATCH`` = 2 windows of
+   ``TRAIN_WINDOW`` = 2,048 tokens (**cut** from 8,192: one saved S x S
+   float32 score tensor is 8.6 GB a layer a window at 8,192), its
+   parameters DTensors on a dp 1 x tp 1 ``DeviceMesh`` over NCCL world 1
+   placed by ``param_specs``, ``torch.optim.Adam(lr=1e-3)``: the FLOP count
+   (``FlopCounter``) equal to the analytic 10,900,626,997,248 forward and
+   twice that backward; step 0's loss, counters and every gradient against
+   the plain step of the same model on the card (``TRAIN_LOSS_RTOL``,
+   ``TRAIN_GRAD_RTOL``; ``num_correct`` and ``num_total`` exact), then one
+   optimizer step and ``TRAIN_STEPS`` = 3 timed steps, the loss falling.
+   Reported: step, forward, backward and optimizer ms (CUDA events,
+   median), tokens/s, TFLOP/s forward plus backward and the share of the
+   float32 peak, the counters' ms alone and their share of the step, peak
+   bytes, the losses. (b) gradient legs, each against its dense oracle's
+   ``torch.autograd`` gradients and once more over the world-1 group:
+   ``ring``: ``ring_attention`` at 32 heads x 128 over ``ThreadWorld(4)``,
+   one 8,192-token window, dq, dk and dv within 2e-4; ``moe``: Switch-Base-8
+   widths, 8 expert threads, 2,048 tokens a shard, capacity factors 1.25
+   and 0.25, the gradients of x, wg (summed over the ranks), w1 and w2
+   within 1e-4 of their largest element of the float64 oracle's, plus a
+   ReLU kink allowance (``_moe_kink_allowance``), and a dropped token's
+   exactly zero; ``pipeline``: 4 stages
+   of one Llama-width float32 ``Block`` each (**cut** from two, for the
+   saved activations), 8 microbatches of (1, 1,024, 4,096), each rank's
+   loss the replicated output's over 4, every parameter's gradient within
+   1e-5; the ring and pipeline census: one ``backward_plan`` and a
+   backward call for every hop but the last, which nothing reads. (c)
+   ``examples``: the ``main`` of ``eval_panel_example``,
+   ``llm_eval_example``, ``multihost_example`` (over the NCCL world-1
+   group) and ``scaleout_example`` (8 rank threads) on the card, each
+   marker checked; K1 launches once a ``StreamingBinaryAUROC`` update in
+   ``eval_panel`` and never in the training legs or the other examples.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 19 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 20 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -446,6 +491,7 @@ import argparse
 import contextlib
 import copy
 import importlib
+import io
 import json
 import logging
 import math
@@ -466,6 +512,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -577,14 +624,27 @@ from torcheval_tpu_torch.models import (  # noqa: E402
     perplexity_counters,
 )
 from torcheval_tpu_torch.models.inception import FEATURE_DIM, init_inception_params  # noqa: E402
-from torcheval_tpu_torch.models.transformer import Block  # noqa: E402
+from torcheval_tpu_torch.models.transformer import Block, param_specs  # noqa: E402
+from torcheval_tpu_torch.examples import (  # noqa: E402
+    eval_panel_example,
+    llm_eval_example,
+    multihost_example,
+    scaleout_example,
+)
+from torcheval_tpu_torch.examples import train_step as train_example  # noqa: E402
+from torcheval_tpu_torch.metrics.functional.classification.accuracy import (  # noqa: E402
+    _multiclass_accuracy_update,
+)
 from torcheval_tpu_torch.parallel import (  # noqa: E402
     _axis,
+    dense_reference_attention,
     moe_apply,
     moe_reference,
     pipeline_apply,
     pipeline_reference,
+    ring_attention,
 )
+from torcheval_tpu_torch.parallel import backward as parallel_backward  # noqa: E402
 from torcheval_tpu_torch.parallel.moe import _route as _moe_route  # noqa: E402
 from torcheval_tpu_torch.tools import (  # noqa: E402
     FlopCounter,
@@ -6748,6 +6808,25 @@ def _pct(values, q):
     return float(np.percentile(np.asarray(values), q)) if values else None
 
 
+def _wan_covering_version(plane, gen, interval):
+    """The first retained merged version whose round took this rank's
+    publish ``gen`` (or a later one), waiting for the plane thread."""
+    deadline = time.monotonic() + 10 * interval + 60.0
+    while True:
+        hits = [v for v, rec in plane.retained().items() if rec.generation >= gen]
+        if hits:
+            return min(hits)
+        _check(time.monotonic() < deadline, f"plane: no round took publish {gen}")
+        time.sleep(0.05)
+
+
+def _wan_wait_version(plane, version, interval):
+    deadline = time.monotonic() + 10 * interval + 60.0
+    while plane.version < version:
+        _check(time.monotonic() < deadline, f"plane: version {plane.version} < {version}")
+        time.sleep(0.05)
+
+
 def _wan_plane(device, seed, n, batch, steps, world, num_bins, classes, interval, blocking_every):
     """Arm (b): ``SyncPlane(interval=...)`` over the ranks, a publish a
     step. Three collections a rank, stepped in turn: plane off, plane
@@ -6756,7 +6835,7 @@ def _wan_plane(device, seed, n, batch, steps, world, num_bins, classes, interval
     tw = ThreadWorld(world, timeout=600.0)
     lat = {"off": {}, "armed": {}, "blocking": {}}
     pub_us, pub_bytes, gathers, extra = {}, {}, {}, {}
-    checks = {}
+    checks, covers = {}, {}
     barrier = threading.Barrier(world)
 
     def body(g):
@@ -6788,12 +6867,13 @@ def _wan_plane(device, seed, n, batch, steps, world, num_bins, classes, interval
             frozen = {k: toolkit.clone_metric(m) for k, m in colls["armed"].items()}
             gen = plane.publish()
             barrier.wait()
-            deadline = time.monotonic() + 10 * interval + 60.0
-            while time.monotonic() < deadline:
-                rec = plane.retained().get(plane.version)
-                if rec is not None and rec.generation == gen:
-                    break
-                time.sleep(0.05)
+            # a round merges each rank's publish as that rank's plane
+            # thread found it when the round began, so the round that took
+            # this rank's last publish may still hold an older one of a
+            # peer's: read only at a version that took every rank's
+            covers[g.rank] = _wan_covering_version(plane, gen, interval)
+            barrier.wait()
+            _wan_wait_version(plane, max(covers.values()), interval)
             read = plane.read()
             oracle = toolkit.get_synced_metric_collection(frozen, g)
             same = all(_wan_value(read[k]).tobytes() == _wan_value(oracle[k]).tobytes()
@@ -7777,6 +7857,493 @@ def phase_model(device, widths=None, window=LLAMA3_CONTEXT, steps=MODEL_STEPS,
     return out
 
 
+
+TRAIN_LAYERS = 4  # phase 20's training step: **cut** from 32 (16 B a parameter with Adam)
+TRAIN_BATCH, TRAIN_WINDOW = 2, 2048  # **cut** from 8,192 positions (saved S x S scores)
+TRAIN_STEPS = 3  # timed steps after one warm-up step
+FP32_DENSE_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (NVIDIA data sheet)
+# the DTensor step against the plain step on the same card, same kernels at
+# dp 1 x tp 1: the loss and the NLL sum within TRAIN_LOSS_RTOL; each
+# gradient within TRAIN_GRAD_RTOL of its largest element (the embedding's
+# scatter-add accumulates in no fixed order)
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_GRAD_RTOL = 1e-5
+GRAD_RING_TOKENS = 8192  # leg (b) ring: one Llama window over sp 4
+GRAD_RING_SP = 4
+GRAD_MOE_FACTORS = (1.25, 0.25)  # capacity factors: 320 and 64 tokens of 2,048 a shard
+GRAD_PIPE_STAGES, GRAD_PIPE_MICRO, GRAD_PIPE_LEN = 4, 8, 1024  # one Block a stage: **cut** from two
+RING_GRAD_TOL = 2e-4  # tests/parallel/test_ring_attention.py::test_ring_attention_grads_flow
+MOE_GRAD_TOL = 1e-4  # tests/parallel/test_moe.py::test_moe_grads_flow, of the largest element
+PIPE_GRAD_TOL = 1e-5  # tests/parallel/test_pipeline.py::test_pipeline_grads_flow
+PROBE_TIMEOUT = 5.0  # seconds the probe's rank threads wait on each other
+
+
+class _BackwardExchange(torch.autograd.Function):
+    """The probe's collective: a swap of two ranks whose backward swaps
+    the cotangents back, inside autograd's own backward node."""
+
+    @staticmethod
+    def forward(ctx, g, x, threads):
+        ctx.g, ctx.threads = g, threads
+        return g.exchange_tensors(x.detach())[1 - g.rank].clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        ctx.threads.append(threading.get_ident())
+        return None, ctx.g.exchange_tensors(ct.contiguous())[1 - ctx.g.rank].clone(), None
+
+
+def _train_probe(device):
+    """Two rank threads, one swap each, ``loss.backward()``: does a
+    collective inside autograd's backward node run on the rank's thread,
+    and does it deadlock? Then the same swap through ``_axis.ppermute`` and
+    ``parallel.backward``, which must give both ranks their gradients."""
+    threads = []
+    res = {}
+
+    def node(g):
+        x = torch.full((4,), float(g.rank + 1), device=device, requires_grad=True)
+        loss = (_BackwardExchange.apply(g, x, threads) * (g.rank + 2)).sum()
+        t0 = time.perf_counter()
+        try:
+            loss.backward()
+            got = {"ok": True, "grad": x.grad.tolist()}
+        except TimeoutError as e:  # the finding, not a failure of the phase
+            got = {"ok": False, "error": f"TimeoutError: {e}"}
+        got.update(seconds=time.perf_counter() - t0, thread=threading.get_ident())
+        res[g.rank] = got
+
+    ThreadWorld(2, timeout=PROBE_TIMEOUT).run(node)
+    _sync(device)
+    rank_threads = {r["thread"] for r in res.values()}
+
+    def tape(g):
+        x = torch.full((4,), float(g.rank + 1), device=device, requires_grad=True)
+        y = _axis.ppermute(x, g, [(0, 1), (1, 0)])
+        parallel_backward((y * (g.rank + 2)).sum())
+        return x.grad.tolist()
+
+    taped = ThreadWorld(2, timeout=MODEL_RANK_TIMEOUT).run(tape)
+    _check(taped == [[3.0] * 4, [2.0] * 4], f"probe: parallel.backward gave {taped}")
+    return {
+        "autograd_node": {str(r): {k: v for k, v in res[r].items() if k != "thread"}
+                          for r in sorted(res)},
+        "deadlocked": not all(r["ok"] for r in res.values()),
+        "backward_threads": len(set(threads)),
+        "backward_on_rank_threads": all(t in rank_threads for t in threads),
+        "parallel_backward_grads": taped,
+    }
+
+
+def _grad_close(got, want, rtol):
+    """Each tensor within ``rtol`` of its largest element."""
+    errs = {k: _max_err(got[k], want[k]) for k in want}
+    bad = {k: e for k, e in errs.items() if e > rtol * float(want[k].abs().max())}
+    return max(errs.values()), bad
+
+
+def _train_step_leg(device, gen, widths, layers, batch, window, steps):
+    """Leg (a): the dp x tp training step at dp 1 x tp 1 over the world-1
+    group, against the same model's plain step on the card."""
+    cuda = torch.device(device).type == "cuda"
+    _reset_peak(device)
+    w = dict(widths, n_layers=layers)
+    model = TransformerLM(**w, device=device)
+    init_params(model, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    seqs = torch.randint(0, w["vocab_size"], (batch, window + 1), generator=gen, device=device)
+    tokens, targets = seqs[:, :-1].contiguous(), seqs[:, 1:].contiguous()
+    fc = FlopCounter(model)
+    fc.run(tokens, backward=True)  # the logits are dropped at once
+    flops_fwd, flops_bwd = fc.flop_counts[""], fc.flop_counts_backward[""]
+    analytic = _lm_flops(**w, seq=window, batch=batch)
+    _check(flops_fwd == analytic, f"train: FlopCounter reads {flops_fwd} forward FLOPs, not {analytic}")
+    _check(flops_bwd == 2 * flops_fwd, f"train: backward {flops_bwd} FLOPs, not 2 x {flops_fwd}")
+
+    # the plain step's loss, counters and gradients
+    loss, counters = train_example.loss_and_metrics(model, tokens, targets)
+    train_example.backward(model, loss)
+    plain = {"loss": float(loss.detach()), "counters": {k: float(v) for k, v in counters.items()},
+             "grads": {k: p.grad for k, p in model.named_parameters()}}
+    del loss, counters
+    for p in model.parameters():
+        p.grad = None
+
+    # the same model as DTensors on a dp 1 x tp 1 mesh
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh(torch.device(device).type, (1, 1), mesh_dim_names=("dp", "tp"))
+    train_example.shard_model(model, mesh)
+    specs = param_specs(model)
+    placements = {k: tuple(str(q) for q in p.placements) for k, p in model.named_parameters()}
+    _check(all(placements[k] == tuple(str(q) for q in train_example.placements(specs[k]))
+               for k in specs), "train: placements differ from param_specs")
+    opt = torch.optim.Adam(model.parameters(), lr=train_example.LR)
+    dp_group = mesh.get_group("dp")
+    d_tokens, d_targets = (train_example.shard_batch(t, mesh) for t in (tokens, targets))
+
+    def step(clock=None):
+        opt.zero_grad(set_to_none=True)
+        if clock:
+            clock.mark()
+        loss, counters = train_example.loss_and_metrics(model, d_tokens, d_targets, dp_group)
+        if clock:
+            clock.mark()
+        train_example.backward(model, loss)
+        if clock:
+            clock.mark()
+        return train_example.global_loss(loss, dp_group), counters
+
+    loss, counters = step()
+    got = {"loss": float(loss), "counters": {k: float(v) for k, v in counters.items()}}
+    _check(abs(got["loss"] - plain["loss"]) <= TRAIN_LOSS_RTOL * abs(plain["loss"]),
+           f"train: DTensor loss {got['loss']} against plain {plain['loss']}")
+    _check(got["counters"]["num_total"] == plain["counters"]["num_total"] == batch * window,
+           f"train: num_total {got['counters']['num_total']}, not {batch * window}")
+    _check(got["counters"]["num_correct"] == plain["counters"]["num_correct"],
+           f"train: num_correct {got['counters']['num_correct']} against "
+           f"{plain['counters']['num_correct']}")
+    _check(abs(got["counters"]["sum_log_probs"] - plain["counters"]["sum_log_probs"])
+           <= TRAIN_LOSS_RTOL * abs(plain["counters"]["sum_log_probs"]), "train: sum_log_probs")
+    grads = {k: p.grad.full_tensor() for k, p in model.named_parameters()}
+    grad_err, bad = _grad_close(grads, plain["grads"], TRAIN_GRAD_RTOL)
+    _check(not bad, f"train: gradients off the plain step: {bad}")
+    del grads, plain
+    opt.step()
+    losses = [got["loss"]]
+    fwd_ms, bwd_ms, opt_ms, step_ms = [], [], [], []
+    _reset_peak(device)
+    for _ in range(steps):
+        clock = _Clock(device)
+        loss, counters = step(clock)
+        opt.step()
+        clock.mark()
+        _sync(device)
+        fwd_ms.append(clock.ms(0, 1))
+        bwd_ms.append(clock.ms(1, 2))
+        opt_ms.append(clock.ms(2, 3))
+        step_ms.append(clock.ms(0, 3))
+        losses.append(float(loss))
+        _check(float(counters["num_total"]) == batch * window, "train: num_total")
+    peak = _stream_peak(device)
+    _check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+           f"train: the loss did not fall over the steps: {losses}")
+    # the counters alone, on the last step's logits (CUDA events / host clock)
+    with torch.no_grad():
+        logits = model(d_tokens).redistribute(placements=(Shard(0), Replicate())).to_local()
+        flat_t = targets.reshape(-1)
+
+        def count():
+            _multiclass_accuracy_update(logits.reshape(-1, w["vocab_size"]), flat_t, "micro", None, 1)
+            nll = -torch.take_along_dim(F.log_softmax(logits, dim=-1), targets[..., None], dim=-1)
+            return nll.sum()
+
+        counter_ms = _median([_wall_ms(count, device)[1] for _ in range(3)])
+        del logits
+    step_med = _median(step_ms)
+    fb_ms = _median(fwd_ms) + _median(bwd_ms)
+    return {
+        "widths": w, "dtype": "float32", "parameters": n_params, "batch": batch, "window": window,
+        "mesh": {"dp": 1, "tp": 1}, "steps": steps, "losses": losses,
+        "loss_plain_step0": got["loss"], "grad_max_abs_err": grad_err,
+        "counters_step0": got["counters"],
+        "step_ms": step_ms, "step_ms_median": step_med, "forward_ms_median": _median(fwd_ms),
+        "backward_ms_median": _median(bwd_ms), "optimizer_ms_median": _median(opt_ms),
+        "tokens_per_s": batch * window / (step_med / 1e3),
+        "flops_forward": flops_fwd, "flops_backward": flops_bwd,
+        "tflops_per_s": (flops_fwd + flops_bwd) / (fb_ms / 1e3) / 1e12 if cuda else None,
+        "fp32_peak_share": (flops_fwd + flops_bwd) / (fb_ms / 1e3) / FP32_DENSE_PEAK if cuda else None,
+        "counters_ms": counter_ms, "counters_share_of_step": counter_ms / step_med,
+        "peak_bytes": peak,
+    }
+
+
+def _grads_of(tensors):
+    return [t.grad for t in tensors]
+
+
+def _grad_ring(device, gen, heads, head_dim, tokens, sp):
+    """Leg (b) ring: ``ring_attention`` over ``ThreadWorld(sp)`` and over
+    the world-1 group, dq, dk, dv against the dense oracle's."""
+    _reset_peak(device)
+    q, k, v = (torch.randn((1, tokens, heads, head_dim), generator=gen, device=device)
+               for _ in range(3))
+    dense = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (dense_reference_attention(*dense) ** 2).sum().backward()
+    want = _grads_of(dense)
+    del dense
+    blk = tokens // sp
+
+    def rank(g):
+        cut = slice(g.rank * blk, (g.rank + 1) * blk)
+        mine = [t[:, cut].clone().requires_grad_(True) for t in (q, k, v)]
+        with _axis.census() as calls:
+            out = ring_attention(*mine, group=g, causal=True)
+            parallel_backward((out ** 2).sum())
+        return _grads_of(mine), dict(calls)
+
+    res, ms = _wall_ms(lambda: ThreadWorld(sp, timeout=MODEL_RANK_TIMEOUT).run(rank), device)
+    errs = []
+    for i, name in enumerate("qkv"):
+        got = torch.cat([r[0][i] for r in res], dim=1)
+        errs.append(_max_err(got, want[i]))
+        _check(_within(got, want[i], RING_GRAD_TOL), f"ring grads: d{name} off by {errs[-1]}")
+    # the last hop is wasted: nothing reads it, so it moves nothing back
+    _check(all(c == {"ppermute": sp, "backward_plan": 1, "ppermute_bwd": sp - 1} for _, c in res),
+           "ring grads: census")
+    del res
+    mine = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    parallel_backward((ring_attention(*mine, group=dist.group.WORLD) ** 2).sum())
+    world1 = max(_max_err(g, w) for g, w in zip(_grads_of(mine), want))
+    _check(all(_within(g, w, RING_GRAD_TOL) for g, w in zip(_grads_of(mine), want)),
+           f"ring grads: world 1 off by {world1}")
+    return {"tokens": tokens, "heads": heads, "head_dim": head_dim, "sp": sp, "ms": ms,
+            "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]}, "tol": RING_GRAD_TOL,
+            "nccl_world1_max_abs_err": world1, "peak_bytes": _stream_peak(device)}
+
+
+def _moe_reference_grads(args, dtype, **kw):
+    """The gradients of ``sum(moe_reference(*args) ** 2)`` in ``dtype``."""
+    dense = [t.to(dtype).clone().requires_grad_(True) for t in args]
+    (moe_reference(*dense, **kw) ** 2).sum().backward()
+    return _grads_of(dense)
+
+
+def _moe_kink_allowance(x, wg, w1, w2, num_shards, capacity):
+    """How far a float32 gradient of ``sum(moe_apply(...) ** 2)`` may
+    legitimately sit from the float64 one, element by element, for x and
+    w1: a ReLU expert's gradient jumps where a pre-activation h crosses
+    zero, and a float32 h lies within ``d u sum_k |x_k w_kj|`` of the exact
+    one (the dot-product error bound, u = 2^-24), so a hidden unit that
+    close to zero may be on or off. Flipping unit j of token t moves
+    dx_t by |dh_tj| |w1_:j| and dw1_:j by |x_t| |dh_tj|, dh the cotangent
+    of the unit's output. In float64, with the float32 routing."""
+    d = x.shape[1]
+    u = 2.0 ** -24
+    allow_x = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    allow_w1 = torch.zeros(w1.shape, dtype=torch.float64, device=x.device)
+    x64, w1_64, w2_64 = x.double(), w1.double(), w2.double()
+    for i, shard in enumerate(x.chunk(num_shards)):
+        expert, _, position = _moe_route(shard, wg)
+        gate = torch.softmax(shard.double() @ wg.double(), dim=-1).gather(1, expert[:, None])
+        base = i * shard.shape[0]
+        for e in range(w1.shape[0]):
+            rows = torch.nonzero((expert == e) & (position < capacity)).squeeze(1)
+            if not rows.numel():
+                continue
+            xs = x64[base + rows]
+            h = xs @ w1_64[e]
+            y = gate[rows] * (torch.relu(h) @ w2_64[e])
+            dh = gate[rows] * ((2 * y) @ w2_64[e].T)
+            near = h.abs() <= d * u * (xs.abs() @ w1_64[e].abs())
+            flips = torch.where(near, dh.abs(), 0.0)
+            allow_x[base + rows] += flips @ w1_64[e].abs().T
+            allow_w1[e] += xs.abs().T @ flips
+    return allow_x, allow_w1
+
+
+def _moe_grad_errs(what, got, want32, want64, allow):
+    """Each gradient against the float64 oracle, element by element:
+    within ``MOE_GRAD_TOL`` of the largest element, plus, for x and w1,
+    the ReLU kink allowance (``_moe_kink_allowance``). The float32
+    oracle's own distance is reported beside."""
+    errs = {}
+    for name, a, b, c, extra in zip(("x", "wg", "w1", "w2"), got, want32, want64,
+                                     (allow[0], 0.0, allow[1], 0.0)):
+        diff = (a.double() - c).abs()
+        base = MOE_GRAD_TOL * float(c.abs().max())
+        errs[name] = {"vs_float64": float(diff.max()), "vs_float32_oracle": _max_err(a, b),
+                      "float32_oracle_vs_float64": _max_err(b, c), "tol_of_max": base,
+                      "past_tol_of_max": int((diff > base).sum())}
+        _check(bool((diff <= base + extra).all()),
+               f"{what}: d{name} {errs[name]['vs_float64']} off float64, past "
+               f"{base} plus the kink allowance")
+    return errs
+
+
+def _grad_moe(device, gen, d_model, d_ff, experts, tokens, factors):
+    """Leg (b) MoE: ``moe_apply`` over ``ThreadWorld(experts)`` at each
+    capacity factor, and over the world-1 group: the gradients of x, wg
+    (summed over the ranks), w1 and w2 against ``moe_reference``'s in
+    float64 (``_moe_grad_errs``), the float32 oracle's beside; a dropped
+    token's cotangent exactly zero."""
+    _reset_peak(device)
+    wg = torch.randn((d_model, experts), generator=gen, device=device) * d_model ** -0.5
+    skew = torch.randn((d_model,), generator=gen, device=device) * MOE_SKEW
+    x = torch.randn((experts * tokens, d_model), generator=gen, device=device) + skew
+    w1 = torch.randn((experts, d_model, d_ff), generator=gen, device=device) * d_model ** -0.5
+    w2 = torch.randn((experts, d_ff, d_model), generator=gen, device=device) * d_ff ** -0.5
+    out = {"d_model": d_model, "d_ff": d_ff, "experts": experts, "tokens_per_shard": tokens,
+           "tol": MOE_GRAD_TOL, "factors": {}}
+    for factor in factors:
+        capacity = int(tokens / experts * factor)
+        kw = dict(num_shards=experts, capacity=capacity)
+        want64 = _moe_reference_grads((x, wg, w1, w2), torch.float64, **kw)
+        want = _moe_reference_grads((x, wg, w1, w2), torch.float32, **kw)
+
+        def rank(g):
+            cut = slice(g.rank * tokens, (g.rank + 1) * tokens)
+            mine = [t.clone().requires_grad_(True) for t in (x[cut], wg, w1[g.rank], w2[g.rank])]
+            parallel_backward((moe_apply(*mine, group=g, capacity=capacity) ** 2).sum())
+            return _grads_of(mine)
+
+        res, ms = _wall_ms(lambda: ThreadWorld(experts, timeout=MODEL_RANK_TIMEOUT).run(rank),
+                           device)
+        got = [torch.cat([r[0] for r in res]), sum(r[1] for r in res),
+               torch.stack([r[2] for r in res]), torch.stack([r[3] for r in res])]
+        allow = _moe_kink_allowance(x, wg, w1, w2, experts, capacity)
+        errs = _moe_grad_errs(f"moe grads at {factor}", got, want, want64, allow)
+        keep = torch.cat([_moe_route(s, wg)[2] < capacity for s in x.chunk(experts)])
+        dropped = int((~keep).sum())
+        _check(dropped > 0 and bool((got[0][~keep] == 0).all()),
+               f"moe grads at {factor}: {dropped} dropped, a dropped token's cotangent not zero")
+        out["factors"][str(factor)] = {"capacity": capacity, "dropped": dropped,
+                                       "dropped_share": dropped / x.shape[0], "ms": ms,
+                                       "errors": errs}
+        del res, got, want, want64
+    capacity = int(tokens / experts * factors[0])
+    one = (x[:tokens], wg[:, :1], w1[:1], w2[:1])
+    mine = [t.clone().requires_grad_(True) for t in (x[:tokens], wg[:, :1], w1[0], w2[0])]
+    parallel_backward((moe_apply(*mine, group=dist.group.WORLD, capacity=capacity) ** 2).sum())
+    kw = dict(num_shards=1, capacity=capacity)
+    want64, want = (_moe_reference_grads(one, dt, **kw) for dt in (torch.float64, torch.float32))
+    got = _grads_of(mine)
+    got[2:] = [got[2][None], got[3][None]]
+    allow = _moe_kink_allowance(*one, 1, capacity)
+    out["nccl_world1"] = _moe_grad_errs("moe grads at world 1", got, want, want64, allow)
+    out["peak_bytes"] = _stream_peak(device)
+    return out
+
+
+def _grad_pipeline(device, gen, widths, stages, micro, length):
+    """Leg (b) GPipe: ``pipeline_apply`` over ``ThreadWorld(stages)``, one
+    float32 Llama-width ``Block`` a stage, each rank's loss the replicated
+    output's divided by the stage count; every parameter's gradient against
+    ``pipeline_reference``'s, and over the world-1 group."""
+    _reset_peak(device)
+    d_model, n_heads, d_ff = widths["d_model"], widths["n_heads"], widths["d_ff"]
+    states = []
+    for _ in range(stages):
+        m = Block(d_model, n_heads, d_ff, device=device)
+        init_params(m, gen)
+        states.append(m.state_dict())
+        del m
+    stacked = {k: torch.stack([s[k] for s in states]) for k in states[0]}
+    del states
+    x = torch.randn((micro, 1, length, d_model), generator=gen, device=device)
+
+    def stage_fn_of(template):
+        return lambda p, a: torch.func.functional_call(template, p, (a,))
+
+    dense = {k: v.clone().requires_grad_(True) for k, v in stacked.items()}
+    (pipeline_reference(stage_fn_of(Block(d_model, n_heads, d_ff, device="meta")), dense, x)
+     ** 2).sum().backward()
+    want = {k: v.grad for k, v in dense.items()}
+    del dense
+
+    def rank(g):
+        fn = stage_fn_of(Block(d_model, n_heads, d_ff, device="meta"))
+        mine = {k: v[g.rank].clone().requires_grad_(True) for k, v in stacked.items()}
+        with _axis.census() as calls:
+            y = pipeline_apply(fn, mine, x, group=g)
+            parallel_backward((y ** 2).sum() / stages)
+        return {k: v.grad for k, v in mine.items()}, dict(calls)
+
+    res, ms = _wall_ms(lambda: ThreadWorld(stages, timeout=MODEL_RANK_TIMEOUT).run(rank), device)
+    got = {k: torch.stack([r[0][k] for r in res]) for k in want}
+    err = max(_max_err(got[k], want[k]) for k in want)
+    _check(all(_within(got[k], want[k], PIPE_GRAD_TOL) for k in want),
+           f"pipeline grads: off by {err}")
+    ticks = micro + stages - 1
+    _check(all(c == {"ppermute": ticks, "psum": 1, "backward_plan": 1,
+                     "ppermute_bwd": ticks - 1, "psum_bwd": 1} for _, c in res),
+           "pipeline grads: census")
+    del res, got
+    fn = stage_fn_of(Block(d_model, n_heads, d_ff, device="meta"))
+    mine = {k: v[0].clone().requires_grad_(True) for k, v in stacked.items()}
+    parallel_backward((pipeline_apply(fn, mine, x, group=dist.group.WORLD) ** 2).sum())
+    ref = {k: v[:1].clone().requires_grad_(True) for k, v in stacked.items()}
+    (pipeline_reference(fn, ref, x) ** 2).sum().backward()
+    world1 = max(_max_err(mine[k].grad, ref[k].grad[0]) for k in ref)
+    _check(all(_within(mine[k].grad, ref[k].grad[0], PIPE_GRAD_TOL) for k in ref),
+           f"pipeline grads: world 1 off by {world1}")
+    return {"stages": stages, "blocks_per_stage": 1, "microbatches": micro,
+            "microbatch_shape": [1, length, d_model], "ticks": ticks, "ms": ms,
+            "max_abs_err": err, "tol": PIPE_GRAD_TOL, "nccl_world1_max_abs_err": world1,
+            "peak_bytes": _stream_peak(device)}
+
+
+def _train_examples(device, scaleout_world):
+    """Leg (c): the four examples' ``main`` on ``device``, each marker
+    checked; K1 once a streaming update in ``eval_panel`` and never in the
+    others; ``multihost`` over the world-1 group."""
+    dev = str(device)
+    out, launches = {}, {}
+    runs = [
+        ("eval_panel", eval_panel_example, ["--device", dev], "eval panel done"),
+        ("llm_eval", llm_eval_example, ["--device", dev], "long-context perplexity="),
+        ("multihost", multihost_example, ["--device", dev], "done"),
+        ("scaleout", scaleout_example, ["--device", dev, "--world", str(scaleout_world)],
+         "scaleout done"),
+    ]
+    for name, module, argv, marker in runs:
+        k1 = _kernels.LAUNCHES["fused_auc_hist"]
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            res = module.main(argv)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        launches[name] = _kernels.LAUNCHES["fused_auc_hist"] - k1
+        _check(marker in printed.getvalue(), f"{name}: no {marker!r} in its output")
+        out[name] = {"seconds": seconds, "result": res, "k1_launches": launches[name]}
+    _check(out["multihost"]["result"]["world_size"] == 1, "multihost: not at world 1")
+    return out, launches
+
+
+def phase_train(device, widths=None, layers=TRAIN_LAYERS, batch=TRAIN_BATCH, window=TRAIN_WINDOW,
+                steps=TRAIN_STEPS, ring_tokens=GRAD_RING_TOKENS, ring_sp=GRAD_RING_SP,
+                moe=None, moe_tokens=MOE_TOKENS, moe_factors=GRAD_MOE_FACTORS,
+                pp=GRAD_PIPE_STAGES, micro=GRAD_PIPE_MICRO, micro_len=GRAD_PIPE_LEN,
+                scaleout_world=8, seed=20):
+    """Training through the port on the card (see the module docstring).
+    Cuts: the training step runs ``TRAIN_LAYERS`` of 32 layers over
+    ``TRAIN_BATCH`` windows of ``TRAIN_WINDOW`` positions; the GPipe leg
+    one block a stage; no width is cut."""
+    widths = dict(LLAMA3_8B if widths is None else widths)
+    moe = dict(SWITCH_BASE_8 if moe is None else moe)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        _check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 matmuls")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    k1 = _kernels.LAUNCHES["fused_auc_hist"]
+    out = {"phase": "train", "device": str(device)}
+    out["probe"] = _train_probe(device)
+    with _world1_group(device) as backend:
+        out["step"] = _train_step_leg(device, gen, widths, layers, batch, window, steps)
+        if cuda:
+            torch.cuda.empty_cache()
+        out["ring"] = _grad_ring(device, gen, widths["n_heads"],
+                                 widths["d_model"] // widths["n_heads"], ring_tokens, ring_sp)
+        out["moe"] = _grad_moe(device, gen, moe["d_model"], moe["d_ff"], moe["experts"],
+                               moe_tokens, moe_factors)
+        out["pipeline"] = _grad_pipeline(device, gen, widths, pp, micro, micro_len)
+        out["k1_launches_training"] = _kernels.LAUNCHES["fused_auc_hist"] - k1
+        _check(out["k1_launches_training"] == 0, "train: K1 launched in the training legs")
+        if cuda:
+            torch.cuda.empty_cache()
+        out["examples"], launches = _train_examples(device, scaleout_world)
+        out["world1_backend"] = backend
+    streaming = out["examples"]["eval_panel"]["result"]["streaming_updates"]
+    if cuda:
+        _check(launches == {"eval_panel": streaming, "llm_eval": 0, "multihost": 0, "scaleout": 0},
+               f"examples: K1 launches {launches}, not {streaming} in eval_panel alone")
+    out["k1_launches"] = _kernels.LAUNCHES["fused_auc_hist"] - k1
+    out["k1_streaming_updates"] = streaming
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -8080,6 +8647,8 @@ def main(argv=None) -> int:
     _emit(wan)
     model = phase_model(device, seed=args.seed + 19)
     _emit(model)
+    train = phase_train(device, seed=args.seed + 20)
+    _emit(train)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -8105,6 +8674,9 @@ def main(argv=None) -> int:
         "launches_serving": serving["k1_launches"],
         "launches_wan": wan["k1_launches"],
         "launches_model": model["k1_launches"],
+        "launches_train": train["k1_launches"],
+        "launches_train_training_legs": train["k1_launches_training"],
+        "launches_train_eval_panel": train["examples"]["eval_panel"]["k1_launches"],
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

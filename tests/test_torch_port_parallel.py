@@ -9,8 +9,8 @@ composed dp x sp / dp x pp / dp x ep steps, the collective census of the
 composed step (the port's analogue of
 ``tests/parallel/test_composed_mesh.py``'s HLO count), ``_axis`` itself,
 and one spawned gloo world of 4 driving ``_axis`` over
-``torch.distributed``. The ``*_grads_flow`` cases are not ported: the
-port's collectives carry no autograd yet.
+``torch.distributed``. The ``*_grads_flow`` cases are in
+``test_torch_port_parallel_grads.py``.
 """
 
 from __future__ import annotations

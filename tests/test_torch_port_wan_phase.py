@@ -9,6 +9,9 @@ in-step sync runs in ``test_torch_port_sharded.py``."""
 
 from __future__ import annotations
 
+import threading
+import time
+
 import chip_smoke
 
 CPU = "cpu"
@@ -45,3 +48,45 @@ def test_phase_wan_in_step_int8_over_two_gloo_processes():
     block."""
     out = chip_smoke._wan_in_step(CPU, 7, 4096, 512, 2, True)["gloo_world2"]
     assert out["max_abs_err"] <= out["bound"] and out["quantizer_calls"] == [2, 2]
+
+
+def test_plane_read_waits_for_a_round_that_took_every_ranks_last_publish(monkeypatch):
+    """A plane round merges each rank's publish as that rank's plane thread
+    found it when the round began. Force the interleaving where rank 0's
+    first round takes its last publish while rank 1's takes its first: the
+    arm must not read that round (its rank-1 part is stale), but wait for
+    one that took every rank's last publish, and then match the blocking
+    sync bitwise."""
+    steps = 2
+
+    class SkewedPlane(chip_smoke.SyncPlane):
+        def __init__(self, *args, **kwargs):
+            self.last_published = threading.Event()
+            self.read_once = threading.Event()
+            super().__init__(*args, **kwargs)
+
+        def publish(self):
+            if self.world_size > 1 and self.rank == 1 and self.publishes >= 1:
+                deadline = time.monotonic() + 30.0
+                while self.rounds < 1 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+            gen = super().publish()
+            if gen == steps + 1:
+                self.last_published.set()
+            return gen
+
+        def _round_on_stream(self):
+            if self.world_size > 1 and self.rank == 0:
+                self.last_published.wait(30.0)
+                if self.rounds >= 1:
+                    self.read_once.wait(2.0)
+            return super()._round_on_stream()
+
+        def read(self, names=None):
+            out = super().read(names)
+            self.read_once.set()
+            return out
+
+    monkeypatch.setattr(chip_smoke, "SyncPlane", SkewedPlane)
+    out = chip_smoke._wan_plane(CPU, 3, 8 * 512, 512, steps, 2, 64, 20, 0.2, steps + 1)
+    assert out["read_bitwise_to_blocking"] and out["serving_gathers"] == [0, 0]

@@ -36,6 +36,54 @@ from torcheval_tpu_torch.utils.convert import DeviceLike, canonicalize_device
 _TRUNC_STD = 0.87962566103423978
 
 
+def _replicated_like(t: torch.Tensor, ref: Any) -> torch.Tensor:
+    """``t`` as a replicated DTensor on ``ref``'s mesh when ``ref`` is a
+    DTensor (the sharded training step), else ``t``: DTensor refuses to
+    mix the two in one op."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _local_rows(*ts: torch.Tensor):
+    """DTensors as this rank's rows, plain tensors, and the way back: the
+    batch (dim 0) stays sharded where it was, every other mesh dim is
+    replicated first, and the result returns as a DTensor of the same
+    placements, whose backward redistributes the gradient to them. The
+    attention core runs so on every rank of the sharded step (DTensor
+    would merge a head-sharded batch dim in the einsums' backward, which
+    it refuses). Plain tensors pass through."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(ts[0], DTensor):
+        return ts, lambda t: t
+    mesh = ts[0].device_mesh
+    placements = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                       for p in ts[0].placements)
+    local = tuple(t.redistribute(placements=placements).to_local() for t in ts)
+    return local, lambda t: DTensor.from_local(t, mesh, placements, run_check=False)
+
+
+def _mergeable(kernel: torch.Tensor, firsts: Sequence[int]) -> torch.Tensor:
+    """``kernel`` ready for a reshape that merges the runs of dims starting
+    at ``firsts``: a DTensor sharded on a dim that is not the first of its
+    run is replicated on that mesh dim first (DTensor merges dims only
+    when the sharded one is outermost; ``param_specs`` shards the query,
+    key and value kernels ``(d, H, hd)`` on head_dim)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(kernel, DTensor):
+        return kernel
+    placements = tuple(Replicate() if isinstance(p, Shard) and p.dim not in firsts else p
+                       for p in kernel.placements)
+    if placements == tuple(kernel.placements):
+        return kernel
+    return kernel.redistribute(placements=placements)
+
+
 class Dense(nn.Module):
     """``nn.Dense``/``nn.DenseGeneral`` without bias: contracts the last
     ``len(in_shape)`` axes of the input with ``kernel`` of shape
@@ -51,7 +99,8 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[: x.dim() - len(self.in_shape)]
         flat = x.reshape(*lead, math.prod(self.in_shape))
-        y = flat @ self.kernel.reshape(math.prod(self.in_shape), math.prod(self.out_shape))
+        kernel = _mergeable(self.kernel, (0, len(self.in_shape)))
+        y = flat @ kernel.reshape(math.prod(self.in_shape), math.prod(self.out_shape))
         return y.reshape(*lead, *self.out_shape)
 
 
@@ -68,7 +117,9 @@ class Embed(nn.Module):
         )
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids]
+        # the same row gather as indexing; a DTensor table shards it
+        # forward and backward, where it cannot shard indexing's backward
+        return F.embedding(ids, self.embedding)
 
 
 class LayerNorm(nn.Module):
@@ -98,6 +149,7 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.query(x), self.key(x), self.value(x)  # (B, S, H, hd)
+        (q, k, v), back = _local_rows(q, k, v)
         # jnp.sqrt(depth).astype(dtype): the divisor rounded to the dtype
         # (a CPU scalar tensor, passed to a CUDA kernel by value)
         depth = torch.tensor(q.shape[-1], dtype=torch.float32).sqrt().to(q.dtype)
@@ -107,7 +159,7 @@ class SelfAttention(nn.Module):
         weights = torch.where(causal, weights, torch.finfo(weights.dtype).min)
         probs = torch.softmax(weights, dim=-1)
         del weights
-        return self.out(torch.einsum("bhqk,bkhd->bqhd", probs, v))
+        return self.out(back(torch.einsum("bhqk,bkhd->bqhd", probs, v)))
 
 
 class Block(nn.Module):
@@ -158,7 +210,7 @@ class TransformerLM(nn.Module):
         self.Dense_0 = Dense((d_model,), (vocab_size,), **kw)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        pos = torch.arange(tokens.shape[-1], device=tokens.device)
+        pos = _replicated_like(torch.arange(tokens.shape[-1], device=tokens.device), tokens)
         x = self.Embed_0(tokens) + self.Embed_1(pos)
         for i in range(self.n_layers):
             x = getattr(self, f"Block_{i}")(x)

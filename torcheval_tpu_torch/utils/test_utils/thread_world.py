@@ -185,16 +185,16 @@ class ThreadRankGroup(ProcessGroup):
         return [np.asarray(a) for a in self._exchange(_as_numpy(x))]
 
     def exchange_tensors(self, tensors: Any) -> List[Any]:
-        """Gather ``tensors`` (a tensor, or a tuple of tensors) from every
-        member, in rank order, by reference: no host copy, the readers get
-        the depositors' own tensor objects, so nobody may write them in
-        place afterwards. A CUDA depositor records an event on its current
-        stream; a reader on another stream waits on it and marks each
-        tensor used by its stream (``record_stream``), so the allocator
-        keeps the memory alive until the reader's work on it is done."""
-        items = tensors if isinstance(tensors, tuple) else (tensors,)
+        """Gather ``tensors`` (a tensor, or a nested tuple of tensors and
+        other values, ``None`` included) from every member, in rank order,
+        by reference: no host copy, the readers get the depositors' own
+        tensor objects, so nobody may write them in place afterwards. A
+        CUDA depositor records an event on its current stream; a reader on
+        another stream waits on it and marks each tensor used by its stream
+        (``record_stream``), so the allocator keeps the memory alive until
+        the reader's work on it is done."""
         event = stream = None
-        if any(t.is_cuda for t in items):
+        if any(t.is_cuda for t in _tensors_in(tensors)):
             stream = torch.cuda.current_stream()
             event = torch.cuda.Event()
             event.record(stream)
@@ -204,8 +204,16 @@ class ThreadRankGroup(ProcessGroup):
                 mine = torch.cuda.current_stream()
                 if got_stream != mine:
                     mine.wait_event(got_event)
-                    for t in got if isinstance(got, tuple) else (got,):
+                    for t in _tensors_in(got):
                         if t.is_cuda:
                             t.record_stream(mine)
             out.append(got)
         return out
+
+
+def _tensors_in(payload: Any) -> List[torch.Tensor]:
+    if isinstance(payload, torch.Tensor):
+        return [payload]
+    if isinstance(payload, tuple):
+        return [t for item in payload for t in _tensors_in(item)]
+    return []
