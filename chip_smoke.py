@@ -27,8 +27,10 @@ phases, printing one JSON line for each:
    what the kernel's float4 loads and cluster layout could break: scores
    one element off a 16-byte boundary, labels and weights broadcast over
    tasks, rows of 1 and 3 samples, 2 and 1,000 bins, every launch design
-   forced at shapes where the wrapper would pick another. Bitwise equal on
-   unit weights, within rtol 1e-5 with mass conserved on random weights.
+   forced at shapes where the wrapper would pick another, and the
+   dispatcher op ``K1_OP`` that the streaming update launches through.
+   Bitwise equal on unit weights, within rtol 1e-5 with mass conserved on
+   random weights.
 4. ``sync``: four ``LocalReplicaGroup`` replicas on the card, each fed a
    quarter of smaller classify and click streams; the synced results must
    equal single-stream metrics bitwise. The sync is timed three times,
@@ -309,7 +311,8 @@ phases, printing one JSON line for each:
    ``floor(590,152 u^4)``, over phase 2's Criteo rows, each batch of 65,536
    split into a quarter a rank of ``ThreadWorld(4)`` and drained with
    ``toolkit.adopt_synced`` every 16 batches, beside a world-1 panel fed
-   the same rows; the first 96 batches (**cut** from 1,361). Per-key CTR
+   the same rows; the first 64 batches (**cut** from 1,361 for the
+   smoke's time budget). Per-key CTR
    bitwise against an int64 oracle and between the worlds; every
    accumulated column (NE, calibration, the windowed ring) within
    ``_float_bound`` of float64 oracles; per-rank bytes after the adopt
@@ -345,7 +348,8 @@ phases, printing one JSON line for each:
    cross-region federation and rank-loss failover, over ``ThreadWorld(4)``
    ranks on the card in two regions (``us`` = ranks 0-1, ``eu`` = 2-3),
    each rank fed a quarter of each of phase 2's Criteo batches (the first
-   96: **cut** from 1,361) into the DLRM panel (``BinaryNormalizedEntropy``,
+   48: **cut** from 1,361 for the smoke's time budget) into the DLRM
+   panel (``BinaryNormalizedEntropy``,
    ``ClickThroughRate``, ``WeightedCalibration``, ``StreamingBinaryAUROC``
    and ``StreamingBinaryAUPRC`` at 8,192 bins on K1), an exact
    ``BinaryAUROC`` over its samples and an ImageNet-1k
@@ -475,6 +479,37 @@ phases, printing one JSON line for each:
    group) and ``scaleout_example`` (8 rank threads) on the card, each
    marker checked; K1 launches once a ``StreamingBinaryAUROC`` update in
    ``eval_panel`` and never in the training legs or the other examples.
+21. ``analysis``: the analysis layer (``torcheval_tpu_torch.analysis``),
+   metric state on the card. (a) ``cli``: ``python -m
+   torcheval_tpu_torch.analysis --concurrency --programs`` in-process over
+   the package, JSON report: every ``.py`` file linted and swept, exit 0,
+   no active lint or concurrency finding and no active error (the
+   suppressed findings counted; the program arm's active warnings are
+   compute host reads, listed). (b) ``families``: every fused family (the
+   JAX package's ``CLASS_CASES``, the sharded, routed and quality-watched
+   cases of its program sweep, the keyed table's ``ctr`` and
+   ``windowed_ne`` ingest) built on the card: update, compute and merge
+   verified on fake CUDA tensors with no active error, then the same
+   update run for real -- its plan built on the host (host syncs counted
+   as ``intake_syncs``), then applied under
+   ``set_sync_debug_mode("error")`` inside ``parallel._axis.census()``
+   and the dispatch recorder, the state pointers read before and after.
+   One row a family; static and runtime must agree on host escapes,
+   collectives and in-place writes. Two seeded faults, a plan kernel that
+   calls ``.item()`` and one that all-reduces over the NCCL world-1 group,
+   must each be caught both ways. (c) ``k1``: ``StreamingBinaryAUROC`` and
+   ``StreamingBinaryAUPRC`` at 8,192 bins on 65,536-sample Criteo batches
+   from phase 2's generator: exactly one K1 op an update in the static
+   trace, one launch an update at runtime under
+   ``set_sync_debug_mode("error")``, the histogram bitwise to the plain
+   version's. (d) ``lockstep``: ``eager_sync_plan`` over phase 4's
+   collection for 4 ranks (equal plans), a rank-divergent builder flagged,
+   and the recorded plans of ring attention (phase 20's ring: 32 heads x
+   128, 8,192 tokens, sp 4) and MoE (Switch-Base-8 widths, 8 experts,
+   2,048 tokens a shard, capacity factor 1.25), forward and
+   ``parallel.backward``, equal across ranks and equal to the
+   ``_axis.census()`` counts of a real ``ThreadWorld`` run. The phase's
+   seconds and the card line are reported.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -482,12 +517,13 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 20 at small sizes with ``device="cpu"``.
+1, 2, 4 to 7 and 9 to 21 at small sizes with ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import importlib
@@ -504,9 +540,11 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import urllib.error
 import urllib.request
 import warnings
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -516,7 +554,9 @@ from torch.distributed.tensor import Replicate, Shard
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from torcheval_tpu_torch import config, launcher, obs, wire  # noqa: E402
+import torcheval_tpu_torch  # noqa: E402
+from torcheval_tpu_torch import analysis, config, launcher, obs, wire  # noqa: E402
+from torcheval_tpu_torch.analysis import program as analysis_program  # noqa: E402
 from torcheval_tpu_torch.distributed import (  # noqa: E402
     HierarchicalGroup,
     LocalReplicaGroup,
@@ -567,6 +607,7 @@ from torcheval_tpu_torch.metrics import (  # noqa: E402
     RetrievalPrecision,
     StreamingBinaryAUPRC,
     StreamingBinaryAUROC,
+    Sum,
     Throughput,
     TopKMultilabelAccuracy,
     WeightedCalibration,
@@ -945,7 +986,7 @@ def _k1_design(n, tasks, num_bins, geometry=None):
 
 
 def _kernel_case(gen, n, tasks, skewed, weighted, bounds, num_bins, device, nan=False,
-                 offset=0, broadcast=False, geometry=None, soft=0.0):
+                 offset=0, broadcast=False, geometry=None, soft=0.0, via_op=False):
     """One kernel-vs-plain comparison on the same CUDA tensors.
 
     ``offset`` places the scores at that many elements past a 16-byte
@@ -954,7 +995,9 @@ def _kernel_case(gen, n, tasks, skewed, weighted, bounds, num_bins, device, nan=
     expanded over the tasks (row stride 0); ``geometry`` forces a launch
     design instead of the wrapper's choice; ``soft`` makes that share of
     the labels fractional (the unit-weight kernel counts 0/1 labels and
-    adds any other label's float masses apart).
+    adds any other label's float masses apart); ``via_op`` launches
+    through the dispatcher op ``fa.K1_OP``, as the update path does,
+    instead of the checked wrapper.
 
     Unit weights: the two must be bitwise equal. Random weights: float
     atomics add in a run-dependent order, so the kernel is held to the
@@ -989,7 +1032,10 @@ def _kernel_case(gen, n, tasks, skewed, weighted, bounds, num_bins, device, nan=
         weights = None if weights is None else weights.expand(tasks, n)
     out = torch.zeros((tasks, 2, num_bins), dtype=torch.float32, device=device)
     before = _kernels.LAUNCHES["fused_auc_hist"]
-    _histogram_cuda(out, raw, labels, weights, num_bins, bounds, geometry)
+    if via_op:
+        fa.K1_OP(out, raw, labels, weights, num_bins, None if bounds is None else list(bounds))
+    else:
+        _histogram_cuda(out, raw, labels, weights, num_bins, bounds, geometry)
     plain = _histogram_plain_full(raw, labels, weights, num_bins, bounds)
     _sync(device)
     _check(
@@ -1012,7 +1058,7 @@ def _kernel_case(gen, n, tasks, skewed, weighted, bounds, num_bins, device, nan=
     case = {
         "n": n, "tasks": tasks, "skewed": skewed, "weighted": weighted,
         "bounds": bounds, "num_bins": num_bins, "nan": nan, "offset": offset,
-        "broadcast": broadcast, "soft": soft,
+        "broadcast": broadcast, "soft": soft, "via_op": via_op,
         "design": _k1_design(n, tasks, num_bins, geometry) if n else None,
         "max_abs_err": abs_err, "max_rel_err_vs_float64": rel,
         "plain_max_rel_err_vs_float64": plain_rel, "mass_rel_err": mass,
@@ -1083,8 +1129,16 @@ def phase_kernel_vs_plain(device, seed=2):
             for weighted in (False, True):
                 cases.append(_kernel_case(gen, n, 4, True, weighted, (0.0, 1.0), NUM_BINS,
                                           device, geometry=geometry))
+    # through the dispatcher op the streaming update launches K1 with
+    for n in (4097, 65_536):
+        for tasks in (1, 4):
+            for weighted in (False, True):
+                for bounds in all_bounds:
+                    cases.append(_kernel_case(gen, n, tasks, True, weighted, bounds, NUM_BINS,
+                                              device, via_op=True))
     return {
         "phase": "kernel_vs_plain", "cases": len(cases),
+        "op_cases": sum(1 for c in cases if c["via_op"]),
         "bitwise_cases": sum(1 for c in cases if not (c["weighted"] or c["soft"])),
         "designs": sorted({json.dumps(c["design"], sort_keys=True) for c in cases if c["design"]}),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -5824,7 +5878,7 @@ SERVING_WORLD = 4
 # embedding sizes (torchrec examples/dlrm dlrm_main.py,
 # --num_embeddings_per_feature)
 DLRM_FEATURE_ROWS = 590_152
-SERVING_BATCHES = 96  # Criteo batches of the keyed panel: cut from 1,361 for the phase budget
+SERVING_BATCHES = 64  # Criteo batches of the keyed panel: cut from 1,361 for the phase budget
 SERVING_DRAIN_EVERY = 16
 SERVING_WINDOW = 4  # drain epochs of the panel's windowed NE member
 SERVING_MEMBERS = ("ctr", "weighted_calibration", "ne",
@@ -6490,13 +6544,13 @@ def phase_serving(device, rows=DLRM_FEATURE_ROWS, batch=CTR_BATCH, batches=SERVI
 
 WAN_WORLD = 4
 WAN_REGIONS = (("us", (0, 1)), ("eu", (2, 3)))
-WAN_BATCHES = 96  # Criteo batches: cut from 1,361 for the phase budget, as `serving` is
+WAN_BATCHES = 48  # Criteo batches: cut from 1,361 for the phase budget, as `serving` is
 WAN_CLS_ROWS = 256  # ImageNet rows a rank a step: a quarter of phase 1's 1,024
 WAN_WINDOW = 1 << 20  # the WindowedBinaryAUROC of phase 12
 WAN_WIRE_BATCHES = 64  # arm (a): fills the window (64 x 16,384 = 2^20 a rank)
 WAN_PLANE_INTERVAL = 2.0
-WAN_BLOCKING_EVERY = 25
-WAN_FED_ROUNDS = 12  # arm (c): 8 batches a round
+WAN_BLOCKING_EVERY = 16  # three blocking syncs a rank over the 48 steps, as 25 gave over 96
+WAN_FED_ROUNDS = 12  # arm (c): 4 batches a round
 WAN_PARTITION_AFTER = 2
 WAN_FAIL_STEPS = 20  # arm (d)
 # |value at a lossy rung - value at the exact rung| of an AUROC-type value:
@@ -8344,6 +8398,455 @@ def phase_train(device, widths=None, layers=TRAIN_LAYERS, batch=TRAIN_BATCH, win
     out["seconds"] = time.perf_counter() - t0
     return out
 
+# ------------------------------------------------------------ 21. analysis
+
+ANALYSIS_WARM = 3  # settling updates before the guarded one
+ANALYSIS_K1_UPDATES = 4  # leg (c): Criteo batches each streaming metric takes
+ANALYSIS_SYNC_WORLD = 4  # leg (d): ThreadWorld ranks of the eager sync plan
+K1_OP = "torcheval_tpu_torch.fused_auc_hist_.default"
+_WATCHABLE = ("MulticlassAccuracy", "MeanSquaredError", "Mean", "MulticlassConfusionMatrix",
+              "WindowedMeanSquaredError")
+
+
+class _Family(NamedTuple):
+    make: Any  # () -> metric
+    args: tuple
+    kwargs: dict
+
+
+def _analysis_families(device, seed):
+    """Every fused family of the sweep, by name: the JAX package's
+    ``CLASS_CASES`` (``tests/metrics/test_no_host_sync.py``), the sharded,
+    routed and quality-watched cases of
+    ``tests/analysis/test_program_families.py``, and the keyed table's
+    ingest families, at those files' shapes, inputs on ``device``."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    x2 = t(rng.random((64, 5)).astype(np.float32))
+    t1 = t(rng.integers(0, 5, 64).astype(np.int32))
+    xb = t(rng.random(64).astype(np.float32))
+    tb = t(rng.integers(0, 2, 64).astype(np.float32))
+    lg = t(rng.normal(size=(2, 8, 16)).astype(np.float32))
+    tg = t(rng.integers(0, 16, (2, 8)).astype(np.int32))
+    xc = torch.clamp(x2 + 0.01, 0, 1)
+    x16, t16 = (t(rng.integers(0, 16, 64).astype(np.int32)) for _ in range(2))
+    tbi = t(rng.integers(0, 2, 64).astype(np.int32))
+    ctr = t(rng.integers(0, 2, (8, 16)).astype(np.float32))
+    ctw = t(rng.uniform(0.5, 2.0, (8, 16)).astype(np.float32))
+    task_ids = t(rng.integers(0, 8, 64).astype(np.int32))
+    d = dict(device=device)
+    fams = {
+        "MulticlassAccuracy": _Family(lambda: MulticlassAccuracy(**d), (x2, t1), {}),
+        "MulticlassF1Score": _Family(
+            lambda: MulticlassF1Score(num_classes=5, average="macro", **d), (x2, t1), {}),
+        "Mean": _Family(lambda: Mean(**d), (xb,), {}),
+        "Sum": _Family(lambda: Sum(**d), (xb,), {}),
+        "MeanSquaredError": _Family(lambda: MeanSquaredError(**d), (xb, tb), {}),
+        "R2Score": _Family(lambda: R2Score(**d), (xb, tb), {}),
+        "Perplexity": _Family(lambda: Perplexity(**d), (lg, tg), {}),
+        "MulticlassConfusionMatrix": _Family(
+            lambda: MulticlassConfusionMatrix(num_classes=5, **d), (x2, t1), {}),
+        "ClickThroughRate": _Family(lambda: ClickThroughRate(**d), (tb, xb), {}),
+        "WeightedCalibration": _Family(lambda: WeightedCalibration(**d), (xb, tb), {}),
+        "PeakSignalNoiseRatio": _Family(lambda: PeakSignalNoiseRatio(**d), (x2, xc), {}),
+        "MulticlassBinnedAUPRC": _Family(
+            lambda: MulticlassBinnedAUPRC(num_classes=5, threshold=20, **d), (x2, t1), {}),
+        "BinaryBinnedPrecisionRecallCurve": _Family(
+            lambda: BinaryBinnedPrecisionRecallCurve(threshold=20, **d), (xb, tb), {}),
+        "WindowedMeanSquaredError": _Family(
+            lambda: WindowedMeanSquaredError(max_num_updates=4, **d), (xb, tb), {}),
+        "WindowedClickThroughRate": _Family(
+            lambda: WindowedClickThroughRate(max_num_updates=4, **d), (tb, xb), {}),
+        "WindowedBinaryAUROC": _Family(
+            lambda: WindowedBinaryAUROC(max_num_samples=128, **d), (xb, tb), {}),
+        "MulticlassConfusionMatrix[sharded]": _Family(
+            lambda: MulticlassConfusionMatrix(16, shard=ShardContext(1, 4), **d), (x16, t16), {}),
+        "HistogramBinnedAUROC": _Family(
+            lambda: HistogramBinnedAUROC(threshold=32, **d), (xb, tbi), {}),
+        "HistogramBinnedAUROC[sharded]": _Family(
+            lambda: HistogramBinnedAUROC(threshold=32, shard=ShardContext(1, 4), **d),
+            (xb, tbi), {}),
+        "WindowedClickThroughRate[sharded]": _Family(
+            lambda: WindowedClickThroughRate(num_tasks=8, max_num_updates=4,
+                                             shard=ShardContext(1, 4), **d), (ctr, ctw), {}),
+        "WeightedCalibration[routed]": _Family(
+            lambda: WeightedCalibration(num_tasks=8, shard=ShardContext(1, 4), **d),
+            (xb, tb, 1.0), {"task_ids": task_ids}),
+    }
+    for name in _WATCHABLE:
+        base = fams[name]
+
+        def watched(make=base.make):
+            metric = make()
+            quality.watch_inputs(metric, bounds=(0.0, 1.0))
+            return metric
+
+        fams[f"{name}[watched]"] = _Family(watched, base.args, base.kwargs)
+    keys = rng.integers(0, 64, 64)
+    fams["MetricTable[ctr]"] = _Family(
+        lambda: MetricTable("ctr", shard=ShardContext(1, 4), **d),
+        (keys, rng.integers(0, 2, 64).astype(np.float32)), {})
+    fams["MetricTable[windowed_ne]"] = _Family(
+        lambda: MetricTable("windowed_ne", shard=ShardContext(1, 4), **d),
+        (keys, rng.uniform(0.05, 0.95, 64).astype(np.float32),
+         rng.integers(0, 2, 64).astype(np.float32)), {})
+    return fams
+
+
+class _ItemFault(Mean):
+    """Seeded fault: a plan kernel that reads its batch sum back with
+    ``.item()``."""
+
+    def _update_plan(self, input, *, weight=1.0):
+        x = self._input_float(input)
+
+        def item_kernel(x):
+            s = x.sum()
+            keep = 1.0 if s.item() >= 0 else 0.0
+            return s * keep, torch.full((), float(x.numel()), device=x.device)
+
+        return (item_kernel, ("weighted_sum", "weights"), (x,))
+
+
+class _AllReduceFault(Mean):
+    """Seeded fault: a plan kernel that all-reduces its batch sum over the
+    world-1 ``torch.distributed`` group."""
+
+    def _update_plan(self, input, *, weight=1.0):
+        x = self._input_float(input)
+
+        def all_reduce_kernel(x):
+            s = x.sum()
+            dist.all_reduce(s)
+            return s, torch.full((), float(x.numel()), device=x.device)
+
+        return (all_reduce_kernel, ("weighted_sum", "weights"), (x,))
+
+
+def _state_ptrs(metric):
+    out = {}
+    for name in metric._state_name_to_default:
+        value = getattr(metric, name)
+        tensors = [value] if isinstance(value, torch.Tensor) else (
+            list(value) if isinstance(value, list) else
+            list(value.values()) if isinstance(value, dict) else [])
+        out[name] = tuple(x.untyped_storage().data_ptr() for x in tensors)
+    return out
+
+
+def _static_verdict(metric, fam):
+    """The verifier's verdict on one family: update, compute and merge on
+    fake tensors of the metric's device."""
+    rep = analysis.verify_metric_update(metric, *fam.args, **fam.kwargs)
+    errors = [] if rep is None else [f for f in rep.active if f.severity == "error"]
+    comp = analysis.verify_metric_compute(metric)
+    merge = analysis.verify_metric_merge(metric)
+    errors += [f for r in (comp, merge) for f in r.active if f.severity == "error"]
+    donated = bool(rep is not None and rep.donated_params)
+    return {
+        "errors": [f.format() for f in errors],
+        "rules": sorted({f.rule for f in errors}),
+        "host_escapes": list(rep.host_escapes) if rep is not None else [],
+        "collectives": list(rep.collectives) if rep is not None else [],
+        "in_place": (donated and not any(f.rule == "donated-not-aliased" for f in rep.findings))
+        if donated else None,
+        "k1_ops": rep.count(K1_OP) if rep is not None else 0,
+        "ops": len(rep.ops) if rep is not None else 0,
+        "compute_warnings": [f.rule for f in comp.active if f.severity == "warning"],
+    }
+
+
+def _runtime_verdict(metric, fam, cuda, warm=ANALYSIS_WARM):
+    """The same update for real: ``warm`` settling updates, then the plan
+    built on the host (the intake: its host syncs counted with
+    ``set_sync_debug_mode("warn")``) and applied under
+    ``set_sync_debug_mode("error")`` (on the CPU: the dispatch recorder's
+    host-escape rule), inside ``parallel._axis.census()`` and the c10d
+    recorder, with the state pointers read before and after."""
+    for _ in range(warm):
+        metric._apply_update_plan(metric._update_plan(*fam.args, **fam.kwargs))
+    counts = {}
+    with _sync_warnings(cuda, counts, "intake"):
+        plan = metric._update_plan(*fam.args, **fam.kwargs)
+    _sync(metric.device)
+    before = _state_ptrs(metric)
+    trace = analysis_program._Trace(None)
+    error = None
+    with _axis.census() as calls, trace as rec:
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            metric._apply_update_plan(plan)
+        except RuntimeError as e:
+            frames = [f for f in traceback.extract_tb(e.__traceback__)
+                      if "torcheval_tpu_torch" in f.filename or f.filename.endswith("chip_smoke.py")]
+            site = f" at {os.path.relpath(frames[-1].filename)}:{frames[-1].lineno}" if frames else ""
+            error = str(e).strip().splitlines()[0] + site
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+    if error is not None and not cuda:
+        raise RuntimeError(error)
+    _sync(metric.device)
+    after = _state_ptrs(metric)
+    syncs = (1 if error is not None else 0) if cuda else len(rec.escapes)
+    return {
+        "syncs": syncs,
+        "sync": error if cuda else [f"{op} at {w}" for op, w in rec.escapes],
+        "intake_syncs": counts.get("intake", 0),
+        "collectives": [n for n, _ in rec.collectives] + [f"parallel.{k}" for k in calls],
+        "in_place": before == after,
+    }
+
+
+def _verdicts_agree(static, runtime):
+    """Static and runtime verdicts on one family agree: a host escape iff a
+    runtime sync, the same collectives, and a donated program written in
+    place iff the state pointers held."""
+    escapes = bool(static["host_escapes"])
+    disagree = []
+    if escapes != bool(runtime["syncs"]):
+        disagree.append(f"host escapes {static['host_escapes']} vs {runtime['syncs']} runtime syncs")
+    if sorted(static["collectives"]) != sorted(runtime["collectives"]):
+        disagree.append(f"collectives {static['collectives']} vs {runtime['collectives']}")
+    if static["in_place"] is not None and not escapes and static["in_place"] != runtime["in_place"]:
+        disagree.append(f"in place {static['in_place']} vs pointers held {runtime['in_place']}")
+    return disagree
+
+
+def _analysis_cli(device):
+    """Leg (a): the CLI in-process over the port, JSON report."""
+    from torcheval_tpu_torch.analysis.__main__ import main as analysis_main
+
+    pkg = os.path.dirname(os.path.abspath(torcheval_tpu_torch.__file__))
+    files = sum(1 for root, dirs, names in os.walk(pkg) if "__pycache__" not in root
+                for n in names if n.endswith(".py"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = analysis_main(["--concurrency", "--programs", "--report", "json",
+                                "--output", path, pkg])
+        seconds = time.perf_counter() - t0
+        with open(path) as f:
+            report = json.load(f)
+    findings = report["findings"]
+    active = [f for f in findings if not f["suppressed"]]
+    by_tool = {tool: sum(1 for f in active if f["tool"] == tool)
+               for tool in ("lint", "concurrency", "program", "lockstep")}
+    _check(rc == 0, f"analysis CLI exited {rc}")
+    _check(by_tool["lint"] == 0 and by_tool["concurrency"] == 0,
+           f"active lint/concurrency findings: {[f for f in active if f['tool'] in ('lint', 'concurrency')]}")
+    errors = [f for f in active if f["severity"] == "error"]
+    _check(not errors, f"active errors: {errors}")
+    programs = report["checked"] - 2 * files
+    _check(programs > 0, f"the CLI checked {report['checked']} for {files} files: no program")
+    return {
+        "rc": rc, "seconds": seconds, "py_files": files, "linted": files, "swept": files,
+        "programs": programs, "checked": report["checked"],
+        "active": len(active), "active_errors": len(errors),
+        "active_warnings": sorted(f"{f['path']}: {f['rule']}" for f in active),
+        "suppressed": sum(1 for f in findings if f["suppressed"]),
+        "suppressed_by_tool": {tool: sum(1 for f in findings if f["suppressed"] and f["tool"] == tool)
+                               for tool in ("lint", "concurrency")},
+    }
+
+
+def _analysis_sweep(device, seed):
+    """Leg (b): static against runtime over every fused family."""
+    cuda = torch.device(device).type == "cuda"
+    rows = []
+    for name, fam in _analysis_families(device, seed).items():
+        metric = fam.make()
+        try:
+            static = _static_verdict(metric, fam)
+            # donation as on the card (the CPU default is off)
+            with config.update_donation(True):
+                runtime = _runtime_verdict(metric, fam, cuda)
+        finally:
+            for watch in quality.active_watches():
+                watch.close()
+        disagree = _verdicts_agree(static, runtime)
+        rows.append({"family": name, "static": static, "runtime": runtime, "agree": not disagree,
+                     "disagree": disagree})
+    failed = [(r["family"], r["static"]["errors"], r["disagree"], r["runtime"]["sync"])
+              for r in rows if r["static"]["errors"] or r["disagree"]]
+    _check(not failed, f"{len(failed)} of {len(rows)} families with static errors or "
+                       f"disagreements: {failed}")
+    return rows
+
+
+def _analysis_faults(device, seed):
+    """Leg (b), seeded faults: each caught statically and at runtime."""
+    cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((64,), generator=gen, device=device)
+    fam = _Family(None, (x,), {})
+    out = {}
+    with _world1_group(device) as backend:
+        dist.all_reduce(torch.ones((1,), device=device))  # the communicator, set up outside
+        for name, cls, rule in (("item", _ItemFault, "host-callback"),
+                                ("all_reduce", _AllReduceFault, "collective-census")):
+            static = _static_verdict(cls(device=device), fam)
+            runtime = _runtime_verdict(cls(device=device), fam, cuda, warm=0 if name == "item" else 1)
+            caught_static = rule in static["rules"]
+            caught_runtime = bool(runtime["syncs"]) if name == "item" else bool(runtime["collectives"])
+            _check(caught_static and caught_runtime,
+                   f"seeded {name} fault: static {static['rules']}, runtime {runtime}")
+            out[name] = {"static": static["rules"], "static_detail": static["errors"][:1],
+                         "runtime": runtime, "backend": backend}
+    return out
+
+
+def _analysis_k1(device, seed, n=CTR_BATCH, num_bins=NUM_BINS, updates=ANALYSIS_K1_UPDATES):
+    """Leg (c): K1 through the verifier. ``StreamingBinaryAUROC`` and
+    ``StreamingBinaryAUPRC`` on Criteo batches from phase 2's generator:
+    one K1 op an update in the static trace, one launch an update at
+    runtime, the histogram bitwise to the plain version's, no host sync."""
+    cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batches = [_clicks(gen, (n,), device) for _ in range(updates)]
+    out = {}
+    for name, cls in (("auroc", StreamingBinaryAUROC), ("auprc", StreamingBinaryAUPRC)):
+        metric = cls(num_bins=num_bins, device=device)
+        rep = analysis.verify_metric_update(metric, *batches[0])
+        _check(rep is not None and rep.ok, f"K1 {name}: static report {rep and rep.format_text()}")
+        ops = rep.count(K1_OP)
+        _check(ops == (1 if cuda else 0), f"K1 {name}: {ops} K1 ops in the static trace")
+        launches = []
+        for s, y in batches:
+            before = _kernels.LAUNCHES["fused_auc_hist"]
+            with _no_host_sync(cuda):
+                metric.update(s, y)
+            launches.append(_kernels.LAUNCHES["fused_auc_hist"] - before)
+        _check(launches == [1 if cuda else 0] * updates, f"K1 {name}: launches {launches}")
+        plain = torch.zeros((1, 2, num_bins), dtype=torch.float32, device=device)
+        for s, y in batches:
+            plain += _histogram_plain_full(s[None], y[None], None, num_bins, (0.0, 1.0))
+        _check(torch.equal(metric.hist, plain), f"K1 {name}: histogram != plain version")
+        out[name] = {"static_k1_ops": ops, "static_ops": len(rep.ops), "launches": launches,
+                     "bitwise_to_plain": True}
+    out.update(samples=n, num_bins=num_bins, updates=updates, sync_debug="error" if cuda else None)
+    return out
+
+
+def _analysis_lockstep(device, seed, num_classes, classify_n, ctr_n, ring, moe):
+    """Leg (d): lockstep plans on the card."""
+    out = {}
+    coll = _sync_collection(device, num_classes)
+    _feed_sync_stream(lambda i: (coll,), device, seed, classify_n, num_classes,
+                      min(1024, classify_n), ctr_n, min(CTR_BATCH, ctr_n))
+    plans = {r: analysis.eager_sync_plan(coll, world_size=ANALYSIS_SYNC_WORLD, rank=r)
+             for r in range(ANALYSIS_SYNC_WORLD)}
+    rep = analysis.check_eager_lockstep(plans, name="<phase 4 collection>")
+    _check(rep.ok and len(set(plans.values())) == 1, f"eager sync plans differ: {rep.format_text()}")
+    out["eager_sync_plan"] = list(plans[0])
+
+    def divergent(rank):
+        group = analysis.PlanRecordingGroup(2, rank)
+
+        def program(x):
+            y = _axis.psum(x, group)
+            return _axis.psum(y, group) if rank == 0 else y
+
+        return program
+
+    rep = analysis.verify_rank_lockstep(divergent, range(2), torch.ones((8,), device=device),
+                                        name="<rank-divergent builder>")
+    rules = sorted({f.rule for f in rep.active})
+    _check("rank-divergent-collective" in rules, f"rank-divergent builder not flagged: {rules}")
+    out["divergent_builder"] = rules
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sp, tokens, heads, head_dim = ring["sp"], ring["tokens"], ring["heads"], ring["head_dim"]
+    q, k, v = (torch.randn((1, tokens, heads, head_dim), generator=gen, device=device)
+               for _ in range(3))
+    blk = tokens // sp
+
+    def ring_program(group, rank):
+        def program(q, k, v):
+            cut = slice(rank * blk, (rank + 1) * blk)
+            mine = [t[:, cut].clone().requires_grad_(True) for t in (q, k, v)]
+            out = ring_attention(*mine, group=group, causal=True)
+            parallel_backward((out ** 2).sum())
+        return program
+
+    e, d_model, d_ff, n = moe["experts"], moe["d_model"], moe["d_ff"], moe["tokens"]
+    capacity = int(n / e * moe["factor"])
+    wg = torch.randn((d_model, e), generator=gen, device=device) * d_model ** -0.5
+    x = torch.randn((e * n, d_model), generator=gen, device=device)
+    w1 = torch.randn((e, d_model, d_ff), generator=gen, device=device) * d_model ** -0.5
+    w2 = torch.randn((e, d_ff, d_model), generator=gen, device=device) * d_ff ** -0.5
+
+    def moe_program(group, rank):
+        def program(x, wg, w1, w2):
+            cut = slice(rank * n, (rank + 1) * n)
+            mine = [t.clone().requires_grad_(True) for t in (x[cut], wg, w1[rank], w2[rank])]
+            parallel_backward((moe_apply(*mine, group=group, capacity=capacity) ** 2).sum())
+        return program
+
+    for name, world, make, args in (("ring", sp, ring_program, (q, k, v)),
+                                    ("moe", e, moe_program, (x, wg, w1, w2))):
+        rep = analysis.verify_rank_lockstep(
+            lambda r: make(analysis.PlanRecordingGroup(world, r), r), range(world), *args,
+            name=f"<{name}>", check_structure=False)
+        _check(rep.ok, f"{name}: rank plans differ: {rep.format_text()}")
+        plan = analysis.collective_plan(make(analysis.PlanRecordingGroup(world, 0), 0), *args)
+        recorded = dict(collections.Counter(op.name.split(".", 1)[1] for op in plan))
+
+        def rank(g, make=make, args=args):
+            with _axis.census() as calls:
+                make(g, g.rank)(*args)
+            return dict(calls)
+
+        real = ThreadWorld(world, timeout=MODEL_RANK_TIMEOUT).run(rank)
+        _check(all(c == recorded for c in real), f"{name}: recorded plan {recorded} != census {real}")
+        out[name] = {"world": world, "plan": [op.name for op in plan], "census": real[0],
+                     "ranks_equal": True}
+    out["ring"].update(tokens=tokens, heads=heads, head_dim=head_dim)
+    out["moe"].update(d_model=d_model, d_ff=d_ff, tokens_per_shard=n, capacity=capacity)
+    return out
+
+
+def phase_analysis(device, seed=21, num_classes=1000, classify_n=2048, ctr_n=CTR_BATCH,
+                   k1_n=CTR_BATCH, ring=None, moe=None):
+    """Phase 21: the analysis layer over the port, metric state on
+    ``device`` (module docstring)."""
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    ring = ring or dict(sp=GRAD_RING_SP, tokens=GRAD_RING_TOKENS, heads=LLAMA3_8B["n_heads"],
+                        head_dim=LLAMA3_8B["d_model"] // LLAMA3_8B["n_heads"])
+    moe = moe or dict(SWITCH_BASE_8, tokens=MOE_TOKENS, factor=GRAD_MOE_FACTORS[0])
+    k1 = _kernels.LAUNCHES["fused_auc_hist"]
+    out = {"phase": "analysis", "device": str(device)}
+    legs = (
+        ("cli", lambda: _analysis_cli(device)),
+        ("families", lambda: _analysis_sweep(device, seed)),
+        ("faults", lambda: _analysis_faults(device, seed + 1)),
+        ("k1", lambda: _analysis_k1(device, seed + 2, n=k1_n)),
+        ("lockstep", lambda: _analysis_lockstep(device, seed + 3, num_classes, classify_n, ctr_n,
+                                                ring, moe)),
+    )
+    failures = []
+    for name, leg in legs:  # every leg runs; the phase fails after them all
+        t_leg = time.perf_counter()
+        try:
+            out[name] = leg()
+        except AssertionError as e:
+            failures.append(f"{name}: {e}")
+        out.setdefault("leg_seconds", {})[name] = time.perf_counter() - t_leg
+    out["families_checked"] = len(out.get("families", ()))
+    out["k1_launches"] = _kernels.LAUNCHES["fused_auc_hist"] - k1
+    out["seconds"] = time.perf_counter() - t0
+    if cuda:
+        out["card"] = _card_line()
+    _check(not failures, "analysis: " + " | ".join(failures))
+    return out
+
+
 def _time_ms(fn, device, reps):
     for _ in range(3):
         fn()
@@ -8649,6 +9152,8 @@ def main(argv=None) -> int:
     _emit(model)
     train = phase_train(device, seed=args.seed + 20)
     _emit(train)
+    analysis_phase = phase_analysis(device, seed=args.seed + 21)
+    _emit(analysis_phase)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -8677,6 +9182,9 @@ def main(argv=None) -> int:
         "launches_train": train["k1_launches"],
         "launches_train_training_legs": train["k1_launches_training"],
         "launches_train_eval_panel": train["examples"]["eval_panel"]["k1_launches"],
+        "launches_analysis": analysis_phase["k1_launches"],
+        "launches_analysis_k1_leg": {k: sum(v["launches"]) for k, v in analysis_phase["k1"].items()
+                                     if isinstance(v, dict)},
         "use_fused_histogram": curve["criteo"]["use_fused_histogram"],
         "max_abs_err": kvp["max_abs_err"],
         "ms": main_row["kernel_ms"],

@@ -1,7 +1,9 @@
-"""Parity faults C4-C8 of the port against the JAX package (ROADMAP
-Queue C), each pinned by the failure it had: half-precision states that
-narrowed, bfloat16 that could not cross numpy, float64 inputs that were
-not narrowed, error types that differed, and the kernel loader's race.
+"""Parity faults C4-C8, C10 and C11 of the port against the JAX package
+(ROADMAP Queue C), each pinned by the failure it had: half-precision
+states that narrowed, bfloat16 that could not cross numpy, float64 inputs
+that were not narrowed, error types that differed, the kernel loader's
+race, the concurrency guard's module names, and a watched windowed
+metric that could not fold its ring cursor.
 Inputs are made with numpy from a seed and fed to both packages
 (``device="cpu"`` here)."""
 
@@ -21,7 +23,7 @@ import torch
 
 import torcheval_tpu.metrics as JM
 import torcheval_tpu.metrics.functional as JF
-from torcheval_tpu.analysis.concurrency import check_concurrency
+from torcheval_tpu.analysis.concurrency import check_concurrency as jax_check_concurrency
 from torcheval_tpu.distributed import LocalReplicaGroup as JaxLocalGroup
 from torcheval_tpu.metrics import toolkit as jax_toolkit
 
@@ -29,6 +31,8 @@ import torcheval_tpu_torch.metrics as TM
 import torcheval_tpu_torch.metrics.functional as TF
 from torcheval_tpu_torch.distributed import LocalReplicaGroup
 from torcheval_tpu_torch.elastic import ElasticSession
+from torcheval_tpu_torch.analysis.concurrency import check_concurrency
+from torcheval_tpu_torch.analysis.locks import build_universe
 from torcheval_tpu_torch.metrics import toolkit
 from torcheval_tpu_torch.ops import _kernels
 from torcheval_tpu_torch.utils import load_numpy_state_dict, numpy_state_dict
@@ -290,10 +294,53 @@ def test_auc_of_bool_y_computes_like_jax():
 # -------------------------------------------------------------------- C8
 
 
+def _py_files(root: Path) -> int:
+    return sum(1 for p in root.rglob("*.py") if "__pycache__" not in p.parts)
+
+
 def test_concurrency_verifier_reports_no_active_finding_over_the_port():
-    report = check_concurrency([str(REPO / "torcheval_tpu_torch")], record=False)
-    assert report.checked > 0
+    # the port's own verifier, its module names rooted at the package (C10)
+    port = REPO / "torcheval_tpu_torch"
+    report = check_concurrency([str(port)], record=False)
+    assert report.checked == _py_files(port)
+    names = list(build_universe([str(port)]).modules)
+    assert len(names) == len(set(names)) == report.checked
     assert report.active == [], [f.format() for f in report.active]
+
+
+# ------------------------------------------------------------------- C10
+
+
+def test_cross_module_lock_cycle_in_the_port_tree_is_caught(tmp_path):
+    # a lock-order cycle through a call into another module of a
+    # torcheval_tpu_torch/sub/ package: the JAX naming (keyed on
+    # "torcheval_tpu/") names both __init__ files "__init__" and resolves
+    # no import between the two modules, so it checks 3 of the 4 files
+    # and reports nothing
+    pkg = tmp_path / "torcheval_tpu_torch"
+    (pkg / "sub").mkdir(parents=True)
+    (pkg / "__init__.py").write_text("")
+    (pkg / "sub" / "__init__.py").write_text("")
+    (pkg / "sub" / "fence.py").write_text(
+        "import threading\n\n"
+        "from torcheval_tpu_torch.sub.group import Group\n\n"
+        "FENCE = threading.Lock()\n\n\n"
+        "def wait_fence():\n    with FENCE:\n        pass\n\n\n"
+        "def fence_all(group: Group):\n    with FENCE:\n        group.note()\n"
+    )
+    (pkg / "sub" / "group.py").write_text(
+        "import threading\n\n"
+        "from torcheval_tpu_torch.sub import fence\n\n\n"
+        "class Group:\n"
+        "    def __init__(self):\n        self._lock = threading.Lock()\n\n"
+        "    def sync(self):\n        with self._lock:\n            fence.wait_fence()\n\n"
+        "    def note(self):\n        with self._lock:\n            pass\n"
+    )
+    report = check_concurrency([str(pkg)], record=False)
+    assert report.checked == 4
+    assert "lock-order-cycle" in {f.rule for f in report.active}
+    missed = jax_check_concurrency([str(pkg)], record=False)
+    assert missed.checked == 3 and missed.active == []
 
 
 class _FakeLibrary:
@@ -346,3 +393,54 @@ def test_two_threads_racing_a_cold_load_run_one_build(tmp_path, monkeypatch):
     # one library and its log, no temporaries left behind
     assert len(built) == 2 and not any(".tmp" in n for n in built), built
     assert os.path.exists(_kernels._library_path("fused_auc_hist"))
+
+
+# ------------------------------------------------------------------- C11
+
+
+def test_watched_windowed_metric_folds_its_cursor_like_jax():
+    # a windowed plan passes its ring cursor as dynamic argument 0, a host
+    # int in the port and an int32 device scalar in the JAX package; the
+    # default watch (args=(0,)) folds it. The port raised AttributeError
+    # on the int; now both sketch the same cursor values, bit for bit
+    from torcheval_tpu.obs import quality as JQ
+    from torcheval_tpu_torch.obs import quality
+
+    rng = np.random.default_rng(11)
+    metric = TM.WindowedMeanSquaredError(max_num_updates=4, device="cpu")
+    ref = JM.WindowedMeanSquaredError(max_num_updates=4)
+    watch = quality.watch_inputs(metric, bounds=(0.0, 1.0), num_bins=8)
+    jwatch = JQ.watch_inputs(ref, bounds=(0.0, 1.0), num_bins=8)
+    try:
+        for _ in range(6):
+            x = rng.random(64).astype(np.float32)
+            y = rng.random(64).astype(np.float32)
+            metric.update(torch.from_numpy(x), torch.from_numpy(y))
+            ref.update(x, y)
+        mine, theirs = metric.state_dict(), ref.state_dict()
+        sketch = [k for k in theirs if k not in ("sum_squared_error", "sum_weight")
+                  and not k.startswith("windowed_")]
+        assert sketch and set(sketch) <= set(mine)
+        for key in sketch:
+            np.testing.assert_array_equal(
+                np.asarray(mine[key]), np.asarray(theirs[key]), err_msg=key
+            )
+        # the metric's own float sums: XLA may fuse them (ROADMAP Queue C)
+        np.testing.assert_allclose(
+            mine["sum_squared_error"].numpy(), np.asarray(theirs["sum_squared_error"]), rtol=1e-6
+        )
+    finally:
+        watch.close()
+        jwatch.close()
+
+
+def test_sketch_bit_length_is_exact_without_float64():
+    from torcheval_tpu_torch.obs.sketch import _bit_length
+
+    edges = [0, 1, 2, 3] + [2**k + d for k in range(1, 32) for d in (-1, 0, 1)]
+    v = torch.cat([
+        torch.tensor(edges, dtype=torch.int64),
+        torch.from_numpy(np.random.default_rng(0).integers(0, 2**32, 100_000, dtype=np.int64)),
+    ])
+    want = torch.tensor([int(x).bit_length() for x in v.tolist()], dtype=torch.int64)
+    assert torch.equal(_bit_length(v), want)

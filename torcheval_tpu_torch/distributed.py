@@ -23,7 +23,10 @@ With the flight recorder on (``obs.flight``), every gather a
 ``MultiHostGroup`` issues leaves one record on the calling thread's ring
 (one attribute read when off). A subgroup's gathers record the same op
 names as the world's; the JAX package's KV-store subgroups record theirs
-as ``kv_allgather``.
+as ``kv_allgather``. Every group's gathers are also heard by this
+thread's gather listeners (``add_gather_listener``; one attribute read
+when there are none): ``analysis.program`` records a trace's collectives
+with them.
 
 An object gather pickles the object, gathers every rank's byte length as
 an int32 pair (``encode_length``), pads the bytes to the longest and
@@ -36,6 +39,7 @@ nothing here switches it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import pickle
 import threading
 from datetime import timedelta
@@ -127,8 +131,89 @@ def members_only() -> Iterator[None]:
         _MEMBERS_ONLY.on = prev
 
 
+# the gather listeners of each thread and the depth of the gathers it is
+# inside: a listener hears only the outermost
+_GATHERS = threading.local()
+_GATHER_METHODS = (
+    "allgather_object",
+    "allgather_array",
+    "allgather_object_with_ranks",
+    "allgather_array_with_ranks",
+)
+
+
+def add_gather_listener(fn) -> Any:
+    """Call ``fn(name)`` on every ``ProcessGroup`` gather this thread
+    issues from now on, in order (``name`` is the method,
+    ``allgather_object`` and the like). A gather made inside another (a
+    wrapper's inner group, a ``*_with_ranks`` over its plain twin, a
+    transport in :func:`gather_transport`) is not heard:
+    ``analysis.program`` records a trace's collectives with it. Returns
+    ``fn``, the handle for :func:`remove_gather_listener`."""
+    listeners = getattr(_GATHERS, "listeners", None)
+    if listeners is None:
+        listeners = _GATHERS.listeners = []
+    listeners.append(fn)
+    return fn
+
+
+def remove_gather_listener(fn) -> None:
+    _GATHERS.listeners.remove(fn)
+
+
+def inside_gather() -> bool:
+    """Whether this thread, with a listener, is inside a gather: what it
+    issues now (``c10d`` ops included) is that gather's transport."""
+    return getattr(_GATHERS, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def gather_transport() -> Iterator[None]:
+    """The gathers of this block carry a collective the caller counts on
+    its own (``parallel``'s census): listeners do not hear them."""
+    depth = getattr(_GATHERS, "depth", 0)
+    _GATHERS.depth = depth + 1
+    try:
+        yield
+    finally:
+        _GATHERS.depth = depth
+
+
+def _heard(name: str, fn):
+    @functools.wraps(fn)
+    def gather(self, *args, **kwargs):
+        listeners = getattr(_GATHERS, "listeners", None)
+        if not listeners:
+            return fn(self, *args, **kwargs)
+        depth = getattr(_GATHERS, "depth", 0)
+        if depth == 0:
+            for listener in tuple(listeners):
+                listener(name)
+        _GATHERS.depth = depth + 1
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            _GATHERS.depth = depth
+
+    return gather
+
+
+def _hear_gathers(cls: type) -> None:
+    """Let the listeners hear the gathers ``cls`` defines itself."""
+    for name in _GATHER_METHODS:
+        fn = cls.__dict__.get(name)
+        if fn is not None:
+            setattr(cls, name, _heard(name, fn))
+
+
 class ProcessGroup:
-    """Minimal interface the sync layer needs from a replica group."""
+    """Minimal interface the sync layer needs from a replica group.
+
+    Every subclass's gathers are heard by :func:`add_gather_listener`."""
+
+    def __init_subclass__(cls, **kwargs: Any) -> None:
+        super().__init_subclass__(**kwargs)
+        _hear_gathers(cls)
 
     @property
     def world_size(self) -> int:
@@ -182,6 +267,9 @@ class ProcessGroup:
     def allgather_array_with_ranks(self, x: Any) -> Tuple[List[np.ndarray], List[int]]:
         """Array-gather twin of :meth:`allgather_object_with_ranks`."""
         return self.allgather_array(x), list(range(self.world_size))
+
+
+_hear_gathers(ProcessGroup)
 
 
 class SingleProcessGroup(ProcessGroup):

@@ -20,7 +20,8 @@ from torcheval_tpu_torch.utils.convert import (
 
 def _psnr_update(input: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     sum_squared_error = torch.sum(torch.square(input - target))
-    n = torch.tensor(float(target.numel()), dtype=torch.float32, device=target.device)
+    # a fill, not torch.tensor: no upload of host data on the update path
+    n = torch.full((), float(target.numel()), dtype=torch.float32, device=target.device)
     return sum_squared_error, n
 
 

@@ -79,8 +79,8 @@ def _precision(nb_relevant: torch.Tensor, nb_retrieved) -> torch.Tensor:
     times the float32 reciprocal of the divisor (a number or an array a
     row)."""
     with np.errstate(divide="ignore"):
-        scale = np.float32(1.0) / np.asarray(nb_retrieved, dtype=np.float32)
-    scale_t = torch.as_tensor(np.asarray(scale), device=nb_relevant.device)
+        scale = np.float32(1.0) / np.asarray(nb_retrieved, dtype=np.float32)  # tev: disable=host-sync -- nb_retrieved is a host int or numpy array (k, or np.minimum(k, sizes)), never a device tensor
+    scale_t = torch.as_tensor(np.asarray(scale), device=nb_relevant.device)  # tev: disable=host-sync -- the host reciprocal above, uploaded once
     return nb_relevant.to(torch.float32) * scale_t
 
 

@@ -139,9 +139,9 @@ def create_threshold_tensor(
             raise ValueError("Last value in `threshold` should be 1.")
         return torch.from_numpy(_cached_linspace_grid(threshold).copy()).to(device)
     if isinstance(threshold, torch.Tensor):
-        t = threshold.detach().cpu().to(torch.float32).numpy()
+        t = threshold.detach().cpu().to(torch.float32).numpy()  # tev: disable=host-sync -- the threshold grid is configuration, validated on the host before it goes to the device (once at construction for the classes), as in the JAX package; no metric state is read
     else:
-        t = np.asarray(threshold, dtype=np.float32)
+        t = np.asarray(threshold, dtype=np.float32)  # tev: disable=host-sync -- a list of Python floats: no device data
     if t.ndim != 1:
         raise ValueError(
             "The `threshold` should be a one-dimensional tensor, got shape "
@@ -156,7 +156,7 @@ def create_threshold_tensor(
             raise ValueError("First value in `threshold` should be 0.")
         if t[-1] != 1.0:
             raise ValueError("Last value in `threshold` should be 1.")
-    return torch.from_numpy(np.array(t, dtype=np.float32)).to(device)
+    return torch.from_numpy(np.array(t, dtype=np.float32)).to(device)  # tev: disable=host-sync -- copies a host array that is already numpy
 
 
 def searchsorted_right(sorted_values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

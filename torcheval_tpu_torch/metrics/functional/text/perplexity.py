@@ -83,8 +83,10 @@ def _perplexity_update_jit(
         token_log_probs = torch.where(keep, token_log_probs, 0.0)
         num_total = torch.sum(keep).to(torch.int32)
     else:
-        num_total = torch.tensor(
-            flat_target.shape[0], dtype=torch.int32, device=flat_target.device
+        # a fill, not torch.tensor: an upload of host data would wait on
+        # a pageable copy every update
+        num_total = torch.full(
+            (), flat_target.shape[0], dtype=torch.int32, device=flat_target.device
         )
     return -torch.sum(token_log_probs), num_total
 

@@ -122,6 +122,9 @@ def _clone_state(value: Any) -> Any:
         return [_clone_state(v) for v in value]
     if isinstance(value, dict):
         return {k: _clone_state(v) for k, v in value.items()}
+    if isinstance(value, tuple):
+        items = [_clone_state(v) for v in value]
+        return type(value)(*items) if hasattr(value, "_fields") else tuple(items)
     return copy.deepcopy(value)
 
 

@@ -256,9 +256,9 @@ class MemoryEvent(Event):
 
 @dataclass
 class AnalysisEvent(Event):
-    """One active static-analysis finding (the JAX package's
-    ``torcheval_tpu.analysis``, not yet ported), mirrored from its
-    ``Finding`` when an analyzer runs while the recorder is on — so a CI failure's event tail
+    """One active static-analysis finding (``torcheval_tpu_torch.analysis``),
+    mirrored from its ``Finding`` (``Report.record_events``) when an
+    analyzer runs while the recorder is on -- so a failure's event tail
     carries the forensics that explain it (which rule, where, why)."""
 
     kind: ClassVar[str] = "analysis"

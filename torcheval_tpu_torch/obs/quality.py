@@ -170,7 +170,13 @@ def _combined_kernels(
         out = []
         for k, i in enumerate(arg_indices):
             s4 = states[n_orig + 4 * k : n_orig + 4 * (k + 1)]
-            out.extend(_fold(cfg, s4, dyn[i], weights[k]))
+            x = dyn[i]
+            if not isinstance(x, torch.Tensor):
+                # a host int operand (a windowed plan's ring cursor, which
+                # the JAX package passes as an int32 device scalar): one
+                # fill, no upload
+                x = torch.full((), x, dtype=torch.int32, device=s4[0].device)
+            out.extend(_fold(cfg, s4, x, weights[k]))
         return tuple(out)
 
     def plain(states, *dyn):

@@ -166,8 +166,12 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
 
 def _bit_length(v: torch.Tensor) -> torch.Tensor:
     """Bit length of non-negative int64 values below 2^32: the exponent of
-    their exact float64 ``frexp`` (0 for 0)."""
-    return torch.frexp(v.to(torch.float64))[1].to(torch.int64)
+    an exact float32 ``frexp`` (0 for 0). A value of 2^24 or more is
+    shifted right by 8 first, so what is converted stays below 2^24,
+    where float32 holds every integer exactly (no float64 on the update
+    path)."""
+    shift = (v >= (1 << 24)).to(torch.int64) * 8
+    return torch.frexp((v >> shift).to(torch.float32))[1].to(torch.int64) + shift
 
 
 def _clz32(v: torch.Tensor) -> torch.Tensor:

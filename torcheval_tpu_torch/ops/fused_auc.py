@@ -488,6 +488,35 @@ def _pack_launch(
     )
 
 
+# ------------------------------------------------------------- the K1 op
+
+# The launch is registered as one dispatcher op that mutates ``out``: its
+# CUDA kernel is ``_launch`` (the ctypes call above), its fake kernel does
+# nothing. So a program traced on fake tensors (``analysis.program``) sees
+# K1 as one op, as the JAX verifier sees one primitive for a
+# ``pallas_call``, and a fake tensor never reaches ``data_ptr``.
+# Registering a schema builds nothing: the library still builds on the
+# first launch.
+_K1_LIB = torch.library.Library("torcheval_tpu_torch", "FRAGMENT")
+_K1_LIB.define(
+    "fused_auc_hist_(Tensor(a!) out, Tensor scores, Tensor labels, "
+    "Tensor? weights, int num_bins, float[]? bounds) -> ()"
+)
+
+
+def _launch_op(out, scores, labels, weights, num_bins, bounds) -> None:
+    _launch(out, scores, labels, weights, num_bins, None if bounds is None else tuple(bounds))
+
+
+def _launch_fake(out, scores, labels, weights, num_bins, bounds) -> None:
+    return None
+
+
+_K1_LIB.impl("fused_auc_hist_", _launch_op, "CUDA")
+torch.library.register_fake("torcheval_tpu_torch::fused_auc_hist_", _launch_fake, lib=_K1_LIB)
+K1_OP = torch.ops.torcheval_tpu_torch.fused_auc_hist_.default
+
+
 # ----------------------------------------------------------------- dispatch
 
 
@@ -500,7 +529,8 @@ def _histogram_into(
     bounds: Optional[Tuple[float, float]],
 ) -> torch.Tensor:
     """Add the batch histogram into ``out``: in place through the kernel
-    for CUDA tensors, ``out + plain histogram`` for CPU tensors.
+    (the ``K1_OP`` dispatcher op) for CUDA tensors, ``out + plain
+    histogram`` for CPU tensors.
 
     On CUDA only ``out`` is checked on every call: the entry points put
     every input on one device, and ``_as_2d``, ``contiguous`` and
@@ -512,7 +542,7 @@ def _histogram_into(
     scores2, labels2, weights2 = _as_2d(scores, labels, weights)
     if scores2.is_cuda:
         _check_out(out, scores2, num_bins)
-        return _launch(
+        K1_OP(
             out,
             scores2.contiguous(),
             _unit_stride_rows(labels2),
@@ -520,6 +550,7 @@ def _histogram_into(
             num_bins,
             bounds,
         )
+        return out
     return out + _histogram_plain_full(scores2, labels2, weights2, num_bins, bounds)
 
 

@@ -81,7 +81,7 @@ import torch
 import torch.distributed as dist
 from torch.autograd.graph import get_gradient_edge
 
-from torcheval_tpu_torch.distributed import ProcessGroup
+from torcheval_tpu_torch.distributed import ProcessGroup, gather_transport
 from torcheval_tpu_torch.utils.test_utils.thread_world import ThreadRankGroup
 
 __all__ = [
@@ -113,10 +113,28 @@ def census() -> Iterator[Counter]:
         _CENSUS.counts = prev
 
 
+def add_listener(fn) -> Any:
+    """Call ``fn(name)`` on every collective this thread issues from now
+    on, in order (the census counts by name; a listener sees the sequence:
+    ``analysis.program`` and ``analysis.lockstep`` record plans with it).
+    Returns ``fn``, the handle for :func:`remove_listener`."""
+    listeners = getattr(_CENSUS, "listeners", None)
+    if listeners is None:
+        listeners = _CENSUS.listeners = []
+    listeners.append(fn)
+    return fn
+
+
+def remove_listener(fn) -> None:
+    _CENSUS.listeners.remove(fn)
+
+
 def _count(name: str) -> None:
     counts = getattr(_CENSUS, "counts", None)
     if counts is not None:
         counts[name] += 1
+    for fn in getattr(_CENSUS, "listeners", ()):
+        fn(name)
 
 
 def _resolve(group: Any) -> Tuple[str, Any]:
@@ -438,7 +456,8 @@ def _reach(tensors, bits, memo) -> int:
 def _gather_object(group: Any, obj: Any) -> List[Any]:
     kind, g = _resolve(group)
     if kind == "thread":
-        return g.allgather_object(obj)
+        with gather_transport():  # counted as ``backward_plan``
+            return g.allgather_object(obj)
     out: List[Any] = [None] * dist.get_world_size(g)
     dist.all_gather_object(out, obj, group=g)
     return out
