@@ -592,3 +592,43 @@ def test_fill_leaves_exactly_the_zero_padded_batch(emulated_graphs):
     entry = tfuse._Graph([tfuse._alloc(valid, torch.device(CPU))], [valid], (), None)
     tfuse._fill(entry, [valid])
     assert entry.statics[0].tolist() == [5, 9] and entry.statics[0].dtype == torch.int32
+
+
+def test_emulated_graphed_group_is_one_replay_range(emulated_graphs):
+    """With the recorder on, a graphed group's replay (its fill included)
+    is one ``torcheval.replay`` range inside ``torcheval.update_collection``,
+    with a plan range a metric and no accumulate range; a capture still
+    names the panel as its site."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from torcheval_tpu_torch import obs
+
+    graphed = _panel(TM, {"device": CPU})
+    x, y = torch.rand(37, 7), torch.randint(0, 7, (37,))
+    obs.enable()
+    obs.recorder().reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof, tconfig.shape_bucketing():
+            for _ in range(2):  # a capture, then a replay of it
+                ttoolkit.update_collection(graphed, x, y)
+        compiles = [e for e in obs.recorder().log.tail() if e.kind == "compile"]
+    finally:
+        obs.disable()
+        obs.recorder().reset()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("torcheval.")]
+    assert names.count("torcheval.update_collection") == 2
+    assert names.count("torcheval.replay") == 2
+    assert sorted(n for n in names if n.startswith("torcheval.plan/")) == sorted(
+        f"torcheval.plan/{type(m).__name__}" for m in graphed.values() for _ in range(2))
+    assert not any(n.startswith("torcheval.accumulate/") for n in names)
+    assert [c.site for c in compiles] == ["torcheval.update_collection"]

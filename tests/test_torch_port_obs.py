@@ -524,10 +524,13 @@ def test_timeout_error_carries_flight_tail_and_retry_event():
 # ------------------------------------------------------------- exporters
 
 
-# the unported sources' families, and the count of compile events, which
-# exists only once a compile event was recorded (XLA programs in one
-# package, CUDA-graph captures in the other)
-_UNPORTED_FAMILIES = re.compile(r"^torcheval_tpu_((admission|quality)_|events_kind_compile$)")
+# the unported sources' families, the port's own example-buffer growth
+# source, and the count of compile events, which exists only once a
+# compile event was recorded (XLA programs in one package, CUDA-graph
+# captures in the other)
+_UNPORTED_FAMILIES = re.compile(
+    r"^torcheval_tpu_((admission|quality|buffers)_|events_kind_compile$)"
+)
 
 
 def _families(text):

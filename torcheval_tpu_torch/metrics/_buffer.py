@@ -21,18 +21,37 @@ one in. ``state_dict`` and ``load_state_dict`` copy (the base class's
 rule), so a snapshot never aliases a buffer that a later append writes.
 ``merge_state`` appends each peer's valid prefix; ``_sync_state_dict``
 ships each buffer trimmed to ``next_capacity(count)``.
+
+``GROWTHS`` counts growths and the bytes they copied, process-wide and
+whether or not the recorder is on (a growth is rare and costly, as a
+kernel launch is to ``ops._kernels.LAUNCHES``); the observability
+registry reads it as its ``buffers`` source. While the recorder is on a
+growth is a ``torcheval.buffer.grow`` span.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, _clone_state
+from torcheval_tpu_torch.obs import trace as _obs_trace
+from torcheval_tpu_torch.obs.recorder import RECORDER as _OBS
 from torcheval_tpu_torch.utils.convert import narrow_dtype
 
 MIN_CAPACITY = 64
+
+# buffer growths (not the lazy first allocation) and the bytes they copied
+GROWTHS: Dict[str, int] = {"growths": 0, "growth_bytes": 0}  # tev: guarded-by=_GROWTHS_LOCK
+_GROWTHS_LOCK = threading.Lock()
+
+
+def growth_counts() -> Dict[str, int]:
+    """A copy of ``GROWTHS``."""
+    with _GROWTHS_LOCK:
+        return dict(GROWTHS)
 
 
 def next_capacity(n: int) -> int:
@@ -119,8 +138,12 @@ class BufferedExamplesMetric(Metric[torch.Tensor]):
             return buf
         shape = list(buf.shape)
         shape[axis] = next_capacity(needed)
-        new = torch.full(shape, spec.fill, dtype=buf.dtype, device=buf.device)
-        new.narrow(axis, 0, cap).copy_(buf)
+        with _obs_trace.scope_or_null("torcheval.buffer.grow", _OBS.enabled):
+            new = torch.full(shape, spec.fill, dtype=buf.dtype, device=buf.device)
+            new.narrow(axis, 0, cap).copy_(buf)
+        with _GROWTHS_LOCK:
+            GROWTHS["growths"] += 1
+            GROWTHS["growth_bytes"] += buf.numel() * buf.element_size()
         return new
 
     # ------------------------------------------------------------------ access

@@ -54,6 +54,7 @@ from typing import Any, Callable, Dict, List, Sequence, Set, Tuple
 import torch
 
 from torcheval_tpu_torch.metrics._bucket import Padded, ValidSizes, materialize
+from torcheval_tpu_torch.obs import trace as _obs_trace
 from torcheval_tpu_torch.utils import compile_counter
 
 
@@ -154,23 +155,34 @@ def fused_transform(
     )[0]
 
 
-def fused_accumulate_group(plans, *, donate=False, graph=False) -> tuple:
+def fused_accumulate_group(plans, *, donate=False, graph=False, labels=None) -> tuple:
     """Run many plans -- ``(kernel, states, dynamic, config)`` or
     ``(kernel, states, dynamic, config, transform)`` tuples -- and return
     their new states, one tuple a plan. Eagerly, the plans run in turn;
     with ``graph=True`` the whole group is ONE CUDA-graph replay, the
     port's counterpart of the JAX package's one XLA program a panel.
-    ``donate`` covers every plan's states at once."""
+    ``donate`` covers every plan's states at once.
+
+    ``labels`` (one name a plan, its metric's class; ``update_collection``
+    passes them while the recorder is on) traces the group: each eager
+    plan runs inside a ``torcheval.accumulate/<label>`` span, a graphed
+    group's replay inside one ``torcheval.replay`` span."""
     norm = [
         (p[0], tuple(p[1]), tuple(p[2]), tuple(p[3]), bool(p[4]) if len(p) > 4 else False)
         for p in plans
     ]
     if graph:
-        return _graphed(norm)
-    return tuple(
-        _eager(kernel, states, dynamic, config, transform, donate)
-        for kernel, states, dynamic, config, transform in norm
-    )
+        return _graphed(norm, traced=labels is not None)
+    if labels is None:
+        return tuple(
+            _eager(kernel, states, dynamic, config, transform, donate)
+            for kernel, states, dynamic, config, transform in norm
+        )
+    out = []
+    for label, (kernel, states, dynamic, config, transform) in zip(labels, norm):
+        with _obs_trace.scope_or_null("torcheval.accumulate", True, label):
+            out.append(_eager(kernel, states, dynamic, config, transform, donate))
+    return tuple(out)
 
 
 # ------------------------------------------------------------ CUDA graphs
@@ -331,7 +343,7 @@ def _register(key, entry: _Graph, states) -> None:
         keys.add(key)
 
 
-def _graphed(plans) -> tuple:
+def _graphed(plans, traced: bool = False) -> tuple:
     states = [s for _, st, _, _, _ in plans for s in st]
     if not states or not all(
         isinstance(s, torch.Tensor) and s.device.type == _GRAPH_DEVICE_TYPE for s in states
@@ -353,16 +365,18 @@ def _graphed(plans) -> tuple:
         state_sig,
     )
     entry = _GRAPHS.get(key)
-    if entry is None:
+    captured = entry is None
+    if captured:
         entry = _capture(key, plans, objs, arg_sig, states, device, stream)
         if entry is None:  # a state changes dtype or shape: eager, once
             return tuple(
                 _eager(kernel, st, dynamic, config, transform, True)
                 for kernel, st, dynamic, config, transform in plans
             )
-    else:
-        _fill(entry, objs)
-    entry.graph.replay()
+    with _obs_trace.scope_or_null("torcheval.replay", traced):
+        if not captured:  # a capture filled the static inputs itself
+            _fill(entry, objs)
+        entry.graph.replay()
     _STATS["replays"] += 1
     return tuple(st for _, st, _, _, _ in plans)
 

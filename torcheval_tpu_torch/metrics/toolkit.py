@@ -576,28 +576,30 @@ def update_collection(
     ) as panel_frame:
         with shared_conversion_cache():
             for metric in items:
-                plan = metric._update_plan(*args, **kwargs)
-                if plan is None:
-                    fallback.append(metric)
-                    continue
-                bucketed = False
-                if isinstance(plan, UpdatePlan):
-                    lazy = graphed_update_possible((metric,))
-                    rewritten = apply_bucketing(plan, pad_cache, lazy=lazy)
-                    bucketed = rewritten is not plan
-                    plan = rewritten
-                    kernel, names, dynamic, config = (
-                        plan.kernel, plan.state_names, plan.dynamic, plan.config
+                # validation, conversion and padding: a span a metric
+                with _obs_trace.scope_or_null("torcheval.plan", obs_on, type(metric).__name__):
+                    plan = metric._update_plan(*args, **kwargs)
+                    if plan is None:
+                        fallback.append(metric)
+                        continue
+                    bucketed = False
+                    if isinstance(plan, UpdatePlan):
+                        lazy = graphed_update_possible((metric,))
+                        rewritten = apply_bucketing(plan, pad_cache, lazy=lazy)
+                        bucketed = rewritten is not plan
+                        plan = rewritten
+                        kernel, names, dynamic, config = (
+                            plan.kernel, plan.state_names, plan.dynamic, plan.config
+                        )
+                        transform, finalize = plan.transform, plan.finalize
+                    else:
+                        kernel, names, dynamic, *rest = plan
+                        config = rest[0] if rest else ()
+                        transform, finalize = False, None
+                    states = tuple(getattr(metric, n) for n in names)
+                    groups[bucketed].append(
+                        (metric, names, finalize, (kernel, states, dynamic, config, transform))
                     )
-                    transform, finalize = plan.transform, plan.finalize
-                else:
-                    kernel, names, dynamic, *rest = plan
-                    config = rest[0] if rest else ()
-                    transform, finalize = False, None
-                states = tuple(getattr(metric, n) for n in names)
-                groups[bucketed].append(
-                    (metric, names, finalize, (kernel, states, dynamic, config, transform))
-                )
             # fallbacks validate inside their own update: after every plan
             for metric in fallback:
                 metric.update(*args, **kwargs)
@@ -608,7 +610,8 @@ def update_collection(
             donate = all(m._donation_active() for m in group_metrics)
             graph = bucketed and graphed_update_possible(group_metrics)
             new_states_group = fused_accumulate_group(
-                [p for _, _, _, p in members], donate=donate, graph=graph
+                [p for _, _, _, p in members], donate=donate, graph=graph,
+                labels=[type(m).__name__ for m in group_metrics] if obs_on else None,
             )
             for (metric, names, finalize, _), new_states in zip(members, new_states_group):
                 for name, value in zip(names, new_states):
@@ -619,12 +622,15 @@ def update_collection(
         # ONE event for the whole panel (plan-fused metrics bypass their
         # own `update`, so this is their record; fallback metrics recorded
         # their own UpdateEvents above)
-        seconds = time.monotonic() - t0
+        t_mono, t_wall = time.monotonic(), time.time()
+        seconds = t_mono - t0
         _obs_hist.observe("update/update_collection", seconds)
         _OBS.record(
             UpdateEvent(
                 metric="update_collection",
                 seconds=seconds,
+                t_mono=t_mono,
+                t_wall=t_wall,
                 fused=len(items) - len(fallback),
                 trace=panel_frame.trace_id,
                 span=panel_frame.span_id,

@@ -31,7 +31,10 @@ source adds nothing to any hot path. The default registry federates:
   worst rung, lowest sampled fraction, admitted/shed row and transition
   totals);
 - ``wire``: the quantized wire ladder (``wire.LADDER.counters()``: the
-  configured default rung, the block size and every drift-breach cap).
+  configured default rung, the block size and every drift-breach cap);
+- ``buffers``: the example buffers' growths and the bytes they copied
+  (``metrics._buffer.growth_counts()``; counted whether or not the
+  recorder is on). The port alone has this source.
   An armed sync plane adds ``syncplane``, an armed federation
   ``federation`` and an armed failure domain ``resilience`` while they
   are open.
@@ -106,6 +109,12 @@ def _wire_source() -> Dict[str, Any]:
     from torcheval_tpu_torch.wire import LADDER
 
     return LADDER.counters()
+
+
+def _buffers_source() -> Dict[str, Any]:
+    from torcheval_tpu_torch.metrics._buffer import growth_counts
+
+    return growth_counts()
 
 
 def _events_source() -> Dict[str, Any]:
@@ -214,5 +223,7 @@ def default_registry() -> CounterRegistry:
             registry.register("admission", _admission_source)
             # quantized wire ladder: configured rung + drift-breach caps
             registry.register("wire", _wire_source)
+            # example-buffer growths and the bytes they copied
+            registry.register("buffers", _buffers_source)
             _DEFAULT = registry
         return _DEFAULT

@@ -605,9 +605,13 @@ def export_chrome_trace(
     fields ride in ``args``; span/parent ids ride there too, so a
     Perfetto query can rebuild the causal tree.
 
-    Timestamps are each rank's monotonic clock in µs — within a rank
-    they order exactly; across ranks/hosts the clocks are not aligned
-    (lanes are still side-by-side and flows still link).
+    Timestamps are wall-clock µs since the epoch (each event's
+    ``t_wall``; its ``t_mono`` where an event has none): the clock a
+    ``torch.profiler`` chrome trace uses (its ``ts`` plus
+    ``baseTimeNanoseconds``), so a program trace and a profiler trace of
+    the same run overlay, and a device trace's idle gap can be put down
+    to the program span the host was in. Across hosts the lanes align as
+    far as the hosts' clocks agree; flows link them either way.
 
     Returns the ``{"traceEvents": [...]}`` dict; ``path`` additionally
     writes it as JSON (every record carries ``ph``/``ts``/``pid``/``tid``;
@@ -641,7 +645,7 @@ def export_chrome_trace(
             d = raw if isinstance(raw, dict) else raw.as_dict()
             kind = d.get("kind", "event")
             tid = d.get("tid") or 0
-            t_end_us = float(d.get("t_mono", 0.0)) * 1e6
+            t_end_us = float(d.get("t_wall") or d.get("t_mono", 0.0)) * 1e6
             args = {
                 k: v
                 for k, v in d.items()

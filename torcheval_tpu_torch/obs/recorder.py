@@ -34,8 +34,6 @@ import time
 from collections import deque
 from typing import Dict, Iterator, List, Optional
 
-import torch
-
 from torcheval_tpu_torch import config
 from torcheval_tpu_torch.obs import trace as _trace
 from torcheval_tpu_torch.obs.events import Event, SpanEvent
@@ -99,13 +97,13 @@ class EventLog:
 class _Span:
     """Context manager timing one named phase.
 
-    While the recorder is on, enters ``torch.profiler.record_function``
-    so the phase shows up in ``torch.profiler`` traces (a host-side range,
-    not NVTX: the CPU build of torch has none), opens a causal-tracing frame
-    (``obs/trace.py`` — nested spans and events recorded inside parent
-    to this one), and records a
+    Opens a causal-tracing frame (``obs/trace.py`` — nested spans and
+    events recorded inside parent to this one); while the recorder is on
+    the frame is a profiled :class:`~torcheval_tpu_torch.obs.trace.Scope`,
+    so the phase also shows up in ``torch.profiler`` traces (a host-side
+    range, not NVTX: the CPU build of torch has none). On exit records a
     :class:`~torcheval_tpu_torch.obs.events.SpanEvent` with the measured wall
-    duration on exit.
+    duration.
     """
 
     def __init__(self, recorder: "Recorder", name: str) -> None:
@@ -113,30 +111,30 @@ class _Span:
         self.name = name
         self.seconds = 0.0
         self._t0 = 0.0
-        self._annotation = None
-        self._scope = _trace.Scope(name)
+        self._scope: Optional[_trace.Scope] = None
         self.frame = None
 
     def __enter__(self) -> "_Span":
-        if self._recorder.enabled:
-            self._annotation = torch.profiler.record_function(self.name)
-            self._annotation.__enter__()
+        self._scope = _trace.Scope(self.name, profiled=self._recorder.enabled)
         self.frame = self._scope.__enter__()
         self._t0 = time.monotonic()
         return self
 
     def __exit__(self, *exc_info) -> None:
-        self.seconds = time.monotonic() - self._t0
+        # stamped where the phase ends, before its ranges close: the
+        # exported start (end less seconds) then meets the profiler's
+        t_mono, t_wall = time.monotonic(), time.time()
+        self.seconds = t_mono - self._t0
         try:
             self._scope.__exit__(*exc_info)
-            if self._annotation is not None:
-                self._annotation.__exit__(*exc_info)
         finally:
             frame = self.frame
             self._recorder.record(
                 SpanEvent(
                     name=self.name,
                     seconds=self.seconds,
+                    t_mono=t_mono,
+                    t_wall=t_wall,
                     trace=frame.trace_id if frame else None,
                     span=frame.span_id if frame else None,
                     parent=frame.parent_id if frame else None,

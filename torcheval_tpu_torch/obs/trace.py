@@ -10,7 +10,15 @@ thread-local stack of :class:`SpanFrame`\\ s:
 
 - **Instrumented sites push a frame** for the duration of the phase
   (``Metric.update``/``compute`` wrappers, the toolkit sync, elastic
-  snapshot/restore, user ``obs.span()`` phases) via :class:`Scope`.
+  snapshot/restore, user ``obs.span()`` phases) via :class:`Scope`. A
+  site traced only while the recorder is on (:func:`scope_or_null`) also
+  opens a ``torch.profiler.record_function`` range of the frame's name
+  while a profiler collects, so the phase lands in a ``torch.profiler``
+  trace on the device trace's clock. In the metric core such frames mark each
+  metric's plan (``torcheval.plan/<Metric>``), its accumulate
+  (``torcheval.accumulate/<Metric>``, or ``torcheval.replay`` for a
+  graphed group), K1's wrapper (``torcheval.k1``) and a buffer's growth
+  (``torcheval.buffer.grow``); they record no event.
 - **Point events inherit the current frame**: ``Recorder.record`` stamps
   ``trace``/``parent`` from :func:`current` onto any event that does not
   carry its own span — a ``RetryEvent`` emitted during a sync parents to
@@ -37,6 +45,8 @@ import itertools
 import os
 import threading
 from typing import Any, Dict, List, Optional
+
+import torch
 
 __all__ = [
     "Scope",
@@ -197,33 +207,52 @@ class Scope:
     conftest failure hook appends it to test reports ("the trace path to
     the failing site"). Identity-keyed on the exception, so only the
     INNERMOST frame's capture survives the unwind.
+
+    ``profiled=True`` also opens a ``torch.profiler.record_function``
+    range of the same name around the frame while a profiler is
+    collecting: the one place a program span reaches the profiler. With
+    none collecting the range would record nothing, and it costs several
+    times what the frame does, so it is not opened.
     """
 
-    __slots__ = ("name", "frame")
+    __slots__ = ("name", "frame", "_range")
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, profiled: bool = False) -> None:
         self.name = name
         self.frame: Optional[SpanFrame] = None
+        self._range = (
+            torch.profiler.record_function(name)
+            if profiled and torch.autograd._profiler_enabled()
+            else None
+        )
 
     def __enter__(self) -> SpanFrame:
+        if self._range is not None:
+            self._range.__enter__()
         self.frame = push(self.name)
         return self.frame
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        if exc is not None:
-            capture_error(exc)
-        if self.frame is not None:
-            pop(self.frame)
+        try:
+            if exc is not None:
+                capture_error(exc)
+            if self.frame is not None:
+                pop(self.frame)
+        finally:
+            if self._range is not None:
+                self._range.__exit__(exc_type, exc, tb)
         return False
 
 
 _NULL_SCOPE = _contextlib.nullcontext()
 
 
-def scope_or_null(name: str, enabled: bool):
-    """A :class:`Scope` when ``enabled``, else a shared ``nullcontext``
-    (which yields ``None``) — the one-liner every conditionally-traced
-    site uses::
+def scope_or_null(name: str, enabled: bool, detail: Optional[str] = None):
+    """A profiled :class:`Scope` when ``enabled`` (a span frame and a
+    ``torch.profiler.record_function`` range, both named ``name``, or
+    ``name/detail`` when ``detail`` is given), else a shared
+    ``nullcontext`` (which yields ``None``) — the one-liner every
+    conditionally-traced site uses::
 
         with trace.scope_or_null("torcheval.sync", _OBS.enabled) as frame:
             ...  # frame is the SpanFrame, or None when disabled
@@ -233,9 +262,13 @@ def scope_or_null(name: str, enabled: bool):
     ``sys.exc_info()`` reports the already-HANDLED exception, and a
     scope exited with it would capture a bogus error stack for a
     perfectly clean call. Disabled cost: one call + a shared, stateless
-    context manager — no allocation.
+    context manager — no allocation, and no name is built: a per-metric
+    site passes its metric's class as ``detail`` instead of formatting
+    the name itself.
     """
-    return Scope(name) if enabled else _NULL_SCOPE
+    if not enabled:
+        return _NULL_SCOPE
+    return Scope(name if detail is None else f"{name}/{detail}", profiled=True)
 
 
 def last_error_stack() -> Optional[List[str]]:

@@ -33,6 +33,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from torcheval_tpu_torch.obs import trace as _obs_trace
+from torcheval_tpu_torch.obs.recorder import RECORDER as _OBS
 from torcheval_tpu_torch.ops import _kernels
 from torcheval_tpu_torch.utils.convert import (
     DeviceLike,
@@ -535,23 +537,27 @@ def _histogram_into(
     On CUDA only ``out`` is checked on every call: the entry points put
     every input on one device, and ``_as_2d``, ``contiguous`` and
     ``_unit_stride_rows`` make them float32 (T, n) rows the kernel reads,
-    so ``_histogram_cuda``'s other checks cannot fail here."""
+    so ``_histogram_cuda``'s other checks cannot fail here.
+
+    While the recorder is on the call is a ``torcheval.k1`` span: the
+    wrapper's host time is the span less the ``K1_OP`` call inside it."""
     if scores.shape[-1] == 0:
         # zero samples -> zero histogram (the min/max has no identity)
         return out
-    scores2, labels2, weights2 = _as_2d(scores, labels, weights)
-    if scores2.is_cuda:
-        _check_out(out, scores2, num_bins)
-        K1_OP(
-            out,
-            scores2.contiguous(),
-            _unit_stride_rows(labels2),
-            _unit_stride_rows(weights2),
-            num_bins,
-            bounds,
-        )
-        return out
-    return out + _histogram_plain_full(scores2, labels2, weights2, num_bins, bounds)
+    with _obs_trace.scope_or_null("torcheval.k1", _OBS.enabled):
+        scores2, labels2, weights2 = _as_2d(scores, labels, weights)
+        if scores2.is_cuda:
+            _check_out(out, scores2, num_bins)
+            K1_OP(
+                out,
+                scores2.contiguous(),
+                _unit_stride_rows(labels2),
+                _unit_stride_rows(weights2),
+                num_bins,
+                bounds,
+            )
+            return out
+        return out + _histogram_plain_full(scores2, labels2, weights2, num_bins, bounds)
 
 
 def histogram_delta_kernel(
