@@ -3950,6 +3950,13 @@ def _captures():
     return _fuse.graph_stats()["captures"]
 
 
+def _eager():
+    """Donation off: the eager twin of a graphed panel runs its plans as
+    plain torch ops, never as a CUDA graph (on CUDA, with donation on, an
+    unbucketed group whose input signature repeats is one replay)."""
+    return config.update_donation(False)
+
+
 def _same_states(a, b):
     """Every state of metric ``a`` bitwise equal to ``b``'s."""
     sa, sb = a.state_dict(), b.state_dict()
@@ -3982,7 +3989,7 @@ def _panel_timing(make, args, device, reps):
     out = {}
     for name, bucketed in (("eager", False), ("graphed", True), ("eager_again", False)):
         panel = make()
-        with config.shape_bucketing(bucketed):
+        with config.shape_bucketing(bucketed), (contextlib.nullcontext() if bucketed else _eager()):
             fn = lambda: toolkit.update_collection(panel, *args)  # noqa: E731
             fn()
             out[name] = {"host_ms": _host_ms(fn, device, reps), "device_ms": _time_ms(fn, device, reps)}
@@ -4022,7 +4029,8 @@ def _bucket_classify(device, n, num_classes, batch, variable, reps, seed):
             else:
                 _timed_update(timers, "graphed", device,
                               lambda: toolkit.update_collection(graphed, x, y))
-        _timed_update(timers, "eager", device, lambda: toolkit.update_collection(eager, x, y))
+        with _eager():
+            _timed_update(timers, "eager", device, lambda: toolkit.update_collection(eager, x, y))
         return all(_same_states(graphed[k], eager[k]) for k in graphed)
 
     _kernels.reset_launch_counts()
@@ -4072,10 +4080,11 @@ def _bucket_classify(device, n, num_classes, batch, variable, reps, seed):
 def _bucket_criteo(device, n, batch, row_tasks, seed):
     """The DLRM panel over the Criteo 1TB evaluation stream with its real
     tail: ``BinaryNormalizedEntropy`` and ``StreamingBinaryAUROC`` (K1)
-    in one ``update_collection`` (no masked twin: the plain group, eager),
-    the calibration row form over ``row_tasks`` ids in another (bucketed:
-    one graph replay an update), ``ClickThroughRate`` alone, beside the
-    same metrics fed unbucketed."""
+    in one ``update_collection`` (no masked twin: the plain group, one
+    graph replay a repeated signature), the calibration row form over
+    ``row_tasks`` ids in another (bucketed: one graph replay an update),
+    ``ClickThroughRate`` alone, beside the same metrics fed unbucketed
+    with donation off."""
     cuda = torch.device(device).type == "cuda"
 
     def make():
@@ -4107,10 +4116,11 @@ def _bucket_criteo(device, n, batch, row_tasks, seed):
                               lambda: toolkit.update_collection(rows_g, s, y, w, task_ids=ids))
             ctr_g.update(y)
         k1 += _kernels.LAUNCHES["fused_auc_hist"] - before
-        toolkit.update_collection(plain_e, s, y)
-        _timed_update(timers, "rows_eager", device,
-                      lambda: toolkit.update_collection(rows_e, s, y, w, task_ids=ids))
-        ctr_e.update(y)
+        with _eager():
+            toolkit.update_collection(plain_e, s, y)
+            _timed_update(timers, "rows_eager", device,
+                          lambda: toolkit.update_collection(rows_e, s, y, w, task_ids=ids))
+            ctr_e.update(y)
         keep = ids < row_tasks
         o["ws"].index_add_(0, ids[keep], (w * s)[keep].double())
         o["wy"].index_add_(0, ids[keep], (w * y)[keep].double())
@@ -4126,8 +4136,8 @@ def _bucket_criteo(device, n, batch, row_tasks, seed):
     _check(counters_bitwise, "NE / AUROC / CTR states differ from the unbucketed run")
     _check(ok_g and ok_e, f"calibration sums past the float32 bound ({err_g}, {err_e})")
     _check(k1 == (updates if cuda else 0), f"K1 launched {k1} times for {updates} panel updates")
-    if cuda:
-        _check(0 < captures <= 2, f"{captures} captures for the calibration rows (two buckets)")
+    if cuda:  # the calibration rows' two buckets, the plain group's full batch
+        _check(0 < captures <= 3, f"{captures} captures for the calibration rows and the plain group")
     return {"samples": n, "batch": batch, "tail": n - (updates - 1) * batch, "updates": updates,
             "row_tasks": row_tasks, "k1_launches": k1, "captures": captures,
             "counters_bitwise": counters_bitwise, "calibration_rel_err_vs_float64": err_g,
@@ -4319,7 +4329,8 @@ def _bucket_twins(device, sizes, num_classes, num_t, seed):
             args, kwargs = _twin_batch(kind, gen, m, num_classes, device)
             with config.shape_bucketing():
                 toolkit.update_collection(graphed[kind], *args, **kwargs)
-            toolkit.update_collection(eager[kind], *args, **kwargs)
+            with _eager():
+                toolkit.update_collection(eager[kind], *args, **kwargs)
             if kind in ("regression", "weighted"):
                 x, y = (a.double() for a in args)
             if kind == "regression":
@@ -4691,7 +4702,8 @@ def _elastic_bucket(device, directory, n, num_classes, batch, variable, seed):
         with config.shape_bucketing():
             toolkit.update_collection(graphed, x, y)
         if "eager" in panels:
-            toolkit.update_collection(eager, x, y)
+            with _eager():
+                toolkit.update_collection(eager, x, y)
         return _same_panel(graphed, eager)
 
     sizes = [min(batch, n - start) for start in range(0, n, batch)]

@@ -21,6 +21,8 @@ Tolerances: counters bitwise; float sums within rtol 1e-6.
 
 from __future__ import annotations
 
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +38,7 @@ from torcheval_tpu_torch.metrics import _bucket as tbucket
 from torcheval_tpu_torch.metrics import _fuse as tfuse
 from torcheval_tpu_torch.metrics import toolkit as ttoolkit
 from torcheval_tpu_torch.metrics.metric import Metric, MergeKind, UpdatePlan
+from torcheval_tpu_torch.ops import _kernels as tkernels
 from torcheval_tpu_torch.utils import convert as tconvert
 from torcheval_tpu_torch.utils.convert import numpy_state_dict
 
@@ -419,12 +422,15 @@ class _FakeStream:
 
 class _FakeGraph:
     """A "graph" that records the body it was captured with and re-runs it
-    on replay: on the CPU nothing runs at capture, as on the card."""
+    on replay: on the CPU nothing runs at capture, as on the card. A card's
+    replay runs no Python, so the body's own launch counts are held out:
+    ``_fuse`` adds the capture's."""
 
     body = None
 
     def replay(self):
-        self.body()
+        with tkernels.held_launches():
+            self.body()
 
 
 @pytest.fixture
@@ -438,10 +444,11 @@ def emulated_graphs(monkeypatch):
     monkeypatch.setattr(tfuse, "_GRAPH_DEVICE_TYPE", "cpu")
     # a fake graph's body holds its states, which a captured graph does
     # not: keep the emulated graphs out of the process-wide tables
-    for name in ("_SIDE_STREAMS", "_GRAPHS", "_BY_STATE", "_POOLS"):
+    for name in ("_SIDE_STREAMS", "_GRAPHS", "_SIGHTINGS", "_BY_STATE", "_POOLS"):
         monkeypatch.setattr(tfuse, name, {})
-    monkeypatch.setattr(tfuse, "_STATS", {"captures": 0, "replays": 0})
+    monkeypatch.setattr(tfuse, "_STATS", dict.fromkeys(tfuse._STATS, 0))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+    monkeypatch.setattr(tfuse, "_stream_id", lambda index: stream.cuda_stream)
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _FakeStream())
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
@@ -476,7 +483,8 @@ def test_emulated_graphs_replay_a_bucket_at_every_valid_count(emulated_graphs):
             y = torch.from_numpy(rng.integers(0, 7, n).astype(np.int64))
             with tconfig.shape_bucketing():
                 ttoolkit.update_collection(graphed, x, y)
-            ttoolkit.update_collection(eager, x, y)
+            with tconfig.update_donation(False):  # eager: no repeated-signature graphs
+                ttoolkit.update_collection(eager, x, y)
             for name in graphed:
                 for k, v in graphed[name].state_dict().items():
                     assert torch.equal(v, eager[name].state_dict()[k]), (name, k, n)
@@ -632,3 +640,204 @@ def test_emulated_graphed_group_is_one_replay_range(emulated_graphs):
         f"torcheval.plan/{type(m).__name__}" for m in graphed.values() for _ in range(2))
     assert not any(n.startswith("torcheval.accumulate/") for n in names)
     assert [c.site for c in compiles] == ["torcheval.update_collection"]
+
+
+# -------------- the unbucketed group's repeated-signature graphs, emulated on the CPU
+
+
+def _stream_panels():
+    """The Criteo stream panel: four metrics on (scores, labels), CTR on
+    the labels alone (two ``update_collection`` calls, two groups)."""
+    pair = {
+        "ne": TM.BinaryNormalizedEntropy(device=CPU),
+        "calibration": TM.WeightedCalibration(device=CPU),
+        "auroc": TM.StreamingBinaryAUROC(num_bins=64, device=CPU),
+        "auprc": TM.StreamingBinaryAUPRC(num_bins=64, device=CPU),
+    }
+    return pair, {"ctr": TM.ClickThroughRate(device=CPU)}
+
+
+def _stream_batch(rng, n):
+    s = rng.random(n).astype(np.float32)
+    return torch.from_numpy(s), torch.from_numpy((rng.random(n) < s).astype(np.float32))
+
+
+def _stream_update(panels, s, y):
+    pair, ctr = panels
+    ttoolkit.update_collection(pair, s, y)
+    ttoolkit.update_collection(ctr, y)
+
+
+def _stats_since(before):
+    now = tfuse.graph_stats()
+    return {k: now[k] - before[k] for k in before if k not in ("graphs", "pools")}
+
+
+def _assert_panels_equal(got, want):
+    for g, w in zip(got, want):
+        for name in g:
+            for k, v in g[name].state_dict().items():
+                assert torch.equal(v, w[name].state_dict()[k]), (name, k)
+
+
+def test_stream_panel_graphs_on_the_second_sighting(emulated_graphs):
+    """Each of the panel's two groups runs eagerly on its signature's
+    first sighting, is captured (and replayed) on the second, and replays
+    from the third on."""
+    rng = np.random.default_rng(12)
+    panels = _stream_panels()
+    steps = []
+    for _ in range(3):
+        before = tfuse.graph_stats()
+        _stream_update(panels, *_stream_batch(rng, 512))
+        steps.append(_stats_since(before))
+    zero = dict.fromkeys(steps[0], 0)
+    assert steps[0] == dict(zero, eager_first_sighting=2)
+    assert steps[1] == dict(zero, captures=2, replays=2)
+    assert steps[2] == dict(zero, replays=2)
+
+
+def test_repeated_graphs_keep_the_stream_panel_bitwise_eager(emulated_graphs):
+    """Passes of full batches and a ragged tail, a ``reset()`` after each:
+    the graphed panel's states equal those of the same batches with
+    donation off, bitwise, and the graphs (batch and tail, two groups)
+    survive the resets."""
+    rng = np.random.default_rng(13)
+    graphed, eager = _stream_panels(), _stream_panels()
+    captures = []
+    for _ in range(3):
+        for n in [512] * 4 + [77]:
+            s, y = _stream_batch(rng, n)
+            _stream_update(graphed, s, y)
+            with tconfig.update_donation(False):
+                _stream_update(eager, s, y)
+        _assert_panels_equal(graphed, eager)
+        for panel in graphed + eager:
+            for m in panel.values():
+                m.reset()
+        captures.append(tfuse.graph_stats()["captures"])
+    assert captures == [2, 4, 4]  # the tail repeats in the second pass
+    _assert_panels_equal(graphed, eager)
+
+
+def test_repeated_group_over_the_input_cap_stays_eager(emulated_graphs):
+    """Inputs a replay would copy are capped in total: one byte over runs
+    eagerly on every call, counted ``over_bytes``; at the cap it graphs."""
+    per_sample = 8  # float32 scores and labels
+    stats = {}
+    for extra in (1, 0):
+        n = tfuse.REPEATED_INPUT_CAP_BYTES // per_sample + extra
+        panel = {"ne": TM.BinaryNormalizedEntropy(device=CPU)}
+        s = torch.rand(n, generator=torch.Generator().manual_seed(extra))
+        y = (s > 0.5).float()
+        before = tfuse.graph_stats()
+        for _ in range(3):
+            ttoolkit.update_collection(panel, s, y)
+        stats[extra] = _stats_since(before)
+    assert stats[1]["eager_over_bytes"] == 3
+    assert stats[1]["captures"] == stats[1]["replays"] == 0
+    assert stats[0]["eager_over_bytes"] == 0
+    assert (stats[0]["captures"], stats[0]["replays"]) == (1, 2)
+
+
+def test_repeated_capture_budget_holds(emulated_graphs):
+    """A set of states captures at most ``REPEATED_CAPTURE_BUDGET``
+    signatures; past them its repeated signatures run eagerly (bitwise as
+    with donation off), and another set of states has its own budget."""
+    budget = tfuse.REPEATED_CAPTURE_BUDGET
+    sizes = list(range(10, 13 + budget))
+    rng = np.random.default_rng(14)
+    graphed, eager = {"ctr": TM.ClickThroughRate(device=CPU)}, {"ctr": TM.ClickThroughRate(device=CPU)}
+    before = tfuse.graph_stats()
+    for _ in range(3):
+        for n in sizes:
+            y = torch.from_numpy((rng.random(n) < 0.3).astype(np.float32))
+            ttoolkit.update_collection(graphed, y)
+            with tconfig.update_donation(False):
+                ttoolkit.update_collection(eager, y)
+    got = _stats_since(before)
+    over = len(sizes) - budget
+    assert got["eager_first_sighting"] == len(sizes)
+    assert got["captures"] == budget and got["replays"] == 2 * budget
+    assert got["eager_budget"] == 2 * over
+    _assert_panels_equal([graphed], [eager])
+    fresh = {"ctr": TM.ClickThroughRate(device=CPU)}
+    before = tfuse.graph_stats()
+    for _ in range(2):
+        ttoolkit.update_collection(fresh, torch.ones(sizes[-1]))
+    assert _stats_since(before)["captures"] == 1
+
+
+def test_failed_repeated_capture_runs_eagerly_and_stays_eager(emulated_graphs, monkeypatch):
+    """A refused capture of an unbucketed group raises nothing: that call
+    runs eagerly, counted ``capture_failed``, with a warning that names the
+    kernels and the cause, and so does every later call of the signature,
+    without another try. (A bucketed capture still raises:
+    ``test_emulated_capture_failure_raises``.)"""
+    tries = []
+
+    def refuse(graph, pool, body):
+        tries.append(graph)
+        return RuntimeError("refused")
+
+    monkeypatch.setattr(tfuse, "_record", refuse)
+    rng = np.random.default_rng(15)
+    graphed, eager = _stream_panels(), _stream_panels()
+    before = tfuse.graph_stats()
+    for i in range(4):
+        s, y = _stream_batch(rng, 512)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _stream_update(graphed, s, y)
+        messages = [str(w.message) for w in caught if w.category is RuntimeWarning]
+        assert len(messages) == (2 if i == 1 else 0)
+        assert all("refused" in m and "runs eagerly" in m for m in messages)
+        with tconfig.update_donation(False):
+            _stream_update(eager, s, y)
+    got = _stats_since(before)
+    assert len(tries) == 2  # one try a group
+    assert got["eager_first_sighting"] == 2 and got["eager_capture_failed"] == 2 * 3
+    assert got["captures"] == got["replays"] == 0 and tfuse.graph_stats()["pools"] == 0
+    _assert_panels_equal(graphed, eager)
+
+
+def test_k1_launches_count_once_a_streaming_update_in_replays(emulated_graphs, monkeypatch):
+    """``LAUNCHES["fused_auc_hist"]`` counts one K1 launch a streaming
+    update whether the update ran eagerly, was captured or replayed: a
+    capture's warm-up and recording are held out, and a replay adds what
+    the warm-up launched. (K1 has no CPU form, so the streaming metrics'
+    kernel here counts a launch as K1's wrapper does on the card.)"""
+    from torcheval_tpu_torch.metrics.classification import streaming_auroc
+
+    real = streaming_auroc.histogram_accumulate_kernel
+
+    def counted(states, *args):
+        tkernels.count_launch("fused_auc_hist")
+        return real(states, *args)
+
+    monkeypatch.setattr(streaming_auroc, "histogram_accumulate_kernel", counted)
+    rng = np.random.default_rng(16)
+    panels = _stream_panels()
+    sizes = ([512] * 5 + [77]) * 2
+    launches0, before = tkernels.LAUNCHES["fused_auc_hist"], tfuse.graph_stats()
+    for n in sizes:
+        _stream_update(panels, *_stream_batch(rng, n))
+    got = _stats_since(before)
+    # eager: the first sighting of the batch and of the tail, both groups
+    assert got["captures"] == 4 and got["replays"] == 2 * len(sizes) - 4
+    assert tkernels.LAUNCHES["fused_auc_hist"] - launches0 == 2 * len(sizes)
+
+
+def test_held_launches_tally_apart_from_the_counts():
+    before = tkernels.LAUNCHES["fused_auc_hist"]
+    with tkernels.held_launches() as outer:
+        tkernels.count_launch("fused_auc_hist")
+        with tkernels.held_launches() as inner:
+            tkernels.count_launch("fused_auc_hist")
+            tkernels.count_launch("fused_auc_hist")
+        tkernels.count_launch("fused_auc_hist")
+    assert (outer, inner) == ({"fused_auc_hist": 2}, {"fused_auc_hist": 2})
+    assert tkernels.LAUNCHES["fused_auc_hist"] == before
+    tkernels.add_launches(inner)
+    assert tkernels.LAUNCHES["fused_auc_hist"] == before + 2
+    tkernels.LAUNCHES["fused_auc_hist"] = before

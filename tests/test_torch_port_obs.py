@@ -525,11 +525,11 @@ def test_timeout_error_carries_flight_tail_and_retry_event():
 
 
 # the unported sources' families, the port's own example-buffer growth
-# source, and the count of compile events, which exists only once a
-# compile event was recorded (XLA programs in one package, CUDA-graph
-# captures in the other)
+# and CUDA-graph sources, and the count of compile events, which exists
+# only once a compile event was recorded (XLA programs in one package,
+# CUDA-graph captures in the other)
 _UNPORTED_FAMILIES = re.compile(
-    r"^torcheval_tpu_((admission|quality|buffers)_|events_kind_compile$)"
+    r"^torcheval_tpu_((admission|quality|buffers|graphs)_|events_kind_compile$)"
 )
 
 

@@ -9,7 +9,8 @@ growth counter, and the Chrome exporter's clock.
   inside the streaming AUROC's accumulate, and the causal frames parent
   the same way. The new spans record no event.
 - ``metrics._buffer.GROWTHS`` counts what ``next_capacity`` implies, and
-  the default registry shows it as ``buffers``.
+  the default registry shows it as ``buffers``; ``_fuse.graph_stats()``
+  is its ``graphs`` source.
 - ``obs.export_chrome_trace`` writes on the clock of a ``torch.profiler``
   chrome trace (``ts`` + ``baseTimeNanoseconds``): a span and an update
   start within ``CLOCK_SLACK_US`` of their profiler ranges (the median
@@ -225,6 +226,33 @@ def test_growth_counter_counts_what_next_capacity_implies(recorder_on):
     assert len(grows) == (growths if recorder_on else 0)
     assert "torcheval_tpu_buffers_growths" in obs.render_prometheus()
     assert "[buffers]" in obs.format_report()
+
+
+def test_graph_counter_is_the_graphs_source(monkeypatch):
+    """The default registry's ``graphs`` source is ``_fuse.graph_stats()``:
+    captures, replays and the unbucketed groups run eagerly by reason. An
+    unbucketed group's first sighting (CPU states standing in for CUDA
+    ones, donation on) counts ``eager_first_sighting`` and captures
+    nothing."""
+    from torcheval_tpu_torch import config
+    from torcheval_tpu_torch.metrics import _fuse
+
+    before = obs.default_registry().read()["graphs"]
+    assert before == _fuse.graph_stats()
+    assert set(before) == {"captures", "replays", "graphs", "pools"} | {
+        f"eager_{r}" for r in ("first_sighting", "over_bytes", "budget", "capture_failed", "unfit")}
+    monkeypatch.setattr(_fuse, "_GRAPH_DEVICE_TYPE", CPU)
+    for name in ("_SIGHTINGS", "_BY_STATE"):
+        monkeypatch.setattr(_fuse, name, {})
+    monkeypatch.setattr(_fuse, "_stream_id", lambda index: 7)
+    pair, _ = _criteo_panel(CPU)
+    with config.update_donation(True):
+        update_collection(pair, *_batch(CPU))
+    after = obs.default_registry().read()["graphs"]
+    assert after["eager_first_sighting"] - before["eager_first_sighting"] == 1
+    assert (after["captures"], after["replays"]) == (before["captures"], before["replays"])
+    assert "torcheval_tpu_graphs_eager_first_sighting" in obs.render_prometheus()
+    assert "[graphs]" in obs.format_report()
 
 
 def _clock_offsets(device):

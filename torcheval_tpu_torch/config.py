@@ -25,7 +25,10 @@ Two knobs shape how an update runs:
   one CUDA-graph replay (``metrics/_fuse.py``).
 - ``update_donation`` (env ``TORCHEVAL_TPU_UPDATE_DONATION``): updates
   write the new state into the state tensor in place. Unset, it is on for
-  a metric whose state lives on CUDA and off for one on the CPU.
+  a metric whose state lives on CUDA and off for one on the CPU. On CUDA
+  it also lets ``toolkit.update_collection`` run its unbucketed plans as
+  one CUDA-graph replay per input signature that repeats
+  (``metrics/_fuse.py``); off, they run eagerly.
 
 Sync resilience (``resilience.ResilientGroup``): ``sync_timeout``,
 ``sync_retries``, ``sync_degradation`` (``raise``/``local``/``quorum``),
@@ -281,8 +284,9 @@ def update_donation_enabled(device=None) -> bool:
     """True when updates of a metric on ``device`` DONATE their state
     tensors: the new state is written into the old one in place
     (``add_``/``copy_`` wherever the result keeps the state's dtype and
-    shape), so an update allocates no state, and on CUDA a bucketed update
-    can be a CUDA-graph replay that writes the live states. Default: on
+    shape), so an update allocates no state, and on CUDA a bucketed update,
+    or a panel's unbucketed plans whose input signature repeats, can be a
+    CUDA-graph replay that writes the live states. Default: on
     for a CUDA device (``None`` means the card, as for a metric's state)
     and off for the CPU; env ``TORCHEVAL_TPU_UPDATE_DONATION`` or
     :func:`set_update_donation` overrides either way.

@@ -58,7 +58,11 @@ from torcheval_tpu_torch.distributed import (
 )
 from torcheval_tpu_torch.metrics import synclib
 from torcheval_tpu_torch.metrics._bucket import apply_bucketing
-from torcheval_tpu_torch.metrics._fuse import fused_accumulate_group, graphed_update_possible
+from torcheval_tpu_torch.metrics._fuse import (
+    REPEATED,
+    fused_accumulate_group,
+    graphed_update_possible,
+)
 from torcheval_tpu_torch.metrics.metric import Metric, TState, UpdatePlan
 from torcheval_tpu_torch.obs import hist as _obs_hist
 from torcheval_tpu_torch.obs import trace as _obs_trace
@@ -548,9 +552,12 @@ def update_collection(
     bucket form one group and the rest another, as in the JAX package, so
     a metric without a masked kernel cannot make the bucketed group's
     shape follow the ragged batch. On CUDA, under donation, the bucketed
-    group is ONE CUDA-graph replay per bucket; the other group runs
-    eagerly. One pad is made per shared argument, and inside the call each
-    input is converted once (``utils.convert.shared_conversion_cache``).
+    group is ONE CUDA-graph replay per bucket, and the other group ONE
+    replay per input signature once that signature repeats, while its
+    inputs are small (``metrics/_fuse.py``, ``graph=REPEATED``); on the
+    CPU, or with donation off, the plans run eagerly. One pad is made per
+    shared argument, and inside the call each input is converted once
+    (``utils.convert.shared_conversion_cache``).
     Returns the input collection, updated in place.
 
     >>> import torch
@@ -608,7 +615,7 @@ def update_collection(
                 continue
             group_metrics = [m for m, _, _, _ in members]
             donate = all(m._donation_active() for m in group_metrics)
-            graph = bucketed and graphed_update_possible(group_metrics)
+            graph = donate and graphed_update_possible(group_metrics) and (bucketed or REPEATED)
             new_states_group = fused_accumulate_group(
                 [p for _, _, _, p in members], donate=donate, graph=graph,
                 labels=[type(m).__name__ for m in group_metrics] if obs_on else None,

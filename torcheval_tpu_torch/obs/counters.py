@@ -35,6 +35,9 @@ source adds nothing to any hot path. The default registry federates:
 - ``buffers``: the example buffers' growths and the bytes they copied
   (``metrics._buffer.growth_counts()``; counted whether or not the
   recorder is on). The port alone has this source.
+- ``graphs``: the CUDA graphs of plan groups (``metrics._fuse.graph_stats()``:
+  captures, replays, the unbucketed groups run eagerly by reason, graphs
+  and pools alive). The port alone has this source too.
   An armed sync plane adds ``syncplane``, an armed federation
   ``federation`` and an armed failure domain ``resilience`` while they
   are open.
@@ -115,6 +118,12 @@ def _buffers_source() -> Dict[str, Any]:
     from torcheval_tpu_torch.metrics._buffer import growth_counts
 
     return growth_counts()
+
+
+def _graphs_source() -> Dict[str, Any]:
+    from torcheval_tpu_torch.metrics._fuse import graph_stats
+
+    return graph_stats()
 
 
 def _events_source() -> Dict[str, Any]:
@@ -225,5 +234,7 @@ def default_registry() -> CounterRegistry:
             registry.register("wire", _wire_source)
             # example-buffer growths and the bytes they copied
             registry.register("buffers", _buffers_source)
+            # CUDA-graph captures, replays and eager groups by reason
+            registry.register("graphs", _graphs_source)
             _DEFAULT = registry
         return _DEFAULT

@@ -15,6 +15,9 @@ machine may have no ``nvcc``.
 can show that its main path went through the kernels. The count is taken
 under a lock: ranks emulated as threads of one process launch from
 several threads, and a bare ``+= 1`` on a dict entry can lose increments.
+A CUDA-graph capture (``metrics/_fuse.py``) holds its thread's launches
+out of ``LAUNCHES`` (``held_launches``) and adds them back at each replay
+(``add_launches``), which runs them without a wrapper's call.
 
 ``load`` builds and loads under a lock of its own, for the same reason:
 two rank threads reaching a kernel on a cold build directory must not both
@@ -24,6 +27,7 @@ its own (``tempfile``) and renames them into place when it is done.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,7 +37,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torcheval_tpu_torch"
@@ -84,6 +88,7 @@ _SIGNATURES = {
 
 LAUNCHES: Dict[str, int] = {"fused_auc_hist": 0}  # tev: guarded-by=_LAUNCHES_LOCK
 _LAUNCHES_LOCK = threading.Lock()
+_HELD = threading.local()  # .counts: the innermost held_launches tally
 
 _LOADED: Dict[str, ctypes.CDLL] = {}  # tev: guarded-by=_LOAD_LOCK
 _LOAD_LOCK = threading.Lock()
@@ -96,9 +101,34 @@ def reset_launch_counts() -> None:
 
 
 def count_launch(name: str) -> None:
-    """Add one launch of kernel ``name`` to ``LAUNCHES``."""
+    """Add one launch of kernel ``name`` to ``LAUNCHES``, or to this
+    thread's innermost ``held_launches`` tally."""
+    held = getattr(_HELD, "counts", None)
+    if held is not None:
+        held[name] = held.get(name, 0) + 1
+        return
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def held_launches() -> Iterator[Dict[str, int]]:
+    """Tally this thread's launches inside the block into the yielded
+    dict instead of ``LAUNCHES``."""
+    outer = getattr(_HELD, "counts", None)
+    counts: Dict[str, int] = {}
+    _HELD.counts = counts
+    try:
+        yield counts
+    finally:
+        _HELD.counts = outer
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``{name: launches}`` to ``LAUNCHES`` (a replay's)."""
+    with _LAUNCHES_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -6,7 +6,8 @@ counting a different thing. The JAX package counts XLA program demands
 through ``jax.monitoring``: a ragged stream that retraces shows up as
 programs. The port runs eagerly; its nearest counterpart of a compiled
 program is a CUDA graph captured for a bucketed update
-(``metrics/_fuse.py``), one per bucket signature. So here:
+(``metrics/_fuse.py``), one per bucket signature, or for a panel's
+unbucketed plans whose input signature repeats. So here:
 
 - ``programs`` counts captures; every capture is a compile
   (``compiles == programs``) and none is a cache hit (``cache_hits``
@@ -58,9 +59,9 @@ def remove_event_sink(sink: Callable[[str, float, int], None]) -> None:
 
 
 def note_capture(seconds: float, bucket: int = 0) -> None:
-    """One CUDA-graph capture that took ``seconds`` of host time, of a
-    bucketed update whose largest bucket length is ``bucket`` (called by
-    ``metrics/_fuse.py``)."""
+    """One CUDA-graph capture that took ``seconds`` of host time, of an
+    update whose largest bucket length is ``bucket`` (0 for an unbucketed
+    group; called by ``metrics/_fuse.py``)."""
     with _LOCK:
         counters = list(_ACTIVE)
         sinks = list(_EVENT_SINKS)
