@@ -49,11 +49,11 @@ VOCAB, D_MODEL, HEADS, LAYERS, D_FF = 64, 32, 4, 2, 64
 
 def test_exports_match_the_jax_package():
     """The JAX package's names, in its order; the port's models keep the
-    InceptionV3 names after them."""
+    InceptionV3 names and its own MLA + MoE LM's after them."""
     assert tmodels.__all__[: len(jmodels.__all__)] == jmodels.__all__
     assert set(tmodels.__all__[len(jmodels.__all__):]) == {
         "FEATURE_DIM", "InceptionV3", "from_flax_variables", "init_inception_params",
-        "load_torchvision_inception_params",
+        "load_torchvision_inception_params", "MLAMoEConfig", "MLAMoELM",
     }
 
 

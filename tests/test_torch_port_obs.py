@@ -524,12 +524,12 @@ def test_timeout_error_carries_flight_tail_and_retry_event():
 # ------------------------------------------------------------- exporters
 
 
-# the unported sources' families, the port's own example-buffer growth
-# and CUDA-graph sources, and the count of compile events, which exists
-# only once a compile event was recorded (XLA programs in one package,
-# CUDA-graph captures in the other)
+# the unported sources' families, the port's own example-buffer growth,
+# CUDA-graph and expert-layer sources, and the count of compile events,
+# which exists only once a compile event was recorded (XLA programs in one
+# package, CUDA-graph captures in the other)
 _UNPORTED_FAMILIES = re.compile(
-    r"^torcheval_tpu_((admission|quality|buffers|graphs)_|events_kind_compile$)"
+    r"^torcheval_tpu_((admission|quality|buffers|graphs|moe)_|events_kind_compile$)"
 )
 
 

@@ -1,5 +1,8 @@
 """Models of the port: InceptionV3 (FID's default feature extractor), the
-transformer LM and the long-context LM on ring attention."""
+transformer LM, the long-context LM on ring attention, and the port's own
+DeepSeek-V3-family LM (``MLAMoELM``: multi-head latent attention and the
+dropless top-k expert layer of ``parallel.moe.moe_topk_dropless``;
+Moonlight-16B-A3B at its default ``MLAMoEConfig``)."""
 
 from torcheval_tpu_torch.models.inception import (
     FEATURE_DIM,
@@ -13,6 +16,7 @@ from torcheval_tpu_torch.models.long_context import (
     long_context_lm,
     perplexity_counters,
 )
+from torcheval_tpu_torch.models.mla_moe import MLAMoEConfig, MLAMoELM
 from torcheval_tpu_torch.models.transformer import (
     TransformerLM,
     init_params,
@@ -31,4 +35,6 @@ __all__ = [
     "from_flax_variables",
     "init_inception_params",
     "load_torchvision_inception_params",
+    "MLAMoEConfig",
+    "MLAMoELM",
 ]

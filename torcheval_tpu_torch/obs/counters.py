@@ -38,6 +38,12 @@ source adds nothing to any hot path. The default registry federates:
 - ``graphs``: the CUDA graphs of plan groups (``metrics._fuse.graph_stats()``:
   captures, replays, the unbucketed groups run eagerly by reason, graphs
   and pools alive). The port alone has this source too.
+- ``moe``: the dropless top-k expert layer (``parallel.moe.moe_counts()``:
+  model forwards, routed pairs counted from shapes, the pairs the grouped
+  products computed (each held expert's rows between its offsets) and
+  the busiest expert's load over the mean; counted whether or not the
+  recorder is on, the loads on the device and read back only here). The
+  port alone has this source.
   An armed sync plane adds ``syncplane``, an armed federation
   ``federation`` and an armed failure domain ``resilience`` while they
   are open.
@@ -124,6 +130,12 @@ def _graphs_source() -> Dict[str, Any]:
     from torcheval_tpu_torch.metrics._fuse import graph_stats
 
     return graph_stats()
+
+
+def _moe_source() -> Dict[str, Any]:
+    from torcheval_tpu_torch.parallel.moe import moe_counts
+
+    return moe_counts()
 
 
 def _events_source() -> Dict[str, Any]:
@@ -236,5 +248,7 @@ def default_registry() -> CounterRegistry:
             registry.register("buffers", _buffers_source)
             # CUDA-graph captures, replays and eager groups by reason
             registry.register("graphs", _graphs_source)
+            # routed pairs and expert loads of the dropless top-k layer
+            registry.register("moe", _moe_source)
             _DEFAULT = registry
         return _DEFAULT
