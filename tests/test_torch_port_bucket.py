@@ -33,6 +33,7 @@ from torcheval_tpu.metrics import _bucket as jbucket
 from torcheval_tpu.metrics.metric import UpdatePlan as JPlan
 from torcheval_tpu_torch.metrics import _bucket as tbucket
 from torcheval_tpu_torch.metrics.metric import UpdatePlan as TPlan
+from torcheval_tpu_torch.metrics.metric import as_update_plan
 from torcheval_tpu_torch.utils.convert import numpy_state_dict
 
 def _modules(path):
@@ -117,19 +118,18 @@ def test_apply_bucketing_rewrite_matches_jax(shapes, axes):
     with tconfig.shape_bucketing(), jconfig.shape_bucketing():
         trew = tbucket.apply_bucketing(tplan)
         jrew = jbucket.apply_bucketing(jplan)
-        lazy = tbucket.apply_bucketing(tplan, lazy=True)
     assert trew.kernel is _masked and jrew.kernel is _masked
     assert trew.masked_kernel is None and trew.batch_axes == () == jrew.batch_axes
     assert trew.config == jrew.config
     assert len(trew.dynamic) == len(jrew.dynamic) == len(arrays) + 1
-    for t, j, l in zip(trew.dynamic, jrew.dynamic, lazy.dynamic):
+    for p, j in zip(trew.dynamic, jrew.dynamic):
+        t = tbucket.materialize(p)
         assert tuple(t.shape) == tuple(np.shape(j))
         np.testing.assert_array_equal(_np(t), np.asarray(j))  # zero padding
-        np.testing.assert_array_equal(_np(tbucket.materialize(l)), _np(t))
-    assert trew.dynamic[-1].dtype == torch.int32
-    assert isinstance(lazy.dynamic[-1], tbucket.ValidSizes)
-    # every labelled argument is a placeholder on the lazy path, padded or not
-    for arg, labels in zip(lazy.dynamic, axes):
+    assert tbucket.materialize(trew.dynamic[-1]).dtype == torch.int32
+    assert isinstance(trew.dynamic[-1], tbucket.ValidSizes)
+    # every labelled argument is a placeholder, padded or not
+    for arg, labels in zip(trew.dynamic, axes):
         assert isinstance(arg, tbucket.Padded) == bool(labels)
 
 
@@ -153,7 +153,7 @@ def test_apply_bucketing_is_a_no_op_when_off_or_undeclared():
     with tconfig.shape_bucketing():
         bare = TPlan(_kernel, (), (x,))
         assert tbucket.apply_bucketing(bare) is bare
-        legacy = (_kernel, (), (x,))
+        legacy = as_update_plan((_kernel, (), (x,)), None)
         assert tbucket.apply_bucketing(legacy) is legacy
 
 

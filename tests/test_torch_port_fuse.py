@@ -243,7 +243,7 @@ def test_update_collection_groups_like_jax(monkeypatch, bucketing):
     rng = np.random.default_rng(4)
     x = rng.random(11).astype(np.float32)
     y = rng.integers(0, 2, 11).astype(np.int32)
-    trec, jrec = _Record(ttoolkit, monkeypatch), _Record(jfuse, monkeypatch)
+    trec, jrec = _Record(tfuse, monkeypatch), _Record(jfuse, monkeypatch)
     tpanel, jpanel = _mixed_panel(TM, {"device": CPU}), _mixed_panel(JM, {})
     with tconfig.shape_bucketing(bucketing), jconfig.shape_bucketing(bucketing):
         ttoolkit.update_collection(tpanel, torch.from_numpy(x), torch.from_numpy(y))
@@ -262,8 +262,8 @@ def test_update_collection_pads_and_converts_each_input_once(monkeypatch):
     pads, conversions = [], []
     real_pad, real_conv = tbucket._pad_to, tconvert._to_torch_impl
 
-    def count_pad(arg, shape, cache, lazy):
-        out = real_pad(arg, shape, cache, lazy)
+    def count_pad(arg, shape, cache):
+        out = real_pad(arg, shape, cache)
         pads.append(id(out))
         return out
 
@@ -336,6 +336,90 @@ def test_rejected_batch_changes_no_metric(reject):
     for m, b in zip(panel, before):
         for k, v in numpy_state_dict(m).items():
             np.testing.assert_array_equal(np.asarray(v), np.asarray(b[k]))
+
+
+# ------------------------------------------- one plan runner, two callers
+
+
+def _scores_labels(rng, n):
+    s = rng.random(n).astype(np.float32)
+    return torch.from_numpy(s), torch.from_numpy((rng.random(n) < s).astype(np.float32))
+
+
+# (factory, batch) of every plan-bearing class the panels use, in the
+# form its ``_update_plan`` returns
+_PLAN_CLASSES = {
+    # tuple plans
+    "ne": (lambda: TM.BinaryNormalizedEntropy(device=CPU), _scores_labels),
+    "ctr": (lambda: TM.ClickThroughRate(device=CPU), lambda rng, n: _scores_labels(rng, n)[1:]),
+    "calibration": (lambda: TM.WeightedCalibration(device=CPU), _scores_labels),
+    "mean": (lambda: TM.Mean(device=CPU), lambda rng, n: (torch.from_numpy(rng.random(n)),)),
+    "sum": (lambda: TM.Sum(device=CPU), lambda rng, n: (torch.from_numpy(rng.random(n)),)),
+    "psnr": (
+        lambda: TM.PeakSignalNoiseRatio(data_range=1.0, device=CPU),
+        lambda rng, n: tuple(torch.from_numpy(rng.random((n, 2, 3, 3)).astype(np.float32))
+                             for _ in range(2)),
+    ),
+    # UpdatePlans
+    "accuracy": (
+        lambda: TM.MulticlassAccuracy(device=CPU),
+        lambda rng, n: (torch.from_numpy(rng.random((n, 5)).astype(np.float32)),
+                        torch.from_numpy(rng.integers(0, 5, n))),
+    ),
+    "perplexity": (
+        lambda: TM.Perplexity(ignore_index=-100, device=CPU),
+        lambda rng, n: (torch.from_numpy(rng.standard_normal((n, 6, 11)).astype(np.float32)),
+                        torch.from_numpy(rng.integers(0, 11, (n, 6)))),
+    ),
+    "auroc": (lambda: TM.StreamingBinaryAUROC(num_bins=64, device=CPU), _scores_labels),
+}
+
+
+@pytest.mark.parametrize("bucketing", [False, True])
+@pytest.mark.parametrize("name", list(_PLAN_CLASSES))
+def test_lone_update_and_panel_leave_the_same_states(name, bucketing):
+    """``update()`` and ``update_collection`` of the one metric run its
+    plan (tuple or ``UpdatePlan``) through the same runner: a ragged
+    stream leaves bitwise-equal states, with bucketing on and off."""
+    factory, batch = _PLAN_CLASSES[name]
+    rng = np.random.default_rng(17)
+    lone, panel = factory(), factory()
+    assert lone._update_plan(*batch(rng, 4)) is not None
+    with tconfig.shape_bucketing(bucketing):
+        for n in [13, 16, 5, 13]:
+            args = batch(rng, n)
+            lone.update(*args)
+            ttoolkit.update_collection([panel], *args)
+    got, want = numpy_state_dict(lone), numpy_state_dict(panel)
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
+
+
+class _ListPlan(Metric[torch.Tensor]):
+    """A plan of neither form: a list where the tuple goes."""
+
+    def __init__(self):
+        super().__init__(device=CPU)
+        self._add_state("total", torch.zeros(()), merge=MergeKind.SUM)
+
+    def _update_plan(self, input):
+        return [torch.sum, ("total",), (input,)]
+
+    def update(self, input):
+        return self._apply_update_plan(self._update_plan(input))
+
+    def compute(self):
+        return self.total
+
+
+def test_a_plan_of_another_type_raises_type_error():
+    metric = _ListPlan()
+    with pytest.raises(TypeError, match="_ListPlan._update_plan returned a list"):
+        metric.update(torch.ones(3))
+    with pytest.raises(TypeError, match="_ListPlan"):
+        ttoolkit.update_collection([TM.Sum(device=CPU), metric], torch.ones(3))
+    assert float(metric.total) == 0.0
 
 
 # -------------------------------------------------------------- donation
@@ -678,6 +762,20 @@ def _assert_panels_equal(got, want):
         for name in g:
             for k, v in g[name].state_dict().items():
                 assert torch.equal(v, w[name].state_dict()[k]), (name, k)
+
+
+@pytest.mark.parametrize("name", ["ctr", "auroc"])
+def test_lone_unbucketed_updates_never_graph(emulated_graphs, name):
+    """A lone ``update()`` runs an unbucketed plan eagerly however often
+    its signature repeats (``update_collection`` captures it on the second
+    sighting, below): three identical calls add nothing to any count."""
+    factory, batch = _PLAN_CLASSES[name]
+    metric, args = factory(), batch(np.random.default_rng(18), 512)
+    before = tfuse.graph_stats()
+    for _ in range(3):
+        metric.update(*args)
+    got = _stats_since(before)
+    assert got == dict.fromkeys(got, 0)
 
 
 def test_stream_panel_graphs_on_the_second_sighting(emulated_graphs):

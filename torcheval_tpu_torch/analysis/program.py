@@ -665,57 +665,27 @@ def check_donation_aliasing(
 
 
 def _normalized_plan(metric, *args, **kwargs):
-    """(kernel, state_names, dynamic, config, transform, plan-or-None) of
-    the metric's update plan, or None when it has none."""
-    from torcheval_tpu_torch.metrics.metric import UpdatePlan
+    """The metric's update plan as an ``UpdatePlan``, or None when it has
+    none."""
+    from torcheval_tpu_torch.metrics.metric import as_update_plan
 
-    plan = metric._update_plan(*args, **kwargs)
-    if plan is None:
-        return None
-    if isinstance(plan, UpdatePlan):
-        return (
-            plan.kernel,
-            plan.state_names,
-            plan.dynamic,
-            plan.config,
-            plan.transform,
-            plan,
-        )
-    kernel, state_names, dynamic, *rest = plan
-    return kernel, state_names, dynamic, (rest[0] if rest else ()), False, None
+    return as_update_plan(metric._update_plan(*args, **kwargs), metric)
 
 
 def _bucketed_dynamic(plan) -> Tuple[Any, ...]:
-    """The masked kernel's arguments at bucket shapes: every batch axis
-    padded to its power-of-two bucket (zeros of the input's dtype and
-    device), plus the int32 valid-extent vector. Mirrors the shape logic of
-    ``_bucket.apply_bucketing`` without touching the knob or the data."""
+    """The masked kernel's arguments at bucket shapes
+    (``_bucket.bucket_shapes``, the runtime's own reading): each labelled
+    tensor as zeros of its dtype and device, plus the int32 valid-extent
+    vector, without touching the knob or the data."""
     from torcheval_tpu_torch.metrics import _bucket
 
-    sizes: Dict[str, int] = {}
-    order: List[str] = []
-    device = None
-    for arg, labels in zip(plan.dynamic, plan.batch_axes):
-        for axis, label in enumerate(labels or ()):
-            n = int(arg.shape[axis])
-            device = arg.device
-            if label not in sizes:
-                sizes[label] = n
-                order.append(label)
-    buckets = {label: _bucket.bucket_length(n) for label, n in sizes.items()}
-    padded = []
-    for arg, labels in zip(plan.dynamic, plan.batch_axes):
-        if not isinstance(arg, torch.Tensor) or not labels:
-            padded.append(arg)
-            continue
-        shape = list(arg.shape)
-        for axis, label in enumerate(labels):
-            shape[axis] = buckets[label]
-        padded.append(torch.zeros(shape, dtype=arg.dtype, device=arg.device))
-    valid = torch.tensor(
-        [sizes[label] for label in order], dtype=torch.int32, device=device
+    shapes = _bucket.bucket_shapes(plan)
+    padded = tuple(
+        arg if shape is None or not isinstance(arg, torch.Tensor)
+        else torch.zeros(shape, dtype=arg.dtype, device=arg.device)
+        for arg, shape in zip(plan.dynamic, shapes.shapes)
     )
-    return tuple(padded) + (valid,)
+    return padded + (torch.tensor(shapes.extents, dtype=torch.int32, device=shapes.device),)
 
 
 def _fused(kernel, config, transform: bool, donate: bool):
@@ -745,29 +715,28 @@ def verify_metric_update(
     metric's live states. A plan with a masked twin is verified at its
     bucket shapes too. Returns ``None`` for metrics whose update has no
     plan (host-side text metrics, buffered appends)."""
-    normalized = _normalized_plan(metric, *args, **update_kwargs)
-    if normalized is None:
+    plan = _normalized_plan(metric, *args, **update_kwargs)
+    if plan is None:
         return None
-    kernel, state_names, dynamic, config, transform, plan = normalized
-    states = tuple(getattr(metric, n) for n in state_names)
+    states = tuple(getattr(metric, n) for n in plan.state_names)
     if donate is None:
         donate = metric._donated_update
     name = f"{type(metric).__name__}.update"
     report = verify_program(
-        _fused(kernel, config, transform, donate),
+        _fused(plan.kernel, plan.config, plan.transform, donate),
         states,
-        *dynamic,
+        *plan.dynamic,
         name=name,
         donate_argnums=(0,) if donate else (),
         state_argnums=(0,),
         expect_collectives=expect_collectives,
     )
-    if plan is not None and plan.masked_kernel is not None and plan.batch_axes:
+    if plan.masked_kernel is not None and plan.batch_axes:
         # under config.shape_bucketing() the metric runs the MASKED kernel
         # over padded buckets: certify that program too
         report.extend(
             verify_program(
-                _fused(plan.masked_kernel, config, transform, donate),
+                _fused(plan.masked_kernel, plan.config, plan.transform, donate),
                 states,
                 *_bucketed_dynamic(plan),
                 name=f"{name}[bucketed]",
@@ -779,7 +748,7 @@ def verify_metric_update(
     if donate:
         report.extend(
             check_donation_aliasing(
-                (states,) + tuple(dynamic), (0,), name=report.name
+                (states,) + tuple(plan.dynamic), (0,), name=report.name
             )
         )
     return set_last_report(report)

@@ -29,20 +29,22 @@ The input sketches' fold (``obs/sketch.py``) and every quality-watched
 plan (``obs/quality.py``) carry masked twins too: they turn the valid
 vector into per-element weights, so padded rows add nothing to a sketch.
 
-``apply_bucketing(..., lazy=True)`` hands out :class:`Padded` and
-:class:`ValidSizes` placeholders instead of tensors; the CUDA-graph path
-copies them into its static input buffers, and :func:`materialize` turns
-them into tensors for an eager run.
+:func:`apply_bucketing` hands out :class:`Padded` and :class:`ValidSizes`
+placeholders, not tensors: the CUDA-graph path copies them into its
+static input buffers, and an eager run turns them into tensors
+(:func:`materialize`; a pad is made once, however many plans share it).
+:func:`bucket_shapes` is the one reading of a plan's label sizes and
+buckets, for the rewrite here and for the program verifier
+(``analysis/program.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from torcheval_tpu_torch import config
-from torcheval_tpu_torch.metrics.metric import UpdatePlan
 from torcheval_tpu_torch.obs import trace as _obs_trace
 from torcheval_tpu_torch.obs.recorder import RECORDER as _OBS
 
@@ -131,97 +133,100 @@ def materialize(arg: Any) -> Any:
     return arg
 
 
-def _pad_to(arg: torch.Tensor, target_shape: tuple, cache: Optional[Dict], lazy: bool):
+def _pad_to(arg: torch.Tensor, target_shape: tuple, cache: Optional[Dict]) -> Padded:
     # the cached entry holds the SOURCE tensor too: the id() key is only
     # valid while the source is alive, and the caller may drop its own
     # reference (update_collection discards pre-bucket plans) -- without
     # the pin, id reuse could serve another argument's pad
-    key = (id(arg), target_shape, lazy)
+    key = (id(arg), target_shape)
     if cache is not None and key in cache:
         return cache[key][1]
-    out: Any = Padded(arg, target_shape)
-    if not lazy:
-        out = out.materialize()
+    out = Padded(arg, target_shape)
     if cache is not None:
         cache[key] = (arg, out)
     return out
 
 
-def apply_bucketing(plan, pad_cache: Optional[Dict] = None, *, lazy: bool = False):
-    """Rewrite one update plan for its shape bucket (no-op when bucketing
-    is off or the plan declares no masked kernel).
+class BucketShapes(NamedTuple):
+    """What bucketing makes of one plan's dynamic arguments."""
 
-    ``pad_cache`` lets ``update_collection`` pad a batch shared by many
-    metrics once (and share one valid vector among plans with the same
-    extents); it must not outlive the call that created it (keys are
-    ``id()``-based). ``lazy=True`` returns :class:`Padded` placeholders for
-    every labelled argument, padded or not, and a :class:`ValidSizes`, for
-    the CUDA-graph path to copy into its static buffers.
-    """
-    if (
-        not config.shape_bucketing_enabled()
-        or not isinstance(plan, UpdatePlan)
-        or plan.masked_kernel is None
-        or not plan.batch_axes
-    ):
-        return plan
+    extents: Tuple[int, ...]  # each label's size, in order of first appearance
+    shapes: tuple  # an argument's bucket shape, or None (no ragged axis)
+    bucket: int  # the largest bucket length
+    device: torch.device  # the first labelled argument's (the CPU without one)
 
+
+def bucket_shapes(plan) -> BucketShapes:
+    """The label sizes of a bucket-aware plan, their order and buckets,
+    and each argument's padded shape. Raises ``ValueError`` when
+    arguments sharing a label disagree on its size."""
     sizes: Dict[str, int] = {}
-    order = []
     device = None
     for arg, labels in zip(plan.dynamic, plan.batch_axes):
         for axis, label in enumerate(labels or ()):
             n = int(arg.shape[axis])
             device = arg.device if device is None else device
-            if label not in sizes:
-                sizes[label] = n
-                order.append(label)
-            elif sizes[label] != n:
+            if sizes.setdefault(label, n) != n:
                 raise ValueError(
                     f"Bucketed axis {label!r} has inconsistent sizes "
                     f"{sizes[label]} and {n} across update arguments."
                 )
-    if device is None:  # no labelled axis: an empty valid vector
-        device = torch.device("cpu")
     buckets = {label: bucket_length(n) for label, n in sizes.items()}
+    shapes = tuple(
+        tuple(buckets[labels[a]] if a < len(labels) else n for a, n in enumerate(arg.shape))
+        if labels else None
+        for arg, labels in zip(plan.dynamic, plan.batch_axes)
+    )
+    return BucketShapes(
+        tuple(sizes.values()),
+        shapes,
+        max(buckets.values(), default=0),
+        torch.device("cpu") if device is None else device,
+    )
 
-    padded = []
-    for arg, labels in zip(plan.dynamic, plan.batch_axes):
-        if not labels:
-            padded.append(arg)
-            continue
-        shape = list(arg.shape)
-        for axis, label in enumerate(labels):
-            shape[axis] = buckets[label]
-        if tuple(shape) == tuple(arg.shape) and not lazy:
-            padded.append(arg)
-        else:
-            padded.append(_pad_to(arg, tuple(shape), pad_cache, lazy))
+
+def apply_bucketing(plan, pad_cache: Optional[Dict] = None):
+    """Rewrite one ``UpdatePlan`` for its shape bucket (no-op when
+    bucketing is off or the plan declares no masked kernel): every
+    labelled argument becomes a :class:`Padded`, padded or not, and a
+    :class:`ValidSizes` is appended.
+
+    ``pad_cache`` lets ``update_collection`` pad a batch shared by many
+    metrics once (and share one valid vector among plans with the same
+    extents); it must not outlive the call that created it (keys are
+    ``id()``-based).
+    """
+    if (
+        not config.shape_bucketing_enabled()
+        or plan.masked_kernel is None
+        or not plan.batch_axes
+    ):
+        return plan
+    shapes = bucket_shapes(plan)
+    padded = tuple(
+        arg if shape is None else _pad_to(arg, shape, pad_cache)
+        for arg, shape in zip(plan.dynamic, shapes.shapes)
+    )
 
     # Causal attribution (obs/trace.py), recorder on only: stamp the
     # bucket length onto the current span frame (the update wrapper's),
     # as the JAX package does. Only on the single-metric path: in
     # update_collection the open frame is the panel's, and a capture there
     # names its bucket through the valid vector instead.
-    bucket = max(buckets.values(), default=0)
     if pad_cache is None and _OBS.enabled:
-        _obs_trace.annotate(bucket=bucket)
+        _obs_trace.annotate(bucket=shapes.bucket)
 
     # Always dispatch the masked kernel -- even for exactly-bucket-sized
     # batches -- so each bucket owns ONE kernel (and one CUDA graph).
-    extents = tuple(sizes[label] for label in order)
-    valid_key = ("valid", extents, lazy)
-    if pad_cache is not None and valid_key in pad_cache:
-        valid = pad_cache[valid_key]
-    else:
-        valid = ValidSizes(extents, device, bucket)
-        if not lazy:
-            valid = valid.materialize()
+    valid_key = ("valid", shapes.extents)
+    valid = pad_cache.get(valid_key) if pad_cache is not None else None
+    if valid is None:
+        valid = ValidSizes(shapes.extents, shapes.device, shapes.bucket)
         if pad_cache is not None:
             pad_cache[valid_key] = valid
     return plan._replace(
         kernel=plan.masked_kernel,
-        dynamic=tuple(padded) + (valid,),
+        dynamic=padded + (valid,),
         masked_kernel=None,
         batch_axes=(),
     )

@@ -1,5 +1,11 @@
 """Run update plans: eagerly, or on CUDA as one CUDA-graph replay.
 
+The one plan runner, for a lone ``Metric.update()`` and for
+``toolkit.update_collection`` alike: :func:`prepare_plan` (the plan as an
+``UpdatePlan``, bucketed) for each metric, then :func:`run_plans` (the
+two groups, the donation and graph decision, the run, the states written
+back, each ``finalize``).
+
 Counterpart of ``torcheval_tpu/metrics/_fuse.py`` (``fused_accumulate``,
 ``fused_transform``, ``fused_accumulate_group``, with the JAX signatures
 less ``out_shardings``). The JAX package jits each plan, or each panel of
@@ -80,7 +86,8 @@ from typing import Any, Callable, Dict, List, Sequence, Set, Tuple
 
 import torch
 
-from torcheval_tpu_torch.metrics._bucket import Padded, ValidSizes, materialize
+from torcheval_tpu_torch.metrics._bucket import Padded, ValidSizes, apply_bucketing, materialize
+from torcheval_tpu_torch.metrics.metric import as_update_plan
 from torcheval_tpu_torch.obs import trace as _obs_trace
 from torcheval_tpu_torch.ops import _kernels
 from torcheval_tpu_torch.utils import compile_counter
@@ -229,6 +236,52 @@ def fused_accumulate_group(plans, *, donate=False, graph=False, labels=None) -> 
         with _obs_trace.scope_or_null("torcheval.accumulate", traced, labels[i] if traced else None):
             out.append(_eager(kernel, states, dynamic, config, transform, donate))
     return tuple(out)
+
+
+def prepare_plan(metric, plan, pad_cache=None):
+    """Step one of running a metric's update plan: the plan as an
+    ``UpdatePlan`` (``metric.as_update_plan``), rewritten for its shape
+    bucket (``_bucket.apply_bucketing``, which rejects labels that
+    disagree), as a member ``(metric, plan, bucketed)`` for
+    :func:`run_plans`; ``None`` for no plan. Nothing runs and no state
+    changes, so a panel prepares every member before it runs any."""
+    plan = as_update_plan(plan, metric)
+    if plan is None:
+        return None
+    rewritten = apply_bucketing(plan, pad_cache)
+    return metric, rewritten, rewritten is not plan
+
+
+def run_plans(members, *, repeat_graphs: bool, traced: bool = False) -> None:
+    """Step two: run prepared members in two groups, the unbucketed one
+    first (a metric without a masked kernel cannot make the bucketed
+    group's shape follow a ragged batch), write each metric's new states
+    and call its plan's ``finalize``. A group of CUDA metrics under
+    donation is one CUDA-graph replay when bucketed; when unbucketed it is
+    one once its signature repeats, where ``repeat_graphs`` allows it
+    (``graph=REPEATED``), and eager otherwise. ``traced`` opens the spans
+    of :func:`fused_accumulate_group`."""
+    for bucketed in (False, True):
+        group = [(m, p) for m, p, b in members if b == bucketed]
+        if not group:
+            continue
+        metrics = [m for m, _ in group]
+        donate = all(m._donation_active() for m in metrics)
+        graph = donate and graphed_update_possible(metrics) and (
+            bucketed or (repeat_graphs and REPEATED)
+        )
+        new_states = fused_accumulate_group(
+            [(p.kernel, tuple(getattr(m, n) for n in p.state_names), p.dynamic, p.config,
+              p.transform) for m, p in group],
+            donate=donate,
+            graph=graph,
+            labels=[type(m).__name__ for m in metrics] if traced else None,
+        )
+        for (metric, plan), states in zip(group, new_states):
+            for name, value in zip(plan.state_names, states):
+                setattr(metric, name, value)
+            if plan.finalize is not None:
+                plan.finalize()
 
 
 # ------------------------------------------------------------ CUDA graphs

@@ -102,6 +102,21 @@ class UpdatePlan(NamedTuple):
     batch_axes: tuple = ()
 
 
+def as_update_plan(plan: Any, metric: Any) -> Optional[UpdatePlan]:
+    """``metric``'s update plan in the one form past the plan boundary:
+    ``None`` stays ``None``, an :class:`UpdatePlan` passes through, and a
+    tuple ``(kernel, state_names, dynamic[, config])`` becomes
+    ``UpdatePlan(kernel, state_names, dynamic, config)``."""
+    if plan is None or isinstance(plan, UpdatePlan):
+        return plan
+    if isinstance(plan, tuple) and len(plan) in (3, 4):
+        return UpdatePlan(*plan)
+    raise TypeError(
+        f"{type(metric).__name__}._update_plan returned a {type(plan).__name__}; "
+        "expected None, an UpdatePlan or a (kernel, state_names, dynamic[, config]) tuple"
+    )
+
+
 class MergeKind(enum.Enum):
     """Declarative cross-replica merge semantics for one state (the same
     members and values as the JAX package's ``MergeKind``)."""
@@ -403,49 +418,26 @@ class Metric(Generic[TComputeReturn], ABC):
         """Accumulate a batch into metric state."""
 
     def _update_plan(self, *args: Any, **kwargs: Any):
-        """The update factored as a plan -- a tuple ``(kernel,
-        state_names, dynamic[, config])`` or an :class:`UpdatePlan` -- or
-        ``None`` when the update is not expressed as one. Implementations
+        """The update factored as a plan -- an :class:`UpdatePlan`, or the
+        tuple ``(kernel, state_names, dynamic[, config])`` that stands for
+        ``UpdatePlan(kernel, state_names, dynamic, config)`` -- or ``None``
+        when the update is not expressed as one. Whoever takes a plan from
+        a metric reads it through :func:`as_update_plan`. Implementations
         validate their inputs here, so a returned plan is safe to run;
         ``toolkit.update_collection`` builds every metric's plan before it
         runs any of them."""
         return None
 
     def _apply_update_plan(self: TSelf, plan) -> TSelf:
-        """Run one update plan against this metric's states: bucketed
-        first when it declares a masked kernel, then through
-        ``metrics/_fuse.py`` -- one CUDA-graph replay when bucketed on CUDA
-        under donation, eager otherwise -- then its ``finalize``. The
-        trailing ``config`` of a tuple plan may be omitted."""
-        from torcheval_tpu_torch.metrics._bucket import apply_bucketing
-        from torcheval_tpu_torch.metrics._fuse import (
-            fused_accumulate,
-            fused_transform,
-            graphed_update_possible,
-        )
+        """Run one update plan against this metric's states through the
+        plan runner of ``metrics/_fuse.py``, as ``update_collection`` runs
+        a panel's: bucketed first when it declares a masked kernel, one
+        CUDA-graph replay when bucketed on CUDA under donation, eager
+        otherwise (an unbucketed plan never graphs here), then its
+        ``finalize``."""
+        from torcheval_tpu_torch.metrics._fuse import prepare_plan, run_plans
 
-        donate = self._donation_active()
-        if isinstance(plan, UpdatePlan):
-            graph = graphed_update_possible((self,))
-            rewritten = apply_bucketing(plan, lazy=graph)
-            graph = graph and rewritten is not plan
-            plan = rewritten
-            states = tuple(getattr(self, n) for n in plan.state_names)
-            run = fused_transform if plan.transform else fused_accumulate
-            new_states = run(
-                plan.kernel, states, plan.dynamic, plan.config, donate=donate, graph=graph
-            )
-            for name, value in zip(plan.state_names, new_states):
-                setattr(self, name, value)
-            if plan.finalize is not None:
-                plan.finalize()
-            return self
-        kernel, state_names, dynamic, *rest = plan
-        config_ = rest[0] if rest else ()
-        states = tuple(getattr(self, n) for n in state_names)
-        new_states = fused_accumulate(kernel, states, dynamic, config_, donate=donate)
-        for name, value in zip(state_names, new_states):
-            setattr(self, name, value)
+        run_plans([prepare_plan(self, plan)], repeat_graphs=False)
         return self
 
     @abstractmethod

@@ -57,13 +57,8 @@ from torcheval_tpu_torch.distributed import (
     default_process_group,
 )
 from torcheval_tpu_torch.metrics import synclib
-from torcheval_tpu_torch.metrics._bucket import apply_bucketing
-from torcheval_tpu_torch.metrics._fuse import (
-    REPEATED,
-    fused_accumulate_group,
-    graphed_update_possible,
-)
-from torcheval_tpu_torch.metrics.metric import Metric, TState, UpdatePlan
+from torcheval_tpu_torch.metrics._fuse import prepare_plan, run_plans
+from torcheval_tpu_torch.metrics.metric import Metric, TState
 from torcheval_tpu_torch.obs import hist as _obs_hist
 from torcheval_tpu_torch.obs import trace as _obs_trace
 from torcheval_tpu_torch.obs.events import SyncEvent, UpdateEvent
@@ -542,11 +537,13 @@ def update_collection(
     """Update every metric on the same batch.
 
     Every metric's update plan is built first -- each plan validates its
-    inputs, and under shape bucketing is padded to its bucket, which
+    inputs, and under shape bucketing is rewritten for its bucket, which
     checks its batch axes agree -- so a batch that any plan rejects raises
     before any metric has changed. Metrics without a plan then update
     themselves (a batch only their own ``update`` rejects can leave
-    earlier ones of them updated), and the plans run.
+    earlier ones of them updated), and the plans run, through the plan
+    runner a lone ``update()`` uses too (``_fuse.prepare_plan`` and
+    ``_fuse.run_plans``).
 
     Under ``config.shape_bucketing()`` the plans rewritten for their
     bucket form one group and the rest another, as in the JAX package, so
@@ -554,7 +551,8 @@ def update_collection(
     shape follow the ragged batch. On CUDA, under donation, the bucketed
     group is ONE CUDA-graph replay per bucket, and the other group ONE
     replay per input signature once that signature repeats, while its
-    inputs are small (``metrics/_fuse.py``, ``graph=REPEATED``); on the
+    inputs are small (``graph=REPEATED``; a lone ``update()`` does not
+    graph an unbucketed plan); on the
     CPU, or with donation off, the plans run eagerly. One pad is made per
     shared argument, and inside the call each input is converted once
     (``utils.convert.shared_conversion_cache``).
@@ -574,7 +572,7 @@ def update_collection(
     t0 = time.monotonic() if obs_on else 0.0
     items = list(metrics.values() if isinstance(metrics, dict) else metrics)
     fallback: List[Metric] = []
-    groups: Dict[bool, list] = {False: [], True: []}  # bucketed -> members
+    members: list = []
     pad_cache: dict = {}  # one pad per (tensor, bucket) across the panel
     # the whole panel is ONE span: fallback metrics' own update spans (and
     # any graph capture of the group) parent to it
@@ -585,46 +583,15 @@ def update_collection(
             for metric in items:
                 # validation, conversion and padding: a span a metric
                 with _obs_trace.scope_or_null("torcheval.plan", obs_on, type(metric).__name__):
-                    plan = metric._update_plan(*args, **kwargs)
-                    if plan is None:
-                        fallback.append(metric)
-                        continue
-                    bucketed = False
-                    if isinstance(plan, UpdatePlan):
-                        lazy = graphed_update_possible((metric,))
-                        rewritten = apply_bucketing(plan, pad_cache, lazy=lazy)
-                        bucketed = rewritten is not plan
-                        plan = rewritten
-                        kernel, names, dynamic, config = (
-                            plan.kernel, plan.state_names, plan.dynamic, plan.config
-                        )
-                        transform, finalize = plan.transform, plan.finalize
-                    else:
-                        kernel, names, dynamic, *rest = plan
-                        config = rest[0] if rest else ()
-                        transform, finalize = False, None
-                    states = tuple(getattr(metric, n) for n in names)
-                    groups[bucketed].append(
-                        (metric, names, finalize, (kernel, states, dynamic, config, transform))
-                    )
+                    member = prepare_plan(metric, metric._update_plan(*args, **kwargs), pad_cache)
+                if member is None:
+                    fallback.append(metric)
+                else:
+                    members.append(member)
             # fallbacks validate inside their own update: after every plan
             for metric in fallback:
                 metric.update(*args, **kwargs)
-        for bucketed, members in groups.items():
-            if not members:
-                continue
-            group_metrics = [m for m, _, _, _ in members]
-            donate = all(m._donation_active() for m in group_metrics)
-            graph = donate and graphed_update_possible(group_metrics) and (bucketed or REPEATED)
-            new_states_group = fused_accumulate_group(
-                [p for _, _, _, p in members], donate=donate, graph=graph,
-                labels=[type(m).__name__ for m in group_metrics] if obs_on else None,
-            )
-            for (metric, names, finalize, _), new_states in zip(members, new_states_group):
-                for name, value in zip(names, new_states):
-                    setattr(metric, name, value)
-                if finalize is not None:
-                    finalize()
+        run_plans(members, repeat_graphs=True, traced=obs_on)
     if obs_on and panel_frame is not None:
         # ONE event for the whole panel (plan-fused metrics bypass their
         # own `update`, so this is their record; fallback metrics recorded

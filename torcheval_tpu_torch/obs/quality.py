@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from torcheval_tpu_torch.metrics._fuse import _add
-from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan
+from torcheval_tpu_torch.metrics.metric import MergeKind, Metric, UpdatePlan, as_update_plan
 from torcheval_tpu_torch.obs.sketch import (
     _CNT_ABOVE,
     _CNT_BELOW,
@@ -215,9 +215,6 @@ def _extend_plan(plan, spec: _WatchSpec):
     arguments, the original states first and four sketch states a watched
     argument after them, one combined transform kernel (and a masked twin
     when the original has one)."""
-    if not isinstance(plan, UpdatePlan):
-        kernel, names, dynamic, *rest = plan
-        plan = UpdatePlan(kernel, names, dynamic, rest[0] if rest else ())
     bad = [i for i in spec.args if i >= len(plan.dynamic)]
     if bad:
         raise ValueError(
@@ -264,27 +261,26 @@ def _watched_update_plan(self, *args: Any, **kwargs: Any):
     plan = type(self)._update_plan(self, *args, **kwargs)
     if plan is None or not QUALITY.enabled:  # the one-attribute-read gate
         return plan
+    plan = as_update_plan(plan, self)
     # a metric's plan shape is stable across updates: memoize the rewrite
     # per metric, keyed on every field it depends on, and swap in only the
     # per-call dynamic tuple and finalize. The memo lives off the instance
     # (the rewritten plan holds kernel closures; instance state stays
     # deepcopy- and pickle-clean).
-    if isinstance(plan, UpdatePlan):
-        memo_key = (
-            plan.kernel,
-            plan.masked_kernel,
-            plan.state_names,
-            plan.config,
-            plan.transform,
-            plan.batch_axes,
-        )
-        memo = _PLAN_MEMO.get(self)
-        if memo is not None and memo[0] == memo_key:
-            return memo[1]._replace(dynamic=plan.dynamic, finalize=plan.finalize)
-        extended = _extend_plan(plan, self._quality_spec)
-        _PLAN_MEMO[self] = (memo_key, extended._replace(dynamic=(), finalize=None))
-        return extended
-    return _extend_plan(plan, self._quality_spec)
+    memo_key = (
+        plan.kernel,
+        plan.masked_kernel,
+        plan.state_names,
+        plan.config,
+        plan.transform,
+        plan.batch_axes,
+    )
+    memo = _PLAN_MEMO.get(self)
+    if memo is not None and memo[0] == memo_key:
+        return memo[1]._replace(dynamic=plan.dynamic, finalize=plan.finalize)
+    extended = _extend_plan(plan, self._quality_spec)
+    _PLAN_MEMO[self] = (memo_key, extended._replace(dynamic=(), finalize=None))
+    return extended
 
 
 def _watched_merge_custom(self, name: str, mine, theirs):
