@@ -406,7 +406,9 @@ phases, printing one JSON line for each:
    on the card), one warm-up step under ``FlopCounter`` and 5 timed steps,
    each a fresh (1, 8,192) window and, on its logits,
    ``perplexity_counters``, ``Perplexity`` and ``MulticlassAccuracy``:
-   the FLOP count equal to the analytic 140,548,509,794,304, the counters
+   the FLOP count equal to the analytic 122,958,471,233,536 (the fused
+   causal attention kernel's products, one launch a layer a forward:
+   140,548,509,794,304 with the op sequence's dense S x S), the counters
    bitwise to the metric state and the token count exact; then the same
    weights upcast to float32 (the bf16 copy freed) give a log-perplexity
    within ``_bf16_log_ppl_bound`` of the bf16 one. Reported: forward, metric
@@ -416,7 +418,8 @@ phases, printing one JSON line for each:
    last window (the table, pruned to depth 2, printed on the lines before
    the phase's): 6,990,340,096 parameters, twice that in bytes, the root's
    FLOPs (a)'s, every ``Block_i`` alike, ``count_flops_backward`` twice the
-   forward with nothing allocated; per-type forward ms. (b)
+   op sequence's dense forward (autograd records it, so the backward runs
+   there) with nothing allocated; per-type forward ms. (b)
    ``long_context``: ``long_context_lm`` at the same widths in float32,
    4 layers (**cut** from 32), dp 2 x sp 4 over ``ThreadWorld(8)``, two
    8,192-token windows: each rank's logits within 2e-4 of the dense
@@ -527,6 +530,22 @@ phases, printing one JSON line for each:
    count the kernel's launches, one a CUDA ``argmax_last`` call or
    ``Perplexity`` update; the ``kernels`` line reports them beside each
    mode's times.
+23. ``causal_attention``: the fused causal attention kernel
+   (``ops/csrc/causal_attention.cu``) at ``gpt2xl_eval``'s (8, 1,024, 25,
+   64) bf16, q, k and v strided views of one projection as the model gives
+   them, and at S = 1, S = 1,000, S = 2,048, one head and head width 128,
+   each in bf16 and fp16: held to float32 attention, its largest and rms
+   errors no larger than the op sequence's (``attention_ops``); one launch
+   a call. Timed: ms (CUDA events), the kernel's device ms, the op
+   sequence's (``plain_ms``), ``F.scaled_dot_product_attention``'s
+   (``library_ms``, a yardstick the port never calls), the bound (the
+   causal products at 989.4 TFLOP/s), peak bytes. Then GPT-2 XL at full
+   width and depth in bf16: 48 launches a forward of 8 x 1,024 tokens,
+   the logits within a third of ``gpt2xl_eval``'s ``logit_rms_rel`` limit
+   of the op sequence's forward (timed both ways), and no launch in a
+   forward autograd records, in float32 or at head width 16. Phases 19
+   (``model``: 32 launches a bf16 forward) and 20 (``train``: none) count
+   the kernel's launches too; the ``kernels`` line reports them.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -534,8 +553,8 @@ Any failure raises, and the script exits non-zero without that last line;
 without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
-1, 2, 4 to 7 and 9 to 21 at small sizes with ``device="cpu"``; phases 3, 8
-and 22 run kernels that only the card has.
+1, 2, 4 to 7 and 9 to 21 at small sizes with ``device="cpu"``; phases 3, 8,
+22 and 23 run kernels that only the card has.
 """
 
 from __future__ import annotations
@@ -718,7 +737,7 @@ from torcheval_tpu_torch.tools import (  # noqa: E402
     get_summary_table,
     prune_module_summary,
 )
-from torcheval_tpu_torch.ops import _kernels, topk, vocab_rows  # noqa: E402
+from torcheval_tpu_torch.ops import _kernels, causal_attention, topk, vocab_rows  # noqa: E402
 from torcheval_tpu_torch.obs.memory import memory_report  # noqa: E402
 from torcheval_tpu_torch.obs.server import healthz_payload  # noqa: E402
 from torcheval_tpu_torch.resilience import ResilientGroup, SyncTimeoutError  # noqa: E402
@@ -762,6 +781,7 @@ from torcheval_tpu_torch.ops.fused_auc import (  # noqa: E402
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+BF16_DENSE_PEAK = 989.4e12  # H100 SXM bf16 tensor-core FLOP/s, dense (NVIDIA data sheet)
 NUM_BINS = 8192
 IMAGENET_VAL = 50_000
 CRITEO_EVAL = 89_137_319
@@ -7508,12 +7528,17 @@ def _lm_params(vocab_size, d_model, n_heads, d_ff, max_len, n_layers):
     return (vocab_size + max_len) * d_model + n_layers * block + 2 * d_model + d_model * vocab_size
 
 
-def _lm_flops(vocab_size, d_model, n_heads, d_ff, max_len, n_layers, seq, batch=1):
+def _lm_flops(vocab_size, d_model, n_heads, d_ff, max_len, n_layers, seq, batch=1, causal=False):
     """Analytic FLOPs of one forward: every matmul (2 m n k: q, k, v, out,
-    the MLP's two, the head) and dense attention (QK^T and PV over the full
-    S x S, 4 S^2 d a layer; the causal mask saves none)."""
+    the MLP's two, the head) and attention: the op sequence's dense QK^T
+    and PV over the full S x S (4 S^2 d a layer; the causal mask saves
+    none), or with ``causal`` the fused kernel's products over the
+    S (S + 1) / 2 causal pairs (``causal_attention.causal_flops``)."""
     tokens = batch * seq
     matmul = 2 * tokens * (n_layers * (4 * d_model ** 2 + 2 * d_model * d_ff) + d_model * vocab_size)
+    if causal:
+        return matmul + n_layers * causal_attention.causal_flops(
+            batch, seq, n_heads, d_model // n_heads)
     return matmul + n_layers * 4 * batch * seq * seq * d_model
 
 
@@ -7597,14 +7622,18 @@ def _model_eval(device, gen, widths, window, steps):
         ppl.update(logits, targets)
         acc.update(logits.reshape(-1, vocab), targets.reshape(-1))
 
+    cuda = torch.device(device).type == "cuda"
+    # on the card the bf16 forward takes the fused causal attention kernel,
+    # one launch a layer, and FlopCounter counts its causal products
+    fused_before = _kernels.LAUNCHES["causal_attention"]
     _reset_peak(device)
     fc = FlopCounter(model)
     inputs, targets = _model_window(gen, vocab, window, device)
     logits = fc.run(inputs)
     metrics(logits, targets)
     flops = fc.flop_counts[""]
-    _check(flops == _lm_flops(**widths, seq=window),
-           f"eval_step: FlopCounter reads {flops} FLOPs, not {_lm_flops(**widths, seq=window)}")
+    want = _lm_flops(**widths, seq=window, causal=cuda)
+    _check(flops == want, f"eval_step: FlopCounter reads {flops} FLOPs, not {want}")
     _check(len({fc.flop_counts[f"Block_{i}"] for i in range(widths["n_layers"])}) == 1,
            "eval_step: the blocks' FLOPs differ")
     forward_ms, metric_ms, step_ms = [], [], []
@@ -7623,12 +7652,14 @@ def _model_eval(device, gen, widths, window, steps):
         step_ms.append(clock.ms(0, 2))
     peak = _stream_peak(device)
     total = (steps + 1) * window
-    cuda = torch.device(device).type == "cuda"
     # a step's three updates (the counters, Perplexity, MulticlassAccuracy)
     # are one vocabulary-row launch each on the card
     launches = _kernels.LAUNCHES["vocab_rows"] - launches
     _check(launches == (3 * (steps + 1) if cuda else 0),
            f"eval_step: {launches} vocab_rows launches over {steps + 1} steps")
+    fused = _kernels.LAUNCHES["causal_attention"] - fused_before
+    _check(fused == (widths["n_layers"] * (steps + 1) if cuda else 0),
+           f"eval_step: {fused} causal_attention launches over {steps + 1} forwards")
     _check(torch.equal(ppl.sum_log_probs, sums["sum_log_probs"]),
            "eval_step: perplexity counters differ from Perplexity's state")
     _check(int(ppl.num_total) == total and float(sums["num_total"]) == total,
@@ -7637,7 +7668,7 @@ def _model_eval(device, gen, widths, window, steps):
     profiles = {}
     if cuda:  # where the step's device time goes, on fresh metrics
         profiles["forward"] = _profile(lambda: model(inputs), device,
-                                       ops=("aten::mm", "aten::bmm", "aten::where", "aten::softmax"))
+                                       ops=("aten::mm", "torcheval_tpu_torch::causal_attention"))
         profiles["forward"]["busy_share"] = profiles["forward"]["device_ms"] / fwd
         profiles["metrics"] = _profile(lambda: (
             perplexity_counters(logits, targets),
@@ -7656,6 +7687,7 @@ def _model_eval(device, gen, widths, window, steps):
         "tflops_per_s": flops / (fwd / 1e3) / 1e12 if cuda else None,
         "perplexity": float(ppl.compute()), "accuracy": float(acc.compute()),
         "peak_bytes": peak, "profile": profiles, "vocab_rows_launches": launches,
+        "causal_attention_launches": fused,
     }
     # the last window, kept for the float32 check
     last = (inputs, targets, logits.argmax(dim=-1),
@@ -7670,7 +7702,11 @@ def _model_tools(device, model, inputs, widths):
     summary, wall = _wall_ms(lambda: get_module_summary(model, (inputs,), num_timing_iters=3),
                              device)
     n_params = _lm_params(**widths)
-    flops = _lm_flops(**widths, seq=inputs.shape[1])
+    # the forward counted as it runs (the fused kernel's causal products on
+    # the card); the backward through the op sequence, which autograd records
+    cuda = torch.device(device).type == "cuda"
+    flops = _lm_flops(**widths, seq=inputs.shape[1], causal=cuda)
+    dense = _lm_flops(**widths, seq=inputs.shape[1])
     _check(summary.num_parameters == n_params, f"tools: {summary.num_parameters} parameters")
     _check(summary.size_bytes == 2 * n_params, f"tools: {summary.size_bytes} bytes")
     _check(summary.flops_forward == flops, f"tools: root forward {summary.flops_forward} FLOPs")
@@ -7687,14 +7723,14 @@ def _model_tools(device, model, inputs, widths):
             walk(sub)
 
     walk(summary)
-    before = torch.cuda.memory_allocated(device) if torch.device(device).type == "cuda" else 0
+    before = torch.cuda.memory_allocated(device) if cuda else 0
     params = dict(model.named_parameters())
     backward = count_flops_backward(
         lambda p, t: torch.func.functional_call(model, p, (t,)), params, inputs)
-    after = torch.cuda.memory_allocated(device) if torch.device(device).type == "cuda" else 0
+    after = torch.cuda.memory_allocated(device) if cuda else 0
     _check(after == before, f"tools: counting the backward allocated {after - before} bytes")
-    _check(backward == summary.flops_backward == 2 * flops,
-           f"tools: backward {backward}, summary {summary.flops_backward}, not 2 x {flops}")
+    _check(backward == summary.flops_backward == 2 * dense,
+           f"tools: backward {backward}, summary {summary.flops_backward}, not 2 x {dense}")
     prune_module_summary(summary, max_depth=2)
     print(get_summary_table(summary), flush=True)
     return {
@@ -7934,6 +7970,7 @@ def phase_model(device, widths=None, window=LLAMA3_CONTEXT, steps=MODEL_STEPS,
     t0 = time.perf_counter()
     k1 = _kernels.LAUNCHES["fused_auc_hist"]
     rows = _kernels.LAUNCHES["vocab_rows"]
+    fused = _kernels.LAUNCHES["causal_attention"]
     out = {"phase": "model", "device": str(device)}
     with torch.no_grad(), _world1_group(device) as backend:
         model, out["eval_step"], last = _model_eval(device, gen, widths, window, steps)
@@ -7953,6 +7990,7 @@ def phase_model(device, widths=None, window=LLAMA3_CONTEXT, steps=MODEL_STEPS,
     out["k1_launches"] = _kernels.LAUNCHES["fused_auc_hist"] - k1
     _check(out["k1_launches"] == 0, "model: K1 launched")
     out["vocab_rows_launches"] = _kernels.LAUNCHES["vocab_rows"] - rows
+    out["causal_attention_launches"] = _kernels.LAUNCHES["causal_attention"] - fused
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -8418,6 +8456,7 @@ def phase_train(device, widths=None, layers=TRAIN_LAYERS, batch=TRAIN_BATCH, win
     gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.perf_counter()
     k1 = _kernels.LAUNCHES["fused_auc_hist"]
+    fused = _kernels.LAUNCHES["causal_attention"]
     out = {"phase": "train", "device": str(device)}
     out["probe"] = _train_probe(device)
     with _world1_group(device) as backend:
@@ -8441,6 +8480,9 @@ def phase_train(device, widths=None, layers=TRAIN_LAYERS, batch=TRAIN_BATCH, win
                f"examples: K1 launches {launches}, not {streaming} in eval_panel alone")
     out["k1_launches"] = _kernels.LAUNCHES["fused_auc_hist"] - k1
     out["k1_streaming_updates"] = streaming
+    # float32 everywhere, and the steps record for autograd: no fused attention
+    out["causal_attention_launches"] = _kernels.LAUNCHES["causal_attention"] - fused
+    _check(out["causal_attention_launches"] == 0, "train: the causal attention kernel launched")
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -9278,6 +9320,159 @@ def phase_vocab_rows(device, shapes=LM_STEP_SHAPES, f32_shape=VOCAB_ROWS_F32, re
     return out
 
 
+# ------------------------------------------------------- 23. causal_attention
+
+CAUSAL_ATTENTION_SHAPE = (8, 1024, 25, 64)  # gpt2xl_eval's (B, S, H, hd) a layer
+# S = 1, a sequence that is no tile multiple, a long one, one head, hd 128
+CAUSAL_ATTENTION_EDGES = ((2, 1, 25, 64), (2, 1000, 25, 64), (1, 2048, 16, 64),
+                          (4, 1024, 1, 64), (1, 2048, 16, 128))
+GPT2_XL = dict(vocab_size=50_257, d_model=1600, n_heads=25, d_ff=6400, max_len=1024, n_layers=48)
+GPT2_XL_BATCH = 8  # gpt2xl_eval's windows a step
+LOGIT_RMS_REL_LIMIT = 0.06  # evalbench/limits/gpt2xl_eval.json
+_fused_attention = causal_attention.causal_attention  # the kernel's call site (tests swap it)
+
+
+def _attention32(q, k, v):
+    """Causal attention in float32 (TF32 off on the card): the same
+    divisor, rounded to the inputs' dtype, the mask at -inf."""
+    d = float(torch.tensor(q.shape[-1], dtype=torch.float32).sqrt().to(q.dtype))
+    w = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d
+    seq = q.shape[1]
+    causal = torch.ones((seq, seq), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(w.masked_fill(~causal, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+
+
+def _causal_attention_check(q, k, v, what):
+    """The kernel and the op sequence it replaced on the same tensors, each
+    against float32 attention: the kernel's largest and rms errors no
+    larger than the op sequence's."""
+    got = _fused_attention(q, k, v)
+    plain = causal_attention.attention_ops(q, k, v)
+    want = _attention32(q, k, v)
+    _check(got.shape == want.shape and got.dtype == q.dtype, f"{what}: output {got.shape} {got.dtype}")
+    _check(bool(torch.isfinite(got).all()), f"{what}: the kernel's output is not finite")
+    out = {}
+    for name, x in (("kernel", got), ("plain", plain)):
+        err = (x.float() - want).abs()
+        out[f"{name}_max_err"] = float(err.max())
+        out[f"{name}_rms_err"] = float(err.pow(2).mean().sqrt())
+    _check(out["kernel_max_err"] <= out["plain_max_err"]
+           and out["kernel_rms_err"] <= out["plain_rms_err"],
+           f"{what}: the kernel is further from float32 attention than the op sequence: {out}")
+    return out
+
+
+def _attention_inputs(gen, shape, dtype, device):
+    """q, k and v as the projections give them: (B, S, H, hd) views of one
+    (B x S, 3 H hd) product's columns, row stride 3 H hd."""
+    b, seq, h, hd = shape
+    x = torch.randn((b * seq, 3 * h * hd), generator=gen, device=device).to(dtype)
+    return tuple(x[:, i * h * hd:(i + 1) * h * hd].reshape(b, seq, h, hd) for i in range(3))
+
+
+def _launches_of(fn):
+    before = _kernels.LAUNCHES["causal_attention"]
+    res = fn()
+    return res, _kernels.LAUNCHES["causal_attention"] - before
+
+
+def _causal_attention_model(device, gen, window):
+    """GPT-2 XL at full width and depth in bf16: one launch a layer a
+    forward, the logits within the cell's ``logit_rms_rel`` of the op
+    sequence's forward of the same weights; no launch where autograd
+    records, in float32 or at head width 16."""
+    model = TransformerLM(**GPT2_XL, device=device, dtype=torch.bfloat16)
+    init_params(model, gen)
+    ids = torch.randint(0, GPT2_XL["vocab_size"], (GPT2_XL_BATCH, window), generator=gen,
+                        device=device)
+    out = {}
+    with torch.no_grad():
+        logits, out["launches_forward"] = _launches_of(lambda: model(ids))
+        _check(out["launches_forward"] == GPT2_XL["n_layers"],
+               f"causal_attention: {out['launches_forward']} launches a GPT-2 XL forward")
+        fused_ms = _time_ms(lambda: model(ids), device, 3)
+        takes = causal_attention.takes
+        causal_attention.takes = lambda q, k, v: False  # the op sequence, for comparison
+        try:
+            plain, none = _launches_of(lambda: model(ids))
+            plain_ms = _time_ms(lambda: model(ids), device, 3)
+        finally:
+            causal_attention.takes = takes
+        _check(none == 0, "causal_attention: the op sequence's forward launched the kernel")
+    gap = (logits.float() - plain.float()).pow(2).mean().sqrt() / plain.float().pow(2).mean().sqrt()
+    out["logit_rms_rel_to_op_sequence"] = float(gap)
+    _check(out["logit_rms_rel_to_op_sequence"] < LOGIT_RMS_REL_LIMIT / 3,
+           f"causal_attention: logits {out['logit_rms_rel_to_op_sequence']} off the op sequence's")
+    out["forward_ms"], out["forward_ms_op_sequence"] = fused_ms, plain_ms
+    del logits, plain
+    with torch.enable_grad():  # a forward autograd records: the op sequence
+        _, out["launches_grad_forward"] = _launches_of(lambda: model(ids[:1, :128]).sum())
+    _check(out["launches_grad_forward"] == 0, "causal_attention: launched under autograd")
+    del model
+    torch.cuda.empty_cache()
+    for name, dtype, widths in (("float32", torch.float32, dict(d_model=256, n_heads=4)),
+                                ("hd16", torch.bfloat16, dict(d_model=64, n_heads=4))):
+        small = TransformerLM(vocab_size=512, d_ff=256, max_len=256, n_layers=2, **widths,
+                              device=device, dtype=dtype)
+        init_params(small, gen)
+        with torch.no_grad():
+            _, out[f"launches_{name}"] = _launches_of(lambda: small(ids[:2, :256] % 512))
+        _check(out[f"launches_{name}"] == 0, f"causal_attention: launched in the {name} leg")
+    return out
+
+
+def phase_causal_attention(device, shape=CAUSAL_ATTENTION_SHAPE, edges=CAUSAL_ATTENTION_EDGES,
+                           window=1024, reps=50, seed=23):
+    """The causal attention kernel (``ops/csrc/causal_attention.cu``) at
+    ``gpt2xl_eval``'s shape and at edge shapes, in bf16 and fp16: held to
+    float32 attention no worse than the op sequence it replaced, then timed
+    against it and against ``F.scaled_dot_product_attention`` (a yardstick
+    the port never calls); GPT-2 XL forwards count its launches. Needs a
+    CUDA device: the kernel has no CPU form."""
+    _check(torch.device(device).type == "cuda", "causal_attention: needs a CUDA device")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    out = {"phase": "causal_attention", "card": _card_line(), "shape": list(shape)}
+    q, k, v = _attention_inputs(gen, shape, torch.bfloat16, device)
+    (checked, launches) = _launches_of(lambda: _causal_attention_check(q, k, v, f"{shape} bf16"))
+    _check(launches == 1, f"causal_attention: {launches} launches a call")
+    out.update(checked)
+    out["edges"] = []
+    for edge in edges:
+        for dtype in (torch.bfloat16, torch.float16):
+            e = _attention_inputs(gen, edge, dtype, device)
+            out["edges"].append({"shape": list(edge), "dtype": str(dtype)[6:],
+                                 **_causal_attention_check(*e, f"{edge} {dtype}")})
+            del e
+    flops = causal_attention.causal_flops(*shape)
+    out["flops"] = flops
+    out["kernel_ms"] = _time_ms(lambda: causal_attention.causal_attention(q, k, v), device, reps)
+    out["device_ms"] = _device_ms(lambda: causal_attention.causal_attention(q, k, v), device, reps,
+                                  "causal_attention_kernel")
+    out["plain_ms"] = _time_ms(lambda: causal_attention.attention_ops(q, k, v), device, 5)
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    out["library_ms"] = _time_ms(
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True), device, reps)
+    out["bound_ms"] = flops / BF16_DENSE_PEAK * 1e3
+    out["bound_by"] = "operations"
+    out["tflops_per_s"] = flops / (out["device_ms"] / 1e3) / 1e12
+    out["bound_share_device"] = out["bound_ms"] / out["device_ms"]
+    base = torch.cuda.memory_allocated(device)
+    for name, fn in (("kernel", lambda: causal_attention.causal_attention(q, k, v)),
+                     ("plain", lambda: causal_attention.attention_ops(q, k, v))):
+        torch.cuda.synchronize(device)
+        _reset_peak(device)
+        fn()
+        torch.cuda.synchronize(device)
+        out[f"{name}_peak_bytes"] = _stream_peak(device) - base
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    out["model"] = _causal_attention_model(device, gen, window)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -9327,7 +9522,7 @@ def main(argv=None) -> int:
     built = _kernels.build_all()
     _emit({"phase": "build", "built": built, "seconds": time.perf_counter() - t0,
            "ptxas": {name: _ptxas_summary(_kernels.build_log(name))
-                     for name in ("fused_auc_hist", "vocab_rows")}})
+                     for name in ("fused_auc_hist", "vocab_rows", "causal_attention")}})
 
     _kernels.reset_launch_counts()
     classify = phase_classify(device, seed=args.seed)
@@ -9374,6 +9569,8 @@ def main(argv=None) -> int:
     _emit(analysis_phase)
     rows_phase = phase_vocab_rows(device, seed=args.seed + 22)
     _emit(rows_phase)
+    attention = phase_causal_attention(device, seed=args.seed + 23)
+    _emit(attention)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -9443,7 +9640,27 @@ def main(argv=None) -> int:
     } for mode, site in (
         ("argmax", "torcheval_tpu_torch/metrics/functional/tensor_utils.py::argmax_last_ops"),
         ("log_softmax",
-         "torcheval_tpu_torch/metrics/functional/text/perplexity.py::_token_log_probs_ops"))]]})
+         "torcheval_tpu_torch/metrics/functional/text/perplexity.py::_token_log_probs_ops"))],
+        {
+        "name": "causal_attention",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/ops/csrc/causal_attention.cu",
+        "replaces": "torcheval_tpu_torch/ops/causal_attention.py::attention_ops",
+        "launches_model": model["causal_attention_launches"],
+        "launches_model_eval_steps": model["eval_step"]["causal_attention_launches"],
+        "launches_train": train["causal_attention_launches"],
+        "launches_gpt2_xl_forward": attention["model"]["launches_forward"],
+        "shape": attention["shape"],
+        "ms": attention["kernel_ms"],
+        "device_ms": attention["device_ms"],
+        "plain_ms": attention["plain_ms"],
+        "library_ms": attention["library_ms"],
+        "bound_ms": attention["bound_ms"],
+        "bound_by": attention["bound_by"],
+        "bound_share_device": attention["bound_share_device"],
+        "peak_bytes": attention["kernel_peak_bytes"],
+        "plain_peak_bytes": attention["plain_peak_bytes"],
+    }]})
     print(_card_line(), flush=True)
     _emit({"ok": True, "device": {
         "platform": "gpu",

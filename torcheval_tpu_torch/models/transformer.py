@@ -10,7 +10,11 @@ The arithmetic is Flax's where it matters for parity:
 
 - ``nn.SelfAttention`` divides the query by ``sqrt(head_dim)`` (rounded
   to the activation dtype) before the product, masks with
-  ``finfo(dtype).min`` and runs its softmax in the activation dtype;
+  ``finfo(dtype).min`` and runs its softmax in the activation dtype
+  (``ops.causal_attention.attention_ops``). On the card, bf16/f16 inputs
+  at head_dim 64 or 128 that autograd does not record go to the fused
+  causal attention kernel instead (``ops.causal_attention``), which keeps
+  the scores and the softmax in float32;
 - ``nn.LayerNorm`` has eps ``1e-6`` (torch's ``layer_norm`` computes the
   variance in two passes where Flax takes E[x^2] - E[x]^2, so the two
   agree to rounding, not bitwise);
@@ -30,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torcheval_tpu_torch.ops import causal_attention
 from torcheval_tpu_torch.utils.convert import DeviceLike, canonicalize_device
 
 # jax.nn.initializers.truncated_normal's stddev of the standard normal cut at +-2
@@ -150,16 +155,11 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.query(x), self.key(x), self.value(x)  # (B, S, H, hd)
         (q, k, v), back = _local_rows(q, k, v)
-        # jnp.sqrt(depth).astype(dtype): the divisor rounded to the dtype
-        # (a CPU scalar tensor, passed to a CUDA kernel by value)
-        depth = torch.tensor(q.shape[-1], dtype=torch.float32).sqrt().to(q.dtype)
-        weights = torch.einsum("bqhd,bkhd->bhqk", q / depth, k)
-        seq = x.shape[1]
-        causal = torch.ones((seq, seq), dtype=torch.bool, device=x.device).tril()
-        weights = torch.where(causal, weights, torch.finfo(weights.dtype).min)
-        probs = torch.softmax(weights, dim=-1)
-        del weights
-        return self.out(back(torch.einsum("bhqk,bkhd->bqhd", probs, v)))
+        # the fused kernel where the inputs allow it (CUDA bf16/f16, hd 64
+        # or 128, nothing recorded for autograd), else the op sequence
+        if causal_attention.takes(q, k, v):
+            return self.out(back(causal_attention.causal_attention(q, k, v)))
+        return self.out(back(causal_attention.attention_ops(q, k, v)))
 
 
 class Block(nn.Module):

@@ -81,6 +81,19 @@ VOCAB_ROWS_LAUNCH_FIELDS = (
 )
 VOCAB_ROWS_LAUNCH = _padded("@" + "".join(code for _, code in VOCAB_ROWS_LAUNCH_FIELDS))
 
+# Fields of csrc/causal_attention.cu's CausalAttentionLaunch, in order,
+# packed the same way (CAUSAL_ATTENTION_LAUNCH); strides in elements.
+CAUSAL_ATTENTION_LAUNCH_FIELDS = (
+    ("q", "P"), ("k", "P"), ("v", "P"), ("out", "P"), ("batch", "q"),
+    ("seq", "q"), ("heads", "q"), ("q_batch_stride", "q"), ("q_row_stride", "q"),
+    ("q_head_stride", "q"), ("k_batch_stride", "q"), ("k_row_stride", "q"),
+    ("k_head_stride", "q"), ("v_batch_stride", "q"), ("v_row_stride", "q"),
+    ("v_head_stride", "q"), ("head_dim", "i"), ("dtype", "i"),
+)
+CAUSAL_ATTENTION_LAUNCH = _padded(
+    "@" + "".join(code for _, code in CAUSAL_ATTENTION_LAUNCH_FIELDS)
+)
+
 
 # source stem -> ctypes signature of every exported function
 _SIGNATURES = {
@@ -100,9 +113,14 @@ _SIGNATURES = {
         "tev_vocab_rows_init": (ctypes.c_int, [ctypes.c_int]),
         "tev_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "causal_attention": {
+        "tev_causal_attention": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_void_p]),
+        "tev_causal_attention_init": (ctypes.c_int, []),
+        "tev_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
-LAUNCHES: Dict[str, int] = {"fused_auc_hist": 0, "vocab_rows": 0}  # tev: guarded-by=_LAUNCHES_LOCK
+LAUNCHES: Dict[str, int] = {"fused_auc_hist": 0, "vocab_rows": 0, "causal_attention": 0}  # tev: guarded-by=_LAUNCHES_LOCK
 _LAUNCHES_LOCK = threading.Lock()
 _HELD = threading.local()  # .counts: the innermost held_launches tally
 
