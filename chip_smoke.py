@@ -546,6 +546,18 @@ phases, printing one JSON line for each:
    forward autograd records, in float32 or at head width 16. Phases 19
    (``model``: 32 launches a bf16 forward) and 20 (``train``: none) count
    the kernel's launches too; the ``kernels`` line reports them.
+24. ``kda``: the KDA kernels (``ops/csrc/kda.cu``). The scan at
+   ``kimilinear48b_eval_32k``'s layer shape, (1, 32,768, 32, 128) bf16
+   q, k, v with float32 decays drawn as the cell's gate draws them, and
+   at ragged T (37, 129, 1,000) with decays down to -20 a step: finite,
+   within 2 % rms of the float32 op sequence ``kda_ops``, two launches a
+   scan (the intra-chunk pass and the state pass). The short convolutions
+   at the cell's shape and at ragged T: q, k and v within one bf16 unit
+   rms of ``conv_qkv_ops`` in float32, one launch a call. Timed at the
+   cell's shape: ms (CUDA events), the kernels' device ms, the op
+   sequence's (``plain_ms``) and the bound (bytes at 3.35 TB/s); then a
+   small Kimi Linear forward at head width 128, two scan launches and one
+   convolution a KDA layer. The ``kernels`` line reports both kernels.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": {...}}``.
@@ -554,7 +566,7 @@ without a CUDA device it exits non-zero at once.
 
 The phase functions take ``device`` and sizes, so the CPU tests run phases
 1, 2, 4 to 7 and 9 to 21 at small sizes with ``device="cpu"``; phases 3, 8,
-22 and 23 run kernels that only the card has.
+22, 23 and 24 run kernels that only the card has.
 """
 
 from __future__ import annotations
@@ -701,6 +713,8 @@ from torcheval_tpu_torch.metrics.functional.text.perplexity import (  # noqa: E4
     _token_log_probs_ops,
 )
 from torcheval_tpu_torch.models import (  # noqa: E402
+    KimiLinearConfig,
+    KimiLinearLM,
     TransformerLM,
     init_long_context_lm,
     init_params,
@@ -737,7 +751,7 @@ from torcheval_tpu_torch.tools import (  # noqa: E402
     get_summary_table,
     prune_module_summary,
 )
-from torcheval_tpu_torch.ops import _kernels, causal_attention, topk, vocab_rows  # noqa: E402
+from torcheval_tpu_torch.ops import _kernels, causal_attention, kda, topk, vocab_rows  # noqa: E402
 from torcheval_tpu_torch.obs.memory import memory_report  # noqa: E402
 from torcheval_tpu_torch.obs.server import healthz_payload  # noqa: E402
 from torcheval_tpu_torch.resilience import ResilientGroup, SyncTimeoutError  # noqa: E402
@@ -9473,6 +9487,202 @@ def phase_causal_attention(device, shape=CAUSAL_ATTENTION_SHAPE, edges=CAUSAL_AT
     return out
 
 
+KDA_SHAPE = (1, 32768, 32, 128)  # kimilinear48b_eval_32k's (B, T, H, d) a KDA layer
+# (shape, decays): "cell" draws the cell's gate, a number d draws U(d, 0)
+KDA_EDGES = (((2, 1000, 4, 128), -20.0), ((1, 37, 2, 128), -20.0), ((3, 129, 3, 128), "cell"),
+             ((1, 64, 1, 128), -0.05))
+KDA_CONV_EDGES = ((2, 37, 3), (1, 1000, 4))  # (B, T, H) at d 128
+# the kernels against their float32 op sequences, rms over rms: the scan
+# rounds its records and the state's operands to bf16 (~0.005 on an
+# H100); the convolution's bf16 outputs, rounded once, read ~0.0017 and
+# the bf16 op sequence ~0.0029: one bf16 unit bounds both
+KDA_RMS_REL_LIMIT = 0.02
+KDA_CONV_RMS_REL_LIMIT = 2 ** -8
+KDA_GATE_NOISE = 0.02  # the cell's gate projection at init_std 0.006: sqrt(2304 x 128) x 0.006^2
+
+
+def _kda_kernel(q, k, v, g, beta, scale):
+    return kda.kda_chunked(q, k, v, g, beta, scale)
+
+
+def _kda_conv_kernel(x, weight, heads):
+    return kda.conv_qkv(x, weight, heads)
+
+
+def _kda_inputs(gen, shape, decay, device):
+    """One KDA layer's scan inputs: q and k L2-normalised and v a SiLU of
+    normal draws, in bf16; float32 g and beta (a sigmoid). ``decay``
+    "cell" draws the cell's gate, -exp(A_log) softplus(f + dt_bias) with
+    A_log = log U(1, 16) a head, dt_bias the inverse softplus of
+    exp(U(log 1e-3, log 0.1)) a channel and f ~ N(0, ``KDA_GATE_NOISE``);
+    a number d draws g from U(d, 0)."""
+    b, t, h, d = shape
+    rn = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    ru = lambda *s: torch.rand(s, generator=gen, device=device)  # noqa: E731
+    q = F.normalize(rn(b, t, h, d), dim=-1).to(torch.bfloat16)
+    k = F.normalize(rn(b, t, h, d), dim=-1).to(torch.bfloat16)
+    v = F.silu(rn(b, t, h, d)).to(torch.bfloat16)
+    if decay == "cell":
+        a_log = torch.log(1.0 + 15.0 * ru(h))
+        dt = torch.exp(ru(h * d) * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).clamp(min=1e-4)
+        dt_bias = (dt + torch.log(-torch.expm1(-dt))).view(h, d)
+        g = -torch.exp(a_log)[:, None] * F.softplus(KDA_GATE_NOISE * rn(b, t, h, d) + dt_bias)
+    else:
+        g = ru(b, t, h, d) * decay
+    return q, k, v, g.float(), torch.sigmoid(rn(b, t, h)).float()
+
+
+def _rms_rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+
+
+def _kda_launches(name, fn):
+    before = _kernels.LAUNCHES[name]
+    res = fn()
+    return res, _kernels.LAUNCHES[name] - before
+
+
+def _kda_check(q, k, v, g, beta, what):
+    """The scan (``_kda_kernel``) against the float32 op sequence
+    ``kda_ops``: finite, within ``KDA_RMS_REL_LIMIT``; its launches."""
+    scale = q.shape[-1] ** -0.5
+    got, launches = _kda_launches("kda", lambda: _kda_kernel(q, k, v, g, beta, scale))
+    want = kda.kda_ops(q, k, v, g, beta, scale)
+    out = {"rms_rel": _rms_rel(got, want), "finite": bool(torch.isfinite(got).all()),
+           "g_min": float(g.min()), "launches": launches}
+    _check(out["finite"] and out["rms_rel"] <= KDA_RMS_REL_LIMIT,
+           f"kda {what}: the scan is off the op sequence: {out}")
+    return out
+
+
+def _kda_conv_check(x, weight, heads, what):
+    """The short convolutions (``_kda_conv_kernel``) against
+    ``conv_qkv_ops`` on float32 copies: q, k and v each within
+    ``KDA_CONV_RMS_REL_LIMIT`` (the op sequence on ``x``'s own dtype
+    reported beside); its launches."""
+    got, launches = _kda_launches("kda_conv", lambda: _kda_conv_kernel(x, weight, heads))
+    want = kda.conv_qkv_ops(x.float(), weight.float(), heads)
+    plain = kda.conv_qkv_ops(x, weight, heads)
+    out = {"rms_rel": [_rms_rel(a, b) for a, b in zip(got, want)],
+           "plain_rms_rel": [_rms_rel(a, b) for a, b in zip(plain, want)], "launches": launches}
+    _check(all(e <= KDA_CONV_RMS_REL_LIMIT for e in out["rms_rel"]),
+           f"kda_conv {what}: the convolution is off the op sequence: {out}")
+    return out
+
+
+def _kda_bound_bytes(b, t, h, d):
+    """A scan's bytes: q, k, v read and o written in bf16, g (d a head)
+    and beta (one a head) read in float32."""
+    return b * t * h * (4 * 2 * d + 4 * d + 4)
+
+
+def _kda_conv_bound_bytes(b, t, h, d):
+    """The convolutions' bytes: the q, k and v projections read and q, k,
+    v written, bf16 (the taps aside)."""
+    return 2 * 2 * b * t * 3 * h * d
+
+
+def _kda_model(device, gen):
+    """A small ``KimiLinearLM`` at head width 128 in bf16 on the card: two
+    scan launches and one convolution a KDA layer a forward, finite logits."""
+    cfg = KimiLinearConfig(
+        vocab_size=512, hidden_size=256, num_hidden_layers=4, num_attention_heads=2,
+        kv_lora_rank=32, qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+        intermediate_size=256, moe_intermediate_size=64, num_experts=2, router_experts=8,
+        held_expert_start=2, num_experts_per_token=2,
+        linear_attn_config=dict(kda_layers=[1, 2, 4], full_attn_layers=[3], head_dim=128,
+                                num_heads=2, short_conv_kernel_size=4))
+    model = KimiLinearLM(cfg, device=device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("norm"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.05, generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen, device=device)
+    layers = len(cfg.linear_attn_config["kda_layers"])
+    before = dict(_kernels.LAUNCHES)
+    with torch.no_grad():
+        logits = model(ids)
+    out = {"kda_layers": layers,
+           "launches_forward": _kernels.LAUNCHES["kda"] - before["kda"],
+           "conv_launches_forward": _kernels.LAUNCHES["kda_conv"] - before["kda_conv"],
+           "finite": bool(torch.isfinite(logits).all())}
+    _check(out["launches_forward"] == 2 * layers and out["conv_launches_forward"] == layers
+           and out["finite"], f"kda: a Kimi Linear forward: {out}")
+    return out
+
+
+def phase_kda(device, shape=KDA_SHAPE, edges=KDA_EDGES, conv_edges=KDA_CONV_EDGES, reps=20,
+              seed=24):
+    """The KDA kernels (``ops/csrc/kda.cu``): the scan at
+    ``kimilinear48b_eval_32k``'s layer shape with the cell's decays and at
+    ragged T with decays down to -20 a step, held to ``kda_ops``, two
+    launches a scan; the short convolutions at the cell's shape and ragged
+    T, held to ``conv_qkv_ops``, one launch each; timed against their op
+    sequences and their bounds; a small model's forward counts both. Needs
+    a CUDA device: the kernels have no CPU form."""
+    _check(torch.device(device).type == "cuda", "kda: needs a CUDA device")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    b, t, h, d = shape
+    out = {"phase": "kda", "card": _card_line(), "shape": list(shape)}
+    q, k, v, g, beta = _kda_inputs(gen, shape, "cell", device)
+    out["scan"] = _kda_check(q, k, v, g, beta, f"{shape}")
+    _check(out["scan"]["launches"] == 2, f"kda: {out['scan']['launches']} launches a scan")
+    out["edges"] = []
+    for edge, decay in edges:
+        e = _kda_inputs(gen, edge, decay, device)
+        checked = _kda_check(*e, f"{edge} g {decay}")
+        _check(checked["launches"] == 2, f"kda {edge}: {checked['launches']} launches a scan")
+        out["edges"].append({"shape": list(edge), "decay": decay, **checked})
+        del e
+    scale = d ** -0.5
+    out["kernel_ms"] = _time_ms(lambda: kda.kda_chunked(q, k, v, g, beta, scale), device, reps)
+    # per launch of each pass (a trace late in a long run can drop launches)
+    out["intra_device_ms"], out["state_device_ms"] = (
+        _device_ms(lambda: kda.kda_chunked(q, k, v, g, beta, scale), device, 5, f"{name}(")
+        for name in ("kda_intra", "kda_state"))
+    out["device_ms"] = out["intra_device_ms"] + out["state_device_ms"]
+    out["plain_ms"] = _time_ms(lambda: kda.kda_ops(q, k, v, g, beta, scale), device, 2)
+    out["flops"] = kda.kda_flops(b, t, h, d, d)
+    out["bytes"] = _kda_bound_bytes(b, t, h, d)
+    out["bound_ms"] = max(out["bytes"] / HBM_BYTES_PER_S, out["flops"] / BF16_DENSE_PEAK) * 1e3
+    out["bound_by"] = "bytes" if out["bytes"] / HBM_BYTES_PER_S >= out["flops"] / BF16_DENSE_PEAK \
+        else "operations"
+    out["bound_share_device"] = out["bound_ms"] / out["device_ms"]
+    del q, k, v, g, beta
+    torch.cuda.empty_cache()
+
+    x = (torch.randn((b, t, 3 * h * d), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+    w = (torch.randn((3 * h * d, kda.CONV_TAPS), generator=gen, device=device) * 0.29
+         ).to(torch.bfloat16)
+    conv = {"shape": [b, t, h], **_kda_conv_check(x, w, h, f"{(b, t, h)}")}
+    _check(conv["launches"] == 1, f"kda_conv: {conv['launches']} launches a call")
+    conv["edges"] = []
+    for eb, et, eh in conv_edges:
+        ex = (torch.randn((eb, et, 3 * eh * d), generator=gen, device=device) * 0.3
+              ).to(torch.bfloat16)
+        ew = (torch.randn((3 * eh * d, kda.CONV_TAPS), generator=gen, device=device) * 0.29
+              ).to(torch.bfloat16)
+        checked = _kda_conv_check(ex, ew, eh, f"{(eb, et, eh)}")
+        _check(checked["launches"] == 1, f"kda_conv {(eb, et, eh)}: {checked['launches']} launches")
+        conv["edges"].append({"shape": [eb, et, eh], **checked})
+    conv["kernel_ms"] = _time_ms(lambda: kda.conv_qkv(x, w, h), device, reps)
+    conv["device_ms"] = _device_ms(lambda: kda.conv_qkv(x, w, h), device, 5, "kda_conv(")
+    conv["plain_ms"] = _time_ms(lambda: kda.conv_qkv_ops(x, w, h), device, 5)
+    conv["bytes"] = _kda_conv_bound_bytes(b, t, h, d)
+    conv["bound_ms"] = conv["bytes"] / HBM_BYTES_PER_S * 1e3
+    conv["bound_share_device"] = conv["bound_ms"] / conv["device_ms"]
+    out["conv"] = conv
+    del x, w
+    torch.cuda.empty_cache()
+    out["model"] = _kda_model(device, gen)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -9522,7 +9732,7 @@ def main(argv=None) -> int:
     built = _kernels.build_all()
     _emit({"phase": "build", "built": built, "seconds": time.perf_counter() - t0,
            "ptxas": {name: _ptxas_summary(_kernels.build_log(name))
-                     for name in ("fused_auc_hist", "vocab_rows", "causal_attention")}})
+                     for name in ("fused_auc_hist", "vocab_rows", "causal_attention", "kda")}})
 
     _kernels.reset_launch_counts()
     classify = phase_classify(device, seed=args.seed)
@@ -9571,6 +9781,8 @@ def main(argv=None) -> int:
     _emit(rows_phase)
     attention = phase_causal_attention(device, seed=args.seed + 23)
     _emit(attention)
+    kda_phase = phase_kda(device, seed=args.seed + 24)
+    _emit(kda_phase)
 
     rows = [r for r in timing["rows"] if r["num_bins"] == NUM_BINS]
     main_row = next(r for r in rows
@@ -9660,6 +9872,36 @@ def main(argv=None) -> int:
         "bound_share_device": attention["bound_share_device"],
         "peak_bytes": attention["kernel_peak_bytes"],
         "plain_peak_bytes": attention["plain_peak_bytes"],
+    }, {
+        "name": "kda",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/ops/csrc/kda.cu",
+        "replaces": "torcheval_tpu_torch/ops/kda.py::kda_ops",
+        "launches_a_scan": kda_phase["scan"]["launches"],
+        "launches_kimi_linear_forward": kda_phase["model"]["launches_forward"],
+        "rms_rel": kda_phase["scan"]["rms_rel"],
+        "shape": kda_phase["shape"],
+        "ms": kda_phase["kernel_ms"],
+        "device_ms": kda_phase["device_ms"],
+        "plain_ms": kda_phase["plain_ms"],
+        "bound_ms": kda_phase["bound_ms"],
+        "bound_by": kda_phase["bound_by"],
+        "bound_share_device": kda_phase["bound_share_device"],
+    }, {
+        "name": "kda_conv",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/ops/csrc/kda.cu",
+        "replaces": "torcheval_tpu_torch/ops/kda.py::conv_qkv_ops",
+        "launches_a_call": kda_phase["conv"]["launches"],
+        "launches_kimi_linear_forward": kda_phase["model"]["conv_launches_forward"],
+        "rms_rel": kda_phase["conv"]["rms_rel"],
+        "shape": kda_phase["conv"]["shape"],
+        "ms": kda_phase["conv"]["kernel_ms"],
+        "device_ms": kda_phase["conv"]["device_ms"],
+        "plain_ms": kda_phase["conv"]["plain_ms"],
+        "bound_ms": kda_phase["conv"]["bound_ms"],
+        "bound_by": "bytes",
+        "bound_share_device": kda_phase["conv"]["bound_share_device"],
     }]})
     print(_card_line(), flush=True)
     _emit({"ok": True, "device": {

@@ -117,7 +117,8 @@ def test_moe_source_counts_forwards_and_routed_pairs_exactly(model):
     registry = obs.default_registry()
     assert "moe" in registry.sources
     before = registry.read()["moe"]
-    assert set(before) == {"forwards", "routed_pairs", "loaded_pairs", "load_max_over_mean"}
+    assert set(before) == {"forwards", "routed_pairs", "held_pairs", "loaded_pairs",
+                           "load_max_over_mean"}
     tokens = _tokens(batch=3, seq=10)
     with torch.no_grad():
         model(tokens)
@@ -127,5 +128,6 @@ def test_moe_source_counts_forwards_and_routed_pairs_exactly(model):
     pairs = (30 + 10) * CONFIG.num_experts_per_tok * moe_layers
     assert after["forwards"] - before["forwards"] == 2
     assert after["routed_pairs"] - before["routed_pairs"] == pairs
+    assert after["held_pairs"] - before["held_pairs"] == pairs
     assert after["loaded_pairs"] - before["loaded_pairs"] == pairs
     assert registry.flat()["moe.forwards"] == after["forwards"]

@@ -2,7 +2,10 @@
 transformer LM, the long-context LM on ring attention, and the port's own
 DeepSeek-V3-family LM (``MLAMoELM``: multi-head latent attention and the
 dropless top-k expert layer of ``parallel.moe.moe_topk_dropless``;
-Moonlight-16B-A3B at its default ``MLAMoEConfig``)."""
+Moonlight-16B-A3B at its default ``MLAMoEConfig``), and the hybrid
+``KimiLinearLM`` (Kimi Delta Attention layers on ``ops.kda``, NoPE latent
+attention and the same expert layer over a held share of the experts;
+Kimi-Linear-48B-A3B at its default ``KimiLinearConfig``)."""
 
 from torcheval_tpu_torch.models.inception import (
     FEATURE_DIM,
@@ -16,6 +19,7 @@ from torcheval_tpu_torch.models.long_context import (
     long_context_lm,
     perplexity_counters,
 )
+from torcheval_tpu_torch.models.kimi_linear import KimiLinearConfig, KimiLinearLM
 from torcheval_tpu_torch.models.mla_moe import MLAMoEConfig, MLAMoELM
 from torcheval_tpu_torch.models.transformer import (
     TransformerLM,
@@ -37,4 +41,6 @@ __all__ = [
     "load_torchvision_inception_params",
     "MLAMoEConfig",
     "MLAMoELM",
+    "KimiLinearConfig",
+    "KimiLinearLM",
 ]

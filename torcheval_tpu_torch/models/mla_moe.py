@@ -52,7 +52,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -143,11 +143,14 @@ def _param(*shape: int, device, dtype) -> nn.Parameter:
 
 
 class LatentAttention(nn.Module):
-    """MLA without q-LoRA (module docstring)."""
+    """MLA without q-LoRA (module docstring). ``nope=True`` leaves q's
+    rope dims and the shared ``k_rope`` unrotated (Kimi Linear's
+    ``mla_use_nope``): attention with no position encoding."""
 
-    def __init__(self, c: MLAMoEConfig, *, device, dtype) -> None:
+    def __init__(self, c: MLAMoEConfig, *, device, dtype, nope: bool = False) -> None:
         super().__init__()
         self.c = c
+        self.nope = nope
         kw = dict(device=device, dtype=dtype)
         h = c.num_attention_heads
         self.q = _param(c.hidden_size, h * c.qk_head_dim, **kw)
@@ -166,8 +169,10 @@ class LatentAttention(nn.Module):
             c_kv, k_rope = (x @ self.kv_a).split([c.kv_lora_rank, rope], dim=-1)
             kv = rms_norm(c_kv, self.kv_a_norm, c.rms_norm_eps) @ self.kv_b
             k_nope, v = kv.view(b, s, h, nope + dv).split([nope, dv], dim=-1)
-            q_rope = apply_rope(q_rope, cos[:, None, :], sin[:, None, :])
-            k_rope = apply_rope(k_rope, cos, sin)[:, :, None, :].expand(b, s, h, rope)
+            if not self.nope:
+                q_rope = apply_rope(q_rope, cos[:, None, :], sin[:, None, :])
+                k_rope = apply_rope(k_rope, cos, sin)
+            k_rope = k_rope[:, :, None, :].expand(b, s, h, rope)
             q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
             k = torch.cat([k_nope, k_rope], dim=-1).transpose(1, 2)
             out = F.scaled_dot_product_attention(q, k, v.transpose(1, 2), is_causal=True,
@@ -188,21 +193,42 @@ class DenseMLP(nn.Module):
 
 
 class MoE(nn.Module):
-    """The router over every expert, every expert's stacked SwiGLU kernels
-    and the shared experts (one SwiGLU of ``n_shared_experts x
-    moe_intermediate_size``)."""
+    """The router over every expert, the stacked SwiGLU kernels of the
+    experts held here and the shared experts (one SwiGLU of
+    ``n_shared_experts x moe_intermediate_size``).
 
-    def __init__(self, c: MLAMoEConfig, *, device, dtype) -> None:
+    ``expert_ids`` lists the global ids of the experts held here, in the
+    order of the stacked kernels (a chip's share under expert
+    parallelism); None holds all ``n_routed_experts`` in order. The router
+    always scores all of them: a token routed to an expert not held here
+    gets nothing from it (``moe_topk_dropless``). The ids' device tensor is
+    made at the first forward on a device and kept."""
+
+    def __init__(self, c: MLAMoEConfig, *, device, dtype,
+                 expert_ids: Optional[Sequence[int]] = None) -> None:
         super().__init__()
         self.c = c
         kw = dict(device=device, dtype=dtype)
         d, f, e = c.hidden_size, c.moe_intermediate_size, c.n_routed_experts
+        self.expert_ids = None if expert_ids is None else tuple(int(i) for i in expert_ids)
+        if self.expert_ids is not None and not all(0 <= i < e for i in self.expert_ids):
+            raise ValueError(f"expert ids {self.expert_ids} outside the router's {e} experts")
+        held = e if self.expert_ids is None else len(self.expert_ids)
+        self._ids: Dict[torch.device, torch.Tensor] = {}
         self.router = _param(e, d, **kw)
         self.bias = _param(e, **kw)
-        self.gate_up = _param(e, d, 2 * f, **kw)
-        self.down = _param(e, f, d, **kw)
+        self.gate_up = _param(held, d, 2 * f, **kw)
+        self.down = _param(held, f, d, **kw)
         self.shared_gate_up = _param(d, 2 * f * c.n_shared_experts, **kw)
         self.shared_down = _param(f * c.n_shared_experts, d, **kw)
+
+    def _held_ids(self, device: torch.device) -> Optional[torch.Tensor]:
+        if self.expert_ids is None:
+            return None
+        ids = self._ids.get(device)
+        if ids is None:
+            ids = self._ids[device] = torch.tensor(self.expert_ids, dtype=torch.int64, device=device)
+        return ids
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.c
@@ -210,7 +236,8 @@ class MoE(nn.Module):
         y = moe_topk_dropless(
             x.reshape(-1, x.shape[-1]), self.router, self.bias, self.gate_up, self.down,
             k=c.num_experts_per_tok, norm_topk_prob=c.norm_topk_prob,
-            routed_scaling_factor=c.routed_scaling_factor, shared=shared)
+            routed_scaling_factor=c.routed_scaling_factor,
+            expert_ids=self._held_ids(x.device), shared=shared)
         return y.view(x.shape)
 
 

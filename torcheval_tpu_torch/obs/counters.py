@@ -39,7 +39,8 @@ source adds nothing to any hot path. The default registry federates:
   captures, replays, the unbucketed groups run eagerly by reason, graphs
   and pools alive). The port alone has this source too.
 - ``moe``: the dropless top-k expert layer (``parallel.moe.moe_counts()``:
-  model forwards, routed pairs counted from shapes, the pairs the grouped
+  model forwards, routed pairs counted from shapes, the routed pairs of
+  the experts held here (from the router's choices), the pairs the grouped
   products computed (each held expert's rows between its offsets) and
   the busiest expert's load over the mean; counted whether or not the
   recorder is on, the loads on the device and read back only here). The

@@ -94,6 +94,23 @@ CAUSAL_ATTENTION_LAUNCH = _padded(
     "@" + "".join(code for _, code in CAUSAL_ATTENTION_LAUNCH_FIELDS)
 )
 
+# Fields of csrc/kda.cu's KdaLaunch, in order, packed the same way
+# (KDA_LAUNCH).
+KDA_LAUNCH_FIELDS = (
+    ("q", "P"), ("k", "P"), ("v", "P"), ("g", "P"), ("beta", "P"), ("out", "P"),
+    ("wk", "P"), ("wv", "P"), ("qt", "P"), ("kb", "P"), ("mm", "P"), ("gam", "P"),
+    ("batch", "q"), ("seq", "q"), ("heads", "q"), ("scale", "f"),
+)
+KDA_LAUNCH = _padded("@" + "".join(code for _, code in KDA_LAUNCH_FIELDS))
+
+# Fields of csrc/kda.cu's KdaConvLaunch, in order, packed the same way
+# (KDA_CONV_LAUNCH).
+KDA_CONV_LAUNCH_FIELDS = (
+    ("x", "P"), ("w", "P"), ("q", "P"), ("k", "P"), ("v", "P"),
+    ("batch", "q"), ("seq", "q"), ("heads", "q"),
+)
+KDA_CONV_LAUNCH = _padded("@" + "".join(code for _, code in KDA_CONV_LAUNCH_FIELDS))
+
 
 # source stem -> ctypes signature of every exported function
 _SIGNATURES = {
@@ -118,9 +135,16 @@ _SIGNATURES = {
         "tev_causal_attention_init": (ctypes.c_int, []),
         "tev_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "kda": {
+        "tev_kda": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_void_p]),
+        "tev_kda_conv": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_void_p]),
+        "tev_kda_init": (ctypes.c_int, []),
+        "tev_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
-LAUNCHES: Dict[str, int] = {"fused_auc_hist": 0, "vocab_rows": 0, "causal_attention": 0}  # tev: guarded-by=_LAUNCHES_LOCK
+_KERNEL_NAMES = ("fused_auc_hist", "vocab_rows", "causal_attention", "kda", "kda_conv")
+LAUNCHES: Dict[str, int] = dict.fromkeys(_KERNEL_NAMES, 0)  # tev: guarded-by=_LAUNCHES_LOCK
 _LAUNCHES_LOCK = threading.Lock()
 _HELD = threading.local()  # .counts: the innermost held_launches tally
 

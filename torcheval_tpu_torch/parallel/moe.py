@@ -148,12 +148,15 @@ def moe_reference(
 # routed-pair counts, process-wide and whether or not the recorder is on
 # (as ``metrics._buffer.GROWTHS``): ``forwards`` is bumped by a model's
 # forward (``note_forward``), ``routed_pairs`` by every call of
-# ``moe_topk_dropless`` from its shapes; ``_LOADS`` holds each layer's
-# per-expert computed pairs (keyed by its router's device and storage) as
-# a device tensor, added to on the device and read back only by
-# ``moe_counts``
-_COUNTS: Dict[str, int] = {"forwards": 0, "routed_pairs": 0}  # tev: guarded-by=_COUNTS_LOCK
+# ``moe_topk_dropless`` from its shapes, and so is ``held_pairs`` by a
+# call that holds every expert; ``_LOADS`` holds each layer's per-expert
+# computed pairs (keyed by its router's device and storage) as a device
+# tensor, added to on the device and read back only by ``moe_counts`` and
+# ``moe_loads``, and ``_HELD`` a device count, per device, of the pairs a call holding a
+# share routed to its experts
+_COUNTS: Dict[str, int] = {"forwards": 0, "routed_pairs": 0, "held_pairs": 0}  # tev: guarded-by=_COUNTS_LOCK
 _LOADS: Dict[Tuple[str, int], torch.Tensor] = {}  # tev: guarded-by=_COUNTS_LOCK
+_HELD: Dict[str, torch.Tensor] = {}  # tev: guarded-by=_COUNTS_LOCK
 _COUNTS_LOCK = threading.Lock()
 
 
@@ -166,23 +169,39 @@ def note_forward() -> None:
 
 def moe_counts() -> Dict[str, float]:
     """The ``moe`` counter source: ``forwards``, ``routed_pairs`` (tokens x
-    k summed over the calls, from shapes), ``loaded_pairs`` (the pairs the
-    grouped products computed, each held expert's rows between its offsets,
-    summed: equal to ``routed_pairs`` while every expert is held and every
-    routed pair is computed; a rank holding a share of the experts counts
-    its share's pairs) and ``load_max_over_mean`` (the most loaded expert
-    of any layer over the mean load of a layer's expert; 0 before any
-    call). Reading it synchronises with the device."""
+    k summed over the calls, from shapes), ``held_pairs`` (the routed pairs
+    whose expert is held here, counted from the router's choices: equal to
+    ``routed_pairs`` while every expert is held), ``loaded_pairs`` (the
+    pairs the grouped products computed, each held expert's rows between
+    its offsets, summed: equal to ``held_pairs`` while every routed pair
+    of a held expert is computed) and ``load_max_over_mean`` (the most
+    loaded expert of any layer over the mean load of a layer's expert; 0
+    before any call). Reading it synchronises with the device."""
     with _COUNTS_LOCK:
         out: Dict[str, float] = dict(_COUNTS)
         loads = [t.to("cpu", torch.float64) for t in _LOADS.values()]
+        out["held_pairs"] += sum(int(t) for t in _HELD.values())
     every = torch.cat(loads) if loads else torch.zeros(1, dtype=torch.float64)
     out["loaded_pairs"] = int(every.sum())
     out["load_max_over_mean"] = float(every.max() / every.mean()) if out["loaded_pairs"] else 0.0
     return out
 
 
-def _count_loads(loads: torch.Tensor, pairs: int, router: torch.Tensor) -> None:
+def moe_loads(router: torch.Tensor) -> Optional[torch.Tensor]:
+    """The per-expert pairs computed so far by the expert layer whose
+    router weight is ``router`` (int64 on the CPU, one entry an expert of
+    the router, zero for an expert not held), or None before that layer's
+    first call. Reading it synchronises with the device."""
+    with _COUNTS_LOCK:
+        loads = _LOADS.get((str(router.device), router.data_ptr()))
+        return None if loads is None else loads.to("cpu", copy=True)
+
+
+def _count_loads(loads: torch.Tensor, pairs: int, router: torch.Tensor,
+                 held_pairs: Optional[torch.Tensor] = None) -> None:
+    """Count a call's ``pairs`` routed, its per-expert ``loads`` and, for a
+    call holding a share, ``held_pairs`` (a device scalar; None counts all
+    ``pairs`` as held)."""
     if is_fake(loads):  # a FLOP count or a trace: nothing was routed
         return
     key = (str(loads.device), router.data_ptr())
@@ -193,6 +212,12 @@ def _count_loads(loads: torch.Tensor, pairs: int, router: torch.Tensor) -> None:
             _LOADS[key] = loads.clone()
         else:
             held.add_(loads)
+        if held_pairs is None:
+            _COUNTS["held_pairs"] += pairs
+        elif key[0] in _HELD:
+            _HELD[key[0]].add_(held_pairs)
+        else:
+            _HELD[key[0]] = held_pairs.clone()
 
 
 def _held_groups(
@@ -304,9 +329,11 @@ def moe_topk_dropless(
         # the loads as the grouped products consume them: each held
         # expert's rows between its offsets
         loads = torch.diff(offs, prepend=offs.new_zeros(1)).to(torch.int64)
+        held_pairs = None
         if expert_ids is not None:
             loads = routed.new_zeros(num_experts).index_add_(0, expert_ids, loads)
-    _count_loads(loads, n * k, router_weight)
+            held_pairs = routed[expert_ids].sum()
+    _count_loads(loads, n * k, router_weight, held_pairs)
     with _obs_trace.scope_or_null("torcheval.moe.experts", traced):
         rows = x.index_select(0, order // k)
         h = torch._grouped_mm(rows, gate_up, offs=offs)
